@@ -1,0 +1,1 @@
+"""Example problems (JAX counterpart: theseus_tpu/utils/examples/__init__.py)."""
