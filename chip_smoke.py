@@ -1,29 +1,39 @@
 #!/usr/bin/env python3
-"""On-card check of theseus_tpu_torch: the batched SE3 pose-graph LM solve on one NVIDIA GPU.
+"""On-card check of theseus_tpu_torch: the batched SE3 pose-graph and bundle-adjustment LM solves on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with one CUDA GPU and the CUDA
 toolkit (nvcc):
 
     python3 chip_smoke.py
 
-It imports neither jax nor theseus_tpu. In order:
+It imports neither jax nor theseus_tpu. Two main paths run through
+`TheseusLayer.forward`: PGO (256 poses x batch 128, sparse linearization)
+and BA (128 cameras x 4000 points x batch 1, visibility 0.4: 204,800
+Reprojection observations, Schur linearization). In order:
 
 1. fails fast without a CUDA device or outside a checkout;
-2. builds the CUDA kernels from theseus_tpu_torch/csrc (nvcc, sm_90a) and
-   prints the build time and each d=6 kernel's registers and spills;
+2. builds the CUDA kernels from theseus_tpu_torch/csrc (nvcc, sm_90a, one
+   process per source, in parallel) and prints the build time and each
+   kernel's registers and spills;
 3. kernel phase: every kernel against its plain PyTorch twin on the card, at
-   the shapes of the 256-pose x batch-128 problem (Between at K=257,
-   B=128; the assembly of both buckets; every etree level's (C, rl, ul)),
-   in float32 and float64, each line with its deviation and tolerance;
-4. slice phase: `TheseusLayer.forward` at 256 x 128 in float32 with the
-   launch counters reset just before and read just after; the converged
-   plateau against the plain-twin float64 solve on the card; the 64 x 16
-   problem from the committed JAX float64 golden; a few more requests on
-   fresh inputs; one solve with the high-precision tier (refinement) on;
-5. timing phase: ms per LM iteration (marginal window, as bench.py) at
-   64 x 16 and 256 x 128 for the kernel path and the plain-twin path, and
-   each kernel against its twin at the main-path shapes (CUDA events);
-6. prints one JSON line of kernel results, the card's name and power limit,
+   the shapes the main paths give it (PGO: Between at K=257, B=128, the
+   assembly of both buckets, every etree level's (C, rl, ul); BA:
+   Reprojection at K=204,800, B=1 and at 16 x 200 x batch 16, the mixed-dof
+   assembly), in float32 and float64, each line with its deviation and
+   tolerance;
+4. slice phases, one per path: the float32 forward with the launch counters
+   reset just before and read just after; the converged plateau against the
+   plain-twin float64 solve of the same problem on the card; the problem of
+   the committed JAX float64 golden (PGO 64 x 16, BA 16 x 200 x 4); more
+   requests on fresh inputs; for PGO one solve with the high-precision tier;
+5. timing phase: ms per LM iteration (marginal window, as bench.py) for the
+   kernel path and the plain-twin path (PGO 64 x 16 and 256 x 128; BA
+   16 x 200 x 16 and 128 x 4000 x 1), and each kernel against its twin at
+   the main-path shapes (CUDA events);
+6. profile phase: per path, synced stage times of one LM iteration and a
+   torch.profiler window (device busy and idle share, launches, top
+   kernels);
+7. prints one JSON line of kernel results, the card's name and power limit,
    and as the last line {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.
@@ -40,12 +50,20 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "fixtures" / "pgo_64x16_jax_f64.npz"
-ITERS = 30  # enough for the 256 x 128 and 64 x 16 solves to sit on their plateau
+BA_GOLDEN = ROOT / "tests" / "fixtures" / "ba_16x200_jax_f64.npz"
+ITERS = 30  # enough for every solve here to sit on its plateau
+BA_MAIN = (128, 4000, 1)  # cameras, points, batch: 204,800 observations
+BA_SMALL = (16, 200, 16)
+BA_VISIBILITY = 0.4
+BA_OPTS = dict(adaptive_damping=True, ellipsoidal_damping=True, linearization="schur")
 
 # Kernel against twin, same inputs: max |kernel - twin| <= TOL * max(1, max |twin|).
 # Default: float32 2e-5 (native sqrt/atan2 against torch's, FMA contraction
 # and another summation order: about a hundred ulp of the output's scale);
 # float64 1e-12 (the same formulas, only the rounding order differs).
+# Reprojection takes the default: one branch-free chain with no atan2, so
+# FMA contraction is the only difference; its outputs carry the focal
+# length (~1e3), which the max(1, |twin|) scale absorbs.
 # Between: its jlog coefficients (c, d of se3.jlog) are differences of O(theta^2)
 # terms that cancel to O(theta^6) just above the derivative-branch switch
 # (theta = 0.2 in float32), and the 256 x 128 initial state sits there. The
@@ -70,6 +88,12 @@ TOL_REASON = {
 PLATEAU_RTOL_F32 = 2e-3
 # float64 kernels against the JAX float64 golden: converged float64 plateaus
 PLATEAU_RTOL_F64 = 1e-8
+# BA in float32 (errors and jacobians carry the focal length, 1e3) stalls
+# further from its float64 plateau: 2.5e-3 at 16 x 200 x 16, 1.8e-3 at
+# 16 x 200 x 4, 1.7e-3 at 32 x 400 x 2, 1.3e-3 at 64 x 800 x 1 (the port's
+# CPU twins, float32 against float64); 1e-2 leaves room for the card's
+# rounding order.
+BA_PLATEAU_RTOL_F32 = 1e-2
 
 KERNEL_INFO = {
     "between_se3": ("theseus_tpu_torch/csrc/between_se3.cu", "theseus_tpu/ops/pallas_between_soa.py:321"),
@@ -77,6 +101,7 @@ KERNEL_INFO = {
     "level_factor": ("theseus_tpu_torch/csrc/level_factor.cu", "theseus_tpu/sparse/pallas_factorize.py:118"),
     "level_fwd_subst": ("theseus_tpu_torch/csrc/level_subst.cu", "theseus_tpu/sparse/pallas_factorize.py:260"),
     "level_bwd_subst": ("theseus_tpu_torch/csrc/level_subst.cu", "theseus_tpu/sparse/pallas_factorize.py:260"),
+    "reprojection": ("theseus_tpu_torch/csrc/reprojection.cu", "theseus_tpu/ops/pallas_reprojection.py:171"),
 }
 
 
@@ -101,15 +126,16 @@ def card_line() -> str:
 # problems
 # ---------------------------------------------------------------------------
 class Problem:
-    """A PGO problem on the card: objective, layer, packed state and aux."""
+    """A problem on the card: objective, layer, packed state and aux."""
 
-    def __init__(self, obj, inputs, iters=ITERS):
+    def __init__(self, obj, inputs, iters=ITERS, **opt_kwargs):
         import theseus_tpu_torch as tt
 
         self.obj = obj
         self.inputs = inputs
+        opt_kwargs.setdefault("adaptive_damping", True)
         self.layer = tt.TheseusLayer(
-            tt.LevenbergMarquardt(obj, max_iterations=iters, adaptive_damping=True)
+            tt.LevenbergMarquardt(obj, max_iterations=iters, **opt_kwargs)
         )
         self.opt = self.layer.optimizer
         self.co = obj.compile()
@@ -136,11 +162,51 @@ def golden_problem(dtype, dev):
     return Problem(obj, inputs)
 
 
-def golden_errors():
+def golden_errors(path=GOLDEN):
     import numpy as np
 
-    with np.load(GOLDEN) as f:
+    with np.load(path) as f:
         return np.array(f["final_err"]), int(f["n_iters"])
+
+
+def ba_problem(cams, pts, batch, dtype, dev, seed=0):
+    from theseus_tpu_torch.utils.examples.bundle_adjustment import (
+        ba_values, build_ba_objective, synthetic_ba)
+
+    prob = synthetic_ba(cams, pts, batch=batch, seed=seed, visibility=BA_VISIBILITY, dtype=dtype, device=dev)
+    obj, _, _ = build_ba_objective(prob, dtype=dtype, device=dev)
+    return Problem(obj, ba_values(prob), **BA_OPTS)
+
+
+def ba_golden_problem(dtype, dev):
+    from theseus_tpu_torch.utils.convert import load_ba_npz
+    from theseus_tpu_torch.utils.examples.bundle_adjustment import ba_values, build_ba_objective
+
+    prob = load_ba_npz(BA_GOLDEN, dtype=dtype, device=dev)
+    obj, _, _ = build_ba_objective(prob, dtype=dtype, device=dev)
+    return Problem(obj, ba_values(prob), **BA_OPTS)
+
+
+def reprojection_operands(prob):
+    """The Reprojection bucket's gathered (pose, point) and its aux, as the
+    solver hands them to the kernel."""
+    from theseus_tpu_torch.embodied import Reprojection
+
+    for bi, bk in enumerate(prob.co.buckets):
+        if isinstance(bk.template, Reprojection):
+            return prob.co.gather_optim(bk, prob.state) + prob.aux[bi][0]
+    raise CheckFailed("no Reprojection bucket")
+
+
+def padded_blocks(prob):
+    """Plain-twin linearization of every bucket, jacobians padded to d."""
+    from theseus_tpu_torch import config
+    from theseus_tpu_torch.sparse.assemble import _pad_jac
+
+    d = prob.builder.pattern.d
+    with config.plain_path():
+        blocks = prob.co.linearize_blocks(prob.state, prob.aux)
+    return [([_pad_jac(j, d) for j in jacs], err) for jacs, err in blocks]
 
 
 # ---------------------------------------------------------------------------
@@ -161,10 +227,10 @@ def phase_build():
         if not m:
             continue
         name = m.group(1)
-        if not ("between_se3" in name or "Li6E" in name):
+        if not ("between_se3" in name or "reprojection" in name or "Li6E" in name):
             continue
-        kind = next(k for k in ("between_se3", "assemble", "level_factor", "fwd_subst", "bwd_subst")
-                    if k in name)
+        kind = next(k for k in ("between_se3", "reprojection", "assemble", "level_factor", "fwd_subst",
+                                "bwd_subst") if k in name)
         dt = "f64" if "kernelId" in name else "f32"
         info = " ".join(l.strip() for l in log[i + 1 : i + 5])
         regs = re.search(r"Used (\d+) registers", info)
@@ -240,7 +306,6 @@ def phase_kernels(dev):
     import torch
 
     from theseus_tpu_torch.ops.between_se3 import between_linearize, between_linearize_plain
-    from theseus_tpu_torch.sparse.assemble import _pad_jac
     from theseus_tpu_torch.sparse.assemble_kernel import assemble_blocks, assemble_blocks_plain
     from theseus_tpu_torch.sparse.level_kernels import (
         level_bwd_subst, level_bwd_subst_plain, level_factor, level_factor_plain,
@@ -257,10 +322,9 @@ def phase_kernels(dev):
                         between_linearize_plain(v1, v2, meas), note)
         max_abs.setdefault("between_se3", {})[dn] = e
 
-        blocks, ata, lflat, y, x, b_perm = plain_system(prob)
-        d = prob.builder.pattern.d
-        padded = [([_pad_jac(j, d) for j in jacs], err) for jacs, err in blocks]
-        note = "buckets K=" + ",".join(str(err.shape[0]) for _, err in blocks)
+        _, ata, lflat, y, x, b_perm = plain_system(prob)
+        padded = padded_blocks(prob)
+        note = "buckets K=" + ",".join(str(err.shape[0]) for _, err in padded)
         e = _dev_report("assemble_blocks", dn, assemble_blocks(prob.builder.pattern, padded),
                         assemble_blocks_plain(prob.builder.pattern, padded), note)
         max_abs.setdefault("assemble_blocks", {})[dn] = e
@@ -284,8 +348,37 @@ def phase_kernels(dev):
     return max_abs
 
 
+def phase_ba_kernels(dev, max_abs):
+    """Reprojection at the BA main-path shape and at 16 x 200 x 16, and the
+    mixed-dof (camera 6, point 3 padded to 6) assembly at the main shape."""
+    import torch
+
+    from theseus_tpu_torch.ops.reprojection import reprojection_linearize, reprojection_linearize_plain
+    from theseus_tpu_torch.sparse.assemble_kernel import assemble_blocks, assemble_blocks_plain
+
+    for dtype in (torch.float32, torch.float64):
+        dn = str(dtype).split(".")[-1]
+        worst = 0.0
+        for shape in (BA_MAIN, BA_SMALL):
+            prob = ba_problem(*shape, dtype, dev)
+            ops = reprojection_operands(prob)
+            note = f"K={ops[0].shape[0]} B={ops[0].shape[1]}"
+            worst = max(worst, _dev_report("reprojection", dn, reprojection_linearize(*ops),
+                                           reprojection_linearize_plain(*ops), note))
+            if shape == BA_MAIN:
+                padded = padded_blocks(prob)
+                note = "BA buckets K=" + ",".join(str(err.shape[0]) for _, err in padded)
+                pattern = prob.builder.pattern
+                e = _dev_report("assemble_blocks", dn, assemble_blocks(pattern, padded),
+                                assemble_blocks_plain(pattern, padded), note)
+                max_abs["assemble_blocks"][dn] = max(max_abs["assemble_blocks"][dn], e)
+        max_abs.setdefault("reprojection", {})[dn] = worst
+    torch.cuda.synchronize()
+    return max_abs
+
+
 # ---------------------------------------------------------------------------
-# phase 4: the slice through TheseusLayer.forward
+# phase 4: the slices through TheseusLayer.forward
 # ---------------------------------------------------------------------------
 def _rel(a, b):
     return (a.double().cpu() - b.double().cpu()).abs() / b.double().cpu().abs()
@@ -387,6 +480,85 @@ def phase_slice(dev):
     return launches
 
 
+def phase_ba_slice(dev):
+    import numpy as np
+    import torch
+
+    from theseus_tpu_torch import _cuda, config
+    from theseus_tpu_torch.lie import se3
+
+    # (a) the main path: 128 x 4000 x 1, float32, kernels; counters around it only
+    prob = ba_problem(*BA_MAIN, torch.float32, dev)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    out, info = prob.layer.forward(prob.inputs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_cuda.launches)
+    n_obs = reprojection_operands(prob)[0].shape[0]
+    print(f"[ba-slice] {BA_MAIN[0]}x{BA_MAIN[1]}x{BA_MAIN[2]} ({n_obs} observations) float32 forward, "
+          f"{ITERS} LM iterations: {wall:.3f} s wall, initial err {float(info.err_history[0].mean()):.8e}, "
+          f"final {float(info.last_err.mean()):.8e}, launches {launches}")
+    expect = {
+        "reprojection": 2 * ITERS + 1,  # linearize + tentative error per iteration, + initial error
+        "assemble_blocks": ITERS,
+        "between_se3": 0, "level_factor": 0, "level_fwd_subst": 0, "level_bwd_subst": 0,
+    }
+    for k, v in expect.items():
+        check(launches[k] == v, f"BA {k}: {launches[k]} launches, expected {v}")
+    check(bool(torch.isfinite(info.last_err).all()), "BA: non-finite final error")
+    check(bool((info.last_err < 1e-3 * info.err_history[0]).all()), "BA: the solve did not converge")
+    for name, shape in (("cam", (BA_MAIN[0], BA_MAIN[2], 3, 4)), ("pt", (BA_MAIN[1], BA_MAIN[2], 3))):
+        check(tuple(out[name].shape) == shape and bool(torch.isfinite(out[name]).all()),
+              f"BA {name}: bad output {tuple(out[name].shape)}")
+
+    # (b) the same problem, float64, plain twins on the card
+    ref = ba_problem(*BA_MAIN, torch.float64, dev)
+    _cuda.reset_launches()
+    with config.plain_path():
+        _, ref_info = ref.layer.forward(ref.inputs)
+    check(sum(_cuda.launches.values()) == 0, "the plain path launched a kernel")
+    rel = _rel(info.last_err, ref_info.last_err)
+    print(f"[ba-slice] float32 kernels vs float64 plain twins on the card: max rel dev of per-batch "
+          f"final error {float(rel.max()):.3e} (tol {BA_PLATEAU_RTOL_F32:.0e}); float64 mean final err "
+          f"{float(ref_info.last_err.mean()):.8e}")
+    check(float(rel.max()) <= BA_PLATEAU_RTOL_F32, "BA float32 plateau off the float64 plateau")
+
+    # (c) the JAX float64 golden at 16 x 200 x 4
+    golden, golden_iters = golden_errors(BA_GOLDEN)
+    check(golden_iters == ITERS, "BA golden iteration count changed")
+    golden_t = torch.as_tensor(golden)
+    for dtype, tol in ((torch.float32, BA_PLATEAU_RTOL_F32), (torch.float64, PLATEAU_RTOL_F64)):
+        g = ba_golden_problem(dtype, dev)
+        _cuda.reset_launches()
+        _, ginfo = g.layer.forward(g.inputs)
+        check(_cuda.launches["reprojection"] == 2 * ITERS + 1, "BA golden solve missed the kernel")
+        rel = _rel(ginfo.last_err, golden_t)
+        dn = str(dtype).split(".")[-1]
+        print(f"[ba-slice] 16x200x4 {dn} kernels vs JAX float64 golden: max rel dev {float(rel.max()):.3e} "
+              f"(tol {tol:.0e}); mean {float(ginfo.last_err.mean()):.8e} vs {float(golden.mean()):.8e}")
+        check(float(rel.max()) <= tol, f"BA 16x200x4 {dn} off the JAX golden")
+
+    # (d) one more request: fresh initial cameras and points. The gauge
+    # prior pins camera 0 to the same target, so the solve returns to the
+    # same error plateau.
+    gen = np.random.default_rng(1)
+    cams, pts = prob.inputs["cam"], prob.inputs["pt"]
+    tangent = torch.as_tensor(1e-3 * gen.standard_normal(tuple(cams.shape[:-2]) + (6,)),
+                              dtype=torch.float32, device=dev)
+    fresh = {"cam": se3.compose(cams, se3.exp(tangent)),
+             "pt": pts + torch.as_tensor(1e-3 * gen.standard_normal(tuple(pts.shape)),
+                                         dtype=torch.float32, device=dev)}
+    _, rinfo = prob.layer.forward(fresh)
+    rel = _rel(rinfo.last_err, ref_info.last_err)
+    print(f"[ba-slice] request 2: fresh init, mean final err {float(rinfo.last_err.mean()):.8e}, "
+          f"max rel dev from the float64 plateau {float(rel.max()):.3e}")
+    check(bool(torch.isfinite(rinfo.last_err).all()), "BA fresh request: non-finite error")
+    check(float(rel.max()) <= BA_PLATEAU_RTOL_F32, "BA fresh request: off the plateau")
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # phase 5: timing
 # ---------------------------------------------------------------------------
@@ -433,15 +605,18 @@ def phase_timing(dev, card):
 
     from theseus_tpu_torch import config
     from theseus_tpu_torch.ops.between_se3 import between_linearize, between_linearize_plain
-    from theseus_tpu_torch.sparse.assemble import _pad_jac
+    from theseus_tpu_torch.ops.reprojection import reprojection_linearize, reprojection_linearize_plain
     from theseus_tpu_torch.sparse.assemble_kernel import assemble_blocks, assemble_blocks_plain
     from theseus_tpu_torch.sparse.level_kernels import (
         level_bwd_subst, level_bwd_subst_plain, level_factor, level_factor_plain,
         level_fwd_subst, level_fwd_subst_plain)
 
     iters = {}
-    for label, prob in (("64x16", golden_problem(torch.float32, dev)),
-                        ("256x128", synthetic_problem(256, 128, torch.float32, dev))):
+    for label, make in (("pgo 64x16", lambda: golden_problem(torch.float32, dev)),
+                        ("pgo 256x128", lambda: synthetic_problem(256, 128, torch.float32, dev)),
+                        ("ba 16x200x16", lambda: ba_problem(*BA_SMALL, torch.float32, dev)),
+                        ("ba 128x4000x1", lambda: ba_problem(*BA_MAIN, torch.float32, dev))):
+        prob = make()
         kern = lm_iter_ms(prob)
         with config.plain_path():
             plain = lm_iter_ms(prob)
@@ -451,11 +626,13 @@ def phase_timing(dev, card):
 
     prob = synthetic_problem(256, 128, torch.float32, dev)
     v1, v2, meas = between_operands(prob)
-    blocks, ata, lflat, y, x, b_perm = plain_system(prob)
-    d = prob.builder.pattern.d
-    padded = [([_pad_jac(j, d) for j in jacs], err) for jacs, err in blocks]
+    _, ata, lflat, y, x, b_perm = plain_system(prob)
+    padded = padded_blocks(prob)
     pattern = prob.builder.pattern
     lv = level_inputs(prob, ata, lflat, y, x, b_perm)
+    ba = ba_problem(*BA_MAIN, torch.float32, dev)
+    rops = reprojection_operands(ba)
+    ba_padded, ba_pattern = padded_blocks(ba), ba.builder.pattern
     pairs = {
         "between_se3": (lambda: between_linearize(v1, v2, meas),
                         lambda: between_linearize_plain(v1, v2, meas)),
@@ -467,14 +644,83 @@ def phase_timing(dev, card):
                             lambda: [level_fwd_subst_plain(*f) for _, f, _ in lv]),
         "level_bwd_subst": (lambda: [level_bwd_subst(*f) for _, _, f in lv],
                             lambda: [level_bwd_subst_plain(*f) for _, _, f in lv]),
+        "reprojection": (lambda: reprojection_linearize(*rops),
+                         lambda: reprojection_linearize_plain(*rops)),
+        "assemble_blocks ba": (lambda: assemble_blocks(ba_pattern, ba_padded),
+                               lambda: assemble_blocks_plain(ba_pattern, ba_padded)),
     }
     times = {}
     for name, (k, p) in pairs.items():
         times[name] = (cuda_ms(k), cuda_ms(p))
         what = "one sweep over all levels" if name.startswith("level") else "one call"
-        print(f"[timing] {name:<15} 256x128 float32, {what}: kernel {times[name][0]:.4f} ms, "
+        shape = "BA 128x4000x1" if name in ("reprojection", "assemble_blocks ba") else "PGO 256x128"
+        print(f"[timing] {name:<18} {shape} float32, {what}: kernel {times[name][0]:.4f} ms, "
               f"plain twin {times[name][1]:.4f} ms (CUDA events, mean of 20) on {card}")
     return iters, times
+
+
+# ---------------------------------------------------------------------------
+# phase 6: where the time goes
+# ---------------------------------------------------------------------------
+def _synced_ms(fn, reps=5):
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_profile(dev, card, n_iters=5):
+    """Per path: synced stage times of one LM iteration, then torch.profiler
+    over n_iters iterations: wall, device busy time (sum of device kernel
+    time), launches and the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from theseus_tpu_torch.sparse.assemble import assemble
+
+    for label, prob in (("pgo 256x128", synthetic_problem(256, 128, torch.float32, dev)),
+                        ("ba {}x{}x{}".format(*BA_SMALL), ba_problem(*BA_SMALL, torch.float32, dev)),
+                        ("ba {}x{}x{}".format(*BA_MAIN), ba_problem(*BA_MAIN, torch.float32, dev))):
+        opt, opts, co, bld = prob.opt, prob.opt.opts, prob.co, prob.builder
+        state, aux = prob.state, prob.aux
+        with torch.no_grad():
+            blocks = co.linearize_blocks(state, aux)
+            ns = bld.build(state, aux)
+            delta, _ = ns.solve(1e-3, opts.ellipsoidal_damping)
+            stages = {
+                "linearize": lambda: co.linearize_blocks(state, aux),
+                "assemble": lambda: assemble(bld.pattern, blocks),
+                "solve": lambda: ns.solve(1e-3, opts.ellipsoidal_damping),
+                "retract": lambda: co.retract(state, delta),
+                "error": lambda: co.error_metric(state, aux),
+            }
+            line = ", ".join(f"{k} {_synced_ms(f):.3f}" for k, f in stages.items())
+            print(f"[profile] {label} stages (ms, each synced, mean of 5): {line} on {card}")
+            carry = opt.init_carry(state, aux, opts)
+            carry = opt.run_scan(carry, aux, 2, opts)  # warm
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                carry = opt.run_scan(carry, aux, n_iters, opts)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+        by_name = {}
+        for e in events:
+            t, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+        print(f"[profile] {label} {n_iters} iterations: wall {wall:.2f} ms, device busy {busy:.2f} ms "
+              f"(idle {100 * (1 - busy / wall):.1f} %), {len(events) / n_iters:.0f} device kernels per "
+              f"iteration, on {card}")
+        for name, (t, n) in top:
+            print(f"[profile]   {t:9.3f} ms  {n:5d}x  {t / n * 1e3:9.1f} us/launch  {name[:90]}")
 
 
 def main() -> int:
@@ -486,7 +732,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on an NVIDIA GPU", file=sys.stderr)
         return 2
-    if not (ROOT / "theseus_tpu_torch" / "__init__.py").exists() or not GOLDEN.exists():
+    if not (ROOT / "theseus_tpu_torch" / "__init__.py").exists() or not (GOLDEN.exists() and BA_GOLDEN.exists()):
         print("chip_smoke: run from the root of a theseus_tpu checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
@@ -495,20 +741,28 @@ def main() -> int:
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
+    t0 = time.perf_counter()
     phase_build()
-    max_abs = phase_kernels(dev)
-    launches = phase_slice(dev)
+    max_abs = phase_ba_kernels(dev, phase_kernels(dev))
+    launches = {"pgo": phase_slice(dev), "ba": phase_ba_slice(dev)}
     iters, times = phase_timing(dev, card)
+    phase_profile(dev, card)
     check("jax" not in sys.modules and "theseus_tpu" not in sys.modules, "jax was imported")
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
-        kernels.append({
+        by_path = {path: n[name] for path, n in launches.items() if n[name]}
+        check(bool(by_path), f"{name} was never launched by a main path")
+        entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": max_abs[name]["float32"],
-            "ms": times[name][0], "plain_ms": times[name][1],
-        })
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max_abs[name]["float32"], "ms": times[name][0], "plain_ms": times[name][1],
+        }
+        if name == "assemble_blocks":  # the BA main path's shape, beside PGO's
+            entry["ms_ba"], entry["plain_ms_ba"] = times["assemble_blocks ba"]
+        kernels.append(entry)
     print(json.dumps({"lm_iter_ms": {k: {"kernels": v[0], "plain": v[1]} for k, v in iters.items()}}))
+    print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

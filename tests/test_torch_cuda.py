@@ -29,7 +29,10 @@ from theseus_tpu_torch.sparse.level_kernels import (
     level_fwd_subst,
     level_fwd_subst_plain,
 )
+from theseus_tpu_torch.ops.reprojection import reprojection_linearize, reprojection_linearize_plain
+from theseus_tpu_torch.optim import LevenbergMarquardt
 from theseus_tpu_torch.optim.normal import SparseNormalBuilder
+from theseus_tpu_torch.utils.examples.bundle_adjustment import ba_values, build_ba_objective, synthetic_ba
 from theseus_tpu_torch.utils.examples.pose_graph import (
     build_pgo_objective,
     pose_values,
@@ -194,7 +197,9 @@ def test_lm_solve_on_card_matches_cpu_twins(cuda_device):
         _, info = layer.forward(pose_values(init))
         results[str(dev)] = info.last_err.cpu()
         if dev != "cpu":
-            assert all(v > 0 for v in _cuda.launches.values()), _cuda.launches
+            pgo = ("between_se3", "assemble_blocks", "level_factor", "level_fwd_subst", "level_bwd_subst")
+            assert all(_cuda.launches[k] > 0 for k in pgo), _cuda.launches
+            assert _cuda.launches["reprojection"] == 0
     # f64 converged plateau: kernels and twins differ only in rounding order
     torch.testing.assert_close(results["cuda"], results["cpu"], rtol=1e-9, atol=1e-12)
 
@@ -225,4 +230,100 @@ def test_run_scan_never_syncs_with_the_host(cuda_device, high_precision):
                 torch.cuda.set_sync_debug_mode("default")
     finally:
         config.set_high_precision_tier(False)
+    assert torch.isfinite(carry["err"]).all()
+
+
+def _reprojection_inputs(rng, K, B, dtype, device, shared=False):
+    pose = _poses(rng, (K, B), 0.2, dtype, device)
+    p_cam = torch.as_tensor(rng.uniform(-1.0, 1.0, (K, B, 3)) + [0.0, 0.0, 5.0], dtype=dtype, device=device)
+    r, t = pose[..., :3], pose[..., 3]
+    point = (r.transpose(-1, -2) @ (p_cam - t)[..., None])[..., 0]  # R^T (P - t)
+    kshape = (B, 1) if shared else (K, B, 1)
+    t_ = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
+    return (pose, point, t_(1000.0 + 50.0 * rng.standard_normal(kshape)),
+            t_(200.0 * rng.standard_normal((K, B, 2))), t_(0.1 * rng.standard_normal(kshape)),
+            t_(0.01 * rng.standard_normal(kshape)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shared", [False, True])
+def test_reprojection_kernel_matches_twin(cuda_device, dtype, shared):
+    """Relative to max(1, |twin|): outputs carry the focal length (~1e3)."""
+    args = _reprojection_inputs(np.random.default_rng(0), 301, 7, dtype, cuda_device, shared)
+    _cuda.reset_launches()
+    got = reprojection_linearize(*args)
+    assert _cuda.launches["reprojection"] == 1
+    with config.plain_path():
+        want = reprojection_linearize(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _close(g, w, dtype, float(w.abs().max()))
+
+
+def test_reprojection_kernel_point_on_camera_plane_is_not_finite(cuda_device):
+    args = list(_reprojection_inputs(np.random.default_rng(1), 4, 2, torch.float64, cuda_device))
+    args[0][0, 0] = torch.eye(3, 4, dtype=torch.float64, device=cuda_device)
+    args[1][0, 0] = torch.tensor([0.3, -0.2, 0.0], dtype=torch.float64, device=cuda_device)
+    got = reprojection_linearize(*args)
+    want = reprojection_linearize_plain(*args)
+    for g, w in zip(got, want):
+        assert not torch.isfinite(g[0, 0]).all() and not torch.isfinite(w[0, 0]).all()
+        _close(g[1:], w[1:], torch.float64, float(w[1:].abs().max()))
+
+
+def _ba_layer(device, dtype, cams=8, pts=60, batch=3, iters=15):
+    prob = synthetic_ba(cams, pts, batch=batch, seed=2, visibility=0.5, dtype=dtype, device=device)
+    obj, _, _ = build_ba_objective(prob, dtype=dtype, device=device)
+    opt = LevenbergMarquardt(obj, max_iterations=iters, adaptive_damping=True,
+                             ellipsoidal_damping=True, linearization="schur")
+    return opt, obj, ba_values(prob)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_assemble_kernel_matches_twin_at_mixed_dof(cuda_device, dtype):
+    """The BA buckets: camera jacobians (2 x 6) and point jacobians padded
+    from 2 x 3 to d = 6."""
+    from theseus_tpu_torch.sparse.assemble import _pad_jac
+
+    opt, obj, vals = _ba_layer(cuda_device, dtype)
+    co = obj.compile()
+    state, aux = co.pack(vals), co.build_aux(vals)
+    pattern = opt.normal_builder.pattern
+    with config.plain_path():
+        blocks = co.linearize_blocks(state, aux)
+    padded = [([_pad_jac(j, pattern.d) for j in jacs], err) for jacs, err in blocks]
+    ata, atb = assemble_blocks(pattern, padded)
+    ata_p, atb_p = assemble_blocks_plain(pattern, padded)
+    _close(ata, ata_p, dtype, float(ata_p.abs().max()))
+    _close(atb, atb_p, dtype, float(atb_p.abs().max()))
+
+
+def test_ba_schur_solve_on_card_matches_cpu_twins(cuda_device):
+    import theseus_tpu_torch as tt
+
+    results = {}
+    for dev in ("cpu", cuda_device):
+        opt, _, vals = _ba_layer(dev, torch.float64)
+        _cuda.reset_launches()
+        _, info = tt.TheseusLayer(opt).forward(vals)
+        results[str(dev)] = info.last_err.cpu()
+        if dev != "cpu":
+            assert _cuda.launches["reprojection"] == 2 * 15 + 1
+            assert _cuda.launches["assemble_blocks"] == 15
+    torch.testing.assert_close(results["cuda"], results["cpu"], rtol=1e-9, atol=1e-12)
+
+
+def test_schur_run_scan_never_syncs_with_the_host(cuda_device):
+    opt, obj, vals = _ba_layer(cuda_device, torch.float32, iters=3)
+    co = obj.compile()
+    values = obj.default_values(vals)
+    state, aux = co.pack(values), co.build_aux(values)
+    with torch.no_grad():
+        carry = opt.run_scan(opt.init_carry(state, aux, opt.opts), aux, 1, opt.opts)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            carry = opt.run_scan(carry, aux, 3, opt.opts)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(carry["err"]).all()

@@ -122,10 +122,23 @@ def test_float32_solve_close_to_float64_plateau():
 @pytest.mark.parametrize("case", ["requires_grad", "aux_requires_grad", "dense", "schur", "implicit_mode"])
 def test_unported_paths_raise(case):
     arrays, _ = _arrays(n=8, b=2)
-    if case in ("dense", "schur"):
+    if case == "dense":
         obj, _ = problem_from_arrays(arrays)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tt.LevenbergMarquardt(obj, linearization=case)
+        return
+    if case == "schur":
+        # the Schur forward solve is ported; its backward is not
+        from theseus_tpu_torch.utils.examples.bundle_adjustment import (
+            ba_values, build_ba_objective, synthetic_ba)
+
+        prob = synthetic_ba(3, 6, batch=2, dtype=torch.float64)
+        obj, _, _ = build_ba_objective(prob, dtype=torch.float64)
+        layer = tt.TheseusLayer(tt.LevenbergMarquardt(obj, linearization="schur"))
+        inputs = ba_values(prob)
+        inputs["pt"] = inputs["pt"].clone().requires_grad_(True)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            layer.forward(inputs)
         return
     layer, inputs = _port_layer(arrays)
     kwargs = {"backward_mode": "implicit"} if case == "implicit_mode" else {}

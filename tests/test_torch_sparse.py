@@ -248,7 +248,7 @@ def test_block_matvec_matches():
     rng = np.random.default_rng(0)
     xv = rng.standard_normal((pbld.pattern.n_vars, 3, pbld.pattern.d))
     want = jref.block_matvec(jbld.sched.matvec_tables(), jata, jnp.asarray(xv))
-    got = pref.block_matvec(pbld.sched.matvec_tables(pata.device), pata, torch.as_tensor(xv))
+    got = pref.block_matvec(pbld.pattern.matvec_tables(pata.device), pata, torch.as_tensor(xv))
     _rel_close(got, want, 1e-12)
 
 

@@ -1,12 +1,15 @@
 """theseus_tpu_torch: the PyTorch / CUDA port of theseus_tpu (JAX counterpart: theseus_tpu/__init__.py).
 
-Differentiable nonlinear least squares on an NVIDIA Hopper GPU. This first
-slice covers the batched SE3 pose-graph forward solve: Between and Local
-costs, Levenberg-Marquardt / Gauss-Newton over the level-scheduled
-block-sparse Cholesky, and `TheseusLayer.forward`. Its four kernel families
-(Between linearization, block assembly, level factorization, level
-substitution) are hand-written CUDA kernels under `csrc/`, built with nvcc
-at first use; on CPU tensors each runs its plain PyTorch twin.
+Differentiable nonlinear least squares on an NVIDIA Hopper GPU. Two forward
+solves are ported: the batched SE3 pose graph (Between and Local costs over
+the level-scheduled block-sparse Cholesky) and bundle adjustment
+(Reprojection cost families over SE3 cameras and Point3 landmarks, with the
+Schur-complement backend, `linearization="schur"`), both by
+Levenberg-Marquardt / Gauss-Newton through `TheseusLayer.forward`. Their
+kernels (Between and Reprojection linearization, block assembly, level
+factorization, level substitution) are hand-written CUDA kernels under
+`csrc/`, built with nvcc at first use; on CPU tensors each runs its plain
+PyTorch twin.
 
 This package imports torch and never jax.
 """
@@ -14,15 +17,22 @@ This package imports torch and never jax.
 from . import config, lie
 from .core import (
     SE3,
+    CostFamily,
     CostFunction,
     CostWeight,
     DiagonalCostWeight,
     ManifoldVariable,
     Objective,
+    Point3,
+    Point3Family,
     ScaleCostWeight,
+    SE3Family,
     Variable,
+    VariableFamily,
+    Vector,
+    VectorFamily,
 )
-from .embodied import Between, Difference, Local
+from .embodied import Between, Difference, Local, Reprojection
 from .layer import TheseusLayer
 from .optim import GaussNewton, LevenbergMarquardt, NLSOptions, OptimizerInfo
 
@@ -30,6 +40,13 @@ __all__ = [
     "config",
     "lie",
     "SE3",
+    "Point3",
+    "Vector",
+    "CostFamily",
+    "VariableFamily",
+    "SE3Family",
+    "Point3Family",
+    "VectorFamily",
     "CostFunction",
     "CostWeight",
     "DiagonalCostWeight",
@@ -40,6 +57,7 @@ __all__ = [
     "Between",
     "Difference",
     "Local",
+    "Reprojection",
     "TheseusLayer",
     "GaussNewton",
     "LevenbergMarquardt",

@@ -24,7 +24,9 @@ from typing import Optional
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
-SOURCES = ("between_se3.cu", "assemble_blocks.cu", "level_factor.cu", "level_subst.cu")
+SOURCES = (
+    "between_se3.cu", "assemble_blocks.cu", "level_factor.cu", "level_subst.cu", "reprojection.cu",
+)
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -37,7 +39,10 @@ build_seconds: Optional[float] = None
 
 # Launch counts, one per kernel: each wrapper adds one where it launches its
 # kernel and nowhere else, so a run can show that it went through them.
-KERNELS = ("between_se3", "assemble_blocks", "level_factor", "level_fwd_subst", "level_bwd_subst")
+KERNELS = (
+    "between_se3", "assemble_blocks", "level_factor", "level_fwd_subst", "level_bwd_subst",
+    "reprojection",
+)
 launches = {name: 0 for name in KERNELS}
 
 
@@ -141,6 +146,9 @@ _SIGNATURES = {
     "th_level_fwd_subst": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     # lcol, xr, y, C, rl, B, d, x, stream
     "th_level_bwd_subst": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # pose, point, focal, feat, k1, k2, (k, b) strides of the four aux,
+    # K, B, jpose, jpt, err, stream
+    "th_reprojection": [_P] * 6 + [_L] * 8 + [_I, _I, _P, _P, _P, _P],
 }
 
 

@@ -124,6 +124,21 @@ def set_sparse_dense_tail(enabled: bool) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Schur dense-elimination budget: when the densified camera-point coupling W
+# and Hcp (each B x (C*dc) x (P*dp)), plus one product transient of the same
+# size, fit in this many bytes, the Schur complement S = Hcc - W Hcp^T is one
+# batched GEMM (optim/schur.py). Beyond it the points are eliminated in
+# chunks with segment sums. 0 forces the chunked path.
+# ---------------------------------------------------------------------------
+SCHUR_DENSE_BUDGET_BYTES = 2 << 30
+
+
+def set_schur_dense_budget(nbytes: int) -> None:
+    global SCHUR_DENSE_BUDGET_BYTES
+    SCHUR_DENSE_BUDGET_BYTES = int(nbytes)
+
+
+# ---------------------------------------------------------------------------
 # Kernel dispatch (replaces the JAX package's `pallas_enabled`).
 # ---------------------------------------------------------------------------
 _PLAIN = False

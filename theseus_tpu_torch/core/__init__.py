@@ -3,18 +3,26 @@
 from .compiled import CompiledObjective, compile_objective
 from .cost_function import CostFunction
 from .cost_weight import CostWeight, DiagonalCostWeight, ScaleCostWeight
+from .family import CostFamily, Point3Family, SE3Family, VariableFamily, VectorFamily
 from .objective import Objective
-from .variable import SE3, ManifoldVariable, Variable, as_variable
+from .variable import SE3, ManifoldVariable, Point3, Variable, Vector, as_variable
 
 __all__ = [
     "CompiledObjective",
     "compile_objective",
     "CostFunction",
     "CostWeight",
+    "CostFamily",
+    "VariableFamily",
+    "SE3Family",
+    "Point3Family",
+    "VectorFamily",
     "DiagonalCostWeight",
     "ScaleCostWeight",
     "Objective",
     "SE3",
+    "Point3",
+    "Vector",
     "ManifoldVariable",
     "Variable",
     "as_variable",

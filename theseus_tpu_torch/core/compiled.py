@@ -8,6 +8,11 @@ State layout:
   state: {type_key: (N_t, B, *elem_shape)}   one stacked tensor per manifold
   delta: (B, total_dof)                       tangent vector, insertion order
   aux:   tuple over buckets of (cf_aux, w_aux) stacked tensors
+
+A variable family (core/family.py) enters its type stack as one contiguous
+run and its values as one (N, B, ...) array; a cost family becomes one
+bucket whose index tables are built vectorized and whose aux arrays arrive
+pre-stacked.
 """
 
 from __future__ import annotations
@@ -35,6 +40,9 @@ class SlotSpec:
 class AuxSlotSpec:
     names: Tuple[str, ...]
     shared: bool
+    # stacked=True: the single name refers to a pre-stacked (K, B|1, ...)
+    # array (the CostFamily bulk path): no per-member stack at build_aux
+    stacked: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,10 +55,12 @@ class BucketSpec:
     optim_slots: Tuple[SlotSpec, ...]
     aux_slots: Tuple[AuxSlotSpec, ...]
     weight_slots: Tuple[AuxSlotSpec, ...]
+    # CostFamily buckets carry no per-member cfs; their count is explicit
+    count: Optional[int] = None
 
     @property
     def k(self) -> int:
-        return len(self.cfs)
+        return self.count if self.count is not None else len(self.cfs)
 
     @property
     def rows(self) -> int:
@@ -74,11 +84,12 @@ def _to(v, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.as_tensor(a, dtype=dtype, device=device)
 
 
-def _bcast_batch(v, b: int):
-    """(1, ...) -> (b, ...) view, for numpy arrays and tensors alike."""
-    if v.shape[0] == b:
+def _bcast_batch(v, b: int, axis: int = 0):
+    """Batch axis `axis` of size 1 -> b, a view, for numpy arrays and tensors
+    alike (axis 1 for the (N, B, ...) arrays of families and stacked aux)."""
+    if v.ndim <= axis or v.shape[axis] == b:
         return v
-    shape = (b,) + tuple(v.shape[1:])
+    shape = tuple(v.shape[:axis]) + (b,) + tuple(v.shape[axis + 1:])
     return np.broadcast_to(v, shape) if isinstance(v, np.ndarray) else v.expand(shape)
 
 
@@ -94,6 +105,8 @@ class CompiledObjective:
         aux_defaults: Dict[str, object],
         dtype: torch.dtype,
         device: torch.device,
+        type_segments: Optional[Dict[str, list]] = None,
+        families: Sequence[str] = (),
     ):
         self.var_names = tuple(var_names)
         self.var_groups = dict(var_groups)
@@ -102,6 +115,16 @@ class CompiledObjective:
         self.aux_defaults = dict(aux_defaults)
         self.dtype = dtype
         self.device = torch.device(device)
+        # per type, runs of ("vars", [names]) | ("fam", family) in stack order
+        self.type_segments = type_segments or {
+            tk: [("vars", list(members))] for tk, members in self.type_members.items()
+        }
+        # names whose values are (N, B, ...) stacked, batch at axis 1
+        self.stacked_names = set(families)
+        for bk in self.buckets:
+            for s in bk.aux_slots + bk.weight_slots:
+                if s.stacked:
+                    self.stacked_names.add(s.names[0])
 
         self.col_offset: Dict[str, int] = {}
         off = 0
@@ -132,43 +155,64 @@ class CompiledObjective:
 
     # ------------------------------------------------------------------
     def resolve_batch_size(self, values: Dict[str, object]) -> int:
-        """Max leading dim; 1-batches broadcast."""
+        """Max batch dim; 1-batches broadcast. Family and stacked-aux values
+        carry the batch at axis 1."""
         b = 1
-        for v in values.values():
-            if v.ndim > 0:
-                b = max(b, int(v.shape[0]))
+        for k, v in values.items():
+            ax = 1 if k in self.stacked_names else 0
+            if v.ndim > ax:
+                b = max(b, int(v.shape[ax]))
         return b
 
     def pack(self, values: Dict[str, object], batch_size: Optional[int] = None):
-        """values {name: (B|1, *shape)} -> state {type: (N_t, B, *shape)} on
-        the objective's device and dtype."""
+        """values {name: (B|1, *shape)} and {family: (N, B|1, *shape)} ->
+        state {type: (N_t, B, *shape)} on the objective's device and dtype.
+        A family enters as one operand, never as N."""
         b = batch_size or self.resolve_batch_size(values)
-        return {
-            tk: _stack([_bcast_batch(values[n], b) for n in members], self.dtype, self.device)
-            for tk, members in self.type_members.items()
-        }
+        state = {}
+        for tk, segs in self.type_segments.items():
+            pieces = []
+            for kind, obj in segs:
+                if kind == "vars":
+                    pieces.append(_stack([_bcast_batch(values[n], b) for n in obj],
+                                         self.dtype, self.device))
+                else:
+                    v = _bcast_batch(values[obj.name], b, axis=1)
+                    pieces.append(_to(v, self.dtype, self.device).contiguous())
+            state[tk] = pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+        return state
 
     def unpack(self, state) -> Dict[str, torch.Tensor]:
-        """state -> {name: (B, ...)}."""
+        """state -> {name: (B, ...)} and {family: (N, B, ...)}."""
         out = {}
-        for tk, members in self.type_members.items():
-            for i, n in enumerate(members):
-                out[n] = state[tk][i]
+        for tk, segs in self.type_segments.items():
+            off = 0
+            for kind, obj in segs:
+                if kind == "vars":
+                    for n in obj:
+                        out[n] = state[tk][off]
+                        off += 1
+                else:
+                    out[obj.name] = state[tk][off : off + obj.count]
+                    off += obj.count
         return out
 
     def build_aux(self, values: Dict[str, object], batch_size: Optional[int] = None):
         """Per-bucket stacked aux tensors; floating aux is cast to the
-        objective dtype."""
+        objective dtype. A stacked slot (cost family) moves its one
+        (K, B|1, ...) array to the device in one copy."""
         b = batch_size or self.resolve_batch_size(values)
 
-        def get(n):
+        def get(n, axis=0):
             v = values[n] if n in values else self.aux_defaults[n]
-            return _bcast_batch(v, b)
+            return _bcast_batch(v, b, axis)
 
         def build_slots(slots):
             out = []
             for s in slots:
-                if s.shared:
+                if s.stacked:
+                    out.append(_to(get(s.names[0], axis=1), self.dtype, self.device))
+                elif s.shared:
                     out.append(_to(get(s.names[0]), self.dtype, self.device))
                 else:
                     out.append(_stack([get(n) for n in s.names], self.dtype, self.device))
@@ -276,35 +320,126 @@ class CompiledObjective:
         return next(iter(state.values())).shape[1]
 
 
+def _family_bucket(fam_cf, bucket_i: int, row_offset: int, type_index, col_offset) -> BucketSpec:
+    """One BucketSpec from a CostFamily, its index tables built vectorized."""
+    template = fam_cf.template
+    count = fam_cf.count
+    optim_slots = []
+    for m in fam_cf.members:
+        if isinstance(m, tuple):
+            fam, idx = m
+            g = fam.group
+            sidx = type_index[fam.member_name(0)] + idx
+            cols = col_offset[fam.member_name(0)] + idx[:, None] * g.dof + np.arange(g.dof)[None, :]
+            shared = False
+        else:
+            g = m.group
+            sidx = np.full(count, type_index[m.name], dtype=np.int64)
+            cols = np.broadcast_to(col_offset[m.name] + np.arange(g.dof)[None, :], (count, g.dof)).copy()
+            shared = True
+        optim_slots.append(SlotSpec(type_key=g.name, dof=g.dof, idx=sidx, cols=cols, shared=shared))
+
+    def slots_for(avars):
+        out = []
+        for a in avars:
+            stacked = fam_cf.aux_is_stacked(a)
+            out.append(AuxSlotSpec(names=(a.name,), shared=not stacked, stacked=stacked))
+        return tuple(out)
+
+    return BucketSpec(
+        name=f"bucket_{bucket_i}_{fam_cf.name}",
+        template=template,
+        cfs=(),
+        count=count,
+        dim=template.dim(),
+        row_offset=row_offset,
+        optim_slots=tuple(optim_slots),
+        aux_slots=slots_for(template.aux_vars),
+        weight_slots=slots_for(template.weight.aux_vars),
+    )
+
+
 def compile_objective(objective) -> CompiledObjective:
-    """Bucket cost functions by schema and freeze all index arrays."""
+    """Bucket cost functions by schema and freeze all index arrays. A
+    CostFamily is always a bucket of its own."""
+    from .family import CostFamily, VariableFamily
+
     cfs = list(objective.cost_functions.values())
     if not cfs:
         raise ValueError("Objective has no cost functions.")
     for cf in cfs:
-        if not cf.has_analytic_jacobians:
+        t = cf.template if isinstance(cf, CostFamily) else cf
+        if not t.has_analytic_jacobians:
             raise NotImplementedError(
-                f"{type(cf).__name__} has no analytic jacobians; autodiff costs are not "
+                f"{type(t).__name__} has no analytic jacobians; autodiff costs are not "
                 "ported yet (ROADMAP.md, queue 1, slice 3)"
             )
 
-    var_names: List[str] = []
+    # optim var registry in insertion order; a family registers as one
+    # contiguous run of its members
+    var_entries: List[Tuple[str, object]] = []  # ("var", name) | ("fam", family)
     var_groups: Dict[str, Group] = {}
+    families: Dict[str, VariableFamily] = {}
     aux_defaults = {}
-    for cf in cfs:
-        for v in cf.optim_vars:
-            if v.name not in var_groups:
-                var_names.append(v.name)
-                var_groups[v.name] = v.group
-            elif var_groups[v.name] != v.group:
-                raise ValueError(f"Variable {v.name} registered with two groups.")
-        for a in list(cf.aux_vars) + list(cf.weight.aux_vars):
+
+    def reg_family(fam: VariableFamily):
+        if fam.name in families:
+            return
+        if fam.name in var_groups:
+            raise ValueError(f"Name clash: {fam.name} is already a variable.")
+        families[fam.name] = fam
+        var_entries.append(("fam", fam))
+        for i in range(fam.count):
+            var_groups[fam.member_name(i)] = fam.group
+
+    def reg_var(v):
+        fam = getattr(v, "family", None)
+        if fam is not None:
+            reg_family(fam)
+        elif v.name not in var_groups:
+            var_entries.append(("var", v.name))
+            var_groups[v.name] = v.group
+        elif var_groups[v.name] != v.group:
+            raise ValueError(f"Variable {v.name} registered with two groups.")
+
+    def reg_aux(avars):
+        for a in avars:
             if a.tensor is not None and a.name not in aux_defaults:
                 aux_defaults[a.name] = a.tensor
 
+    for cf in cfs:
+        if isinstance(cf, CostFamily):
+            for m in cf.members:
+                if isinstance(m, tuple):
+                    reg_family(m[0])
+                else:
+                    reg_var(m)
+            reg_aux(list(cf.template.aux_vars) + list(cf.template.weight.aux_vars))
+        else:
+            for v in cf.optim_vars:
+                reg_var(v)
+            reg_aux(list(cf.aux_vars) + list(cf.weight.aux_vars))
+
+    # member names in tangent-layout order, and per type the runs of single
+    # vars and family blocks that make up its stack
+    var_names: List[str] = []
+    type_segments: Dict[str, list] = {}
     type_members_l: Dict[str, List[str]] = {}
-    for n in var_names:
-        type_members_l.setdefault(var_groups[n].name, []).append(n)
+    for kind, obj in var_entries:
+        if kind == "var":
+            names = [obj]
+            tk = var_groups[obj].name
+            segs = type_segments.setdefault(tk, [])
+            if segs and segs[-1][0] == "vars":
+                segs[-1][1].append(obj)
+            else:
+                segs.append(("vars", [obj]))
+        else:
+            names = [obj.member_name(i) for i in range(obj.count)]
+            tk = obj.group.name
+            type_segments.setdefault(tk, []).append(("fam", obj))
+        var_names.extend(names)
+        type_members_l.setdefault(tk, []).extend(names)
     type_members = {tk: tuple(ms) for tk, ms in type_members_l.items()}
     type_index = {n: i for ms in type_members.values() for i, n in enumerate(ms)}
 
@@ -318,7 +453,7 @@ def compile_objective(objective) -> CompiledObjective:
     bucket_map: Dict = {}
     order: List = []
     for cf in cfs:
-        key = cf.schema()
+        key = ("__family__", cf.name) if isinstance(cf, CostFamily) else cf.schema()
         if key not in bucket_map:
             bucket_map[key] = []
             order.append(key)
@@ -329,6 +464,11 @@ def compile_objective(objective) -> CompiledObjective:
     for key in order:
         members = bucket_map[key]
         t0 = members[0]
+        if isinstance(t0, CostFamily):
+            bk = _family_bucket(t0, len(buckets), row_offset, type_index, col_offset)
+            buckets.append(bk)
+            row_offset += bk.rows
+            continue
         optim_slots = []
         for si, v in enumerate(t0.optim_vars):
             g = v.group
@@ -374,4 +514,6 @@ def compile_objective(objective) -> CompiledObjective:
         aux_defaults=aux_defaults,
         dtype=objective.dtype,
         device=objective.device,
+        type_segments=type_segments,
+        families=families,
     )

@@ -73,6 +73,14 @@ def SE3(tensor=None, name: Optional[str] = None) -> ManifoldVariable:
     return ManifoldVariable(_groupmod.SE3, tensor, name)
 
 
+def Vector(dof: int, tensor=None, name: Optional[str] = None) -> ManifoldVariable:
+    return ManifoldVariable(_groupmod.euclidean(dof), tensor, name)
+
+
+def Point3(tensor=None, name: Optional[str] = None) -> ManifoldVariable:
+    return Vector(3, tensor, name)
+
+
 def as_variable(value, name: Optional[str] = None) -> Variable:
     """Wrap raw data as an aux Variable. Python scalars become float64 numpy
     0-d arrays; build_aux casts floating aux to the objective dtype."""

@@ -1,16 +1,17 @@
 """Group namespaces bundling the functional Lie ops (JAX counterpart: theseus_tpu/lie/group.py).
 
-Only SE3 is registered: it is the one group the PGO slice uses. The derived
-ops follow the JAX package: retract = compose(g, exp(delta)),
+SE3 (the pose-graph and bundle-adjustment cameras) and the Euclidean groups
+`Rn{dof}` (bundle-adjustment landmarks) are registered. The derived ops
+follow the JAX package: retract = compose(g, exp(delta)),
 local = log(a^{-1} b), between = a^{-1} b.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Dict, Tuple
 
-from . import se3
+from . import rn, se3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,16 +53,28 @@ class Group:
         return self.mod.compose(self.mod.inverse(a), b)
 
     def identity(self, *batch, dtype, device):
+        if self.mod is rn:
+            return rn.identity(self.dof, *batch, dtype=dtype, device=device)
         return self.mod.identity(*batch, dtype=dtype, device=device)
 
 
 SE3 = Group(name="SE3", dof=se3.DOF, shape=se3.SHAPE, mod=se3)
 
+_EUCLIDEAN: Dict[int, Group] = {}
+
+
+def euclidean(dof: int) -> Group:
+    """R^dof as a trivial group, named `Rn{dof}`."""
+    if dof not in _EUCLIDEAN:
+        _EUCLIDEAN[dof] = Group(name=f"Rn{dof}", dof=dof, shape=(dof,), mod=rn)
+    return _EUCLIDEAN[dof]
+
 
 def by_name(name: str) -> Group:
-    table = {"SE3": SE3}
-    if name not in table:
-        raise NotImplementedError(
-            f"group {name} is not ported yet (ROADMAP.md, queue 1, slice 3)"
-        )
-    return table[name]
+    if name == "SE3":
+        return SE3
+    if name.startswith("Rn") and name[2:].isdigit():
+        return euclidean(int(name[2:]))
+    raise NotImplementedError(
+        f"group {name} is not ported yet (ROADMAP.md, queue 1, slice 3)"
+    )

@@ -1,0 +1,44 @@
+"""R^n as a trivial Lie group (JAX counterpart: theseus_tpu/lie/rn.py).
+
+Element layout (..., d). exp and log are the identity, compose is addition,
+so retract is g + delta and local is b - a. Because the dof varies, the ops
+take the vector itself; `group.euclidean(dof)` builds the namespace for one
+dof.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _eye_like(x: torch.Tensor) -> torch.Tensor:
+    d = x.shape[-1]
+    return torch.eye(d, dtype=x.dtype, device=x.device).expand(x.shape + (d,))
+
+
+def exp(x):
+    return x
+
+
+def log(g):
+    return g
+
+
+def jlog(g):
+    return [_eye_like(g)], g
+
+
+def compose(g1, g2):
+    return g1 + g2
+
+
+def inverse(g):
+    return -g
+
+
+def adjoint(g):
+    return _eye_like(g)
+
+
+def identity(dof: int, *batch, dtype: torch.dtype, device) -> torch.Tensor:
+    return torch.zeros(tuple(batch) + (dof,), dtype=dtype, device=device)

@@ -3,7 +3,8 @@
 Layout (..., 3, 4) with the rotation in [..., :3] and the translation in
 [..., 3]; tangents are [linear(3); angular(3)] with right perturbation
 g * exp(delta). The subset the PGO path needs: exp, log, jlog, compose,
-inverse, adjoint, with the JAX package's Taylor branches and eps.
+inverse, adjoint, with the JAX package's Taylor branches and eps, and the
+point action `transform` the bundle-adjustment data needs.
 """
 
 from __future__ import annotations
@@ -133,6 +134,11 @@ def adjoint(g: torch.Tensor) -> torch.Tensor:
     top = torch.cat([r, htr], dim=-1)
     bottom = torch.cat([torch.zeros_like(htr), r], dim=-1)
     return torch.cat([top, bottom], dim=-2)
+
+
+def transform(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Apply the pose to a point: R p + t. (..., 3, 4), (..., 3) -> (..., 3)."""
+    return mvp(g[..., :3], p) + g[..., 3]
 
 
 def identity(*batch, dtype: torch.dtype, device) -> torch.Tensor:

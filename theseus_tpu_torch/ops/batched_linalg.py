@@ -1,10 +1,11 @@
 """Unrolled small-matrix linear algebra, d <= 8 (JAX counterpart: theseus_tpu/ops/batched_linalg.py).
 
 These are the arithmetic models of the factor and substitution kernels'
-plain twins: the d loop is unrolled in Python, so every step is one
-elementwise op over the leading batch dims, in the same order as the CUDA
-kernels. A non-positive pivot yields NaN (sqrt of a negative number) rather
-than an exception, as in the kernels and in the JAX package.
+plain twins, and the landmark solves of the Schur backend: the d loop is
+unrolled in Python, so every step is one elementwise op over the leading
+batch dims, in the same order as the CUDA kernels. A non-positive pivot
+yields NaN (sqrt of a negative number) rather than an exception, as in the
+kernels and in the JAX package.
 """
 
 from __future__ import annotations
@@ -61,6 +62,19 @@ def solve_upper_vec(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             s = s - u[..., i, k] * xs[k]
         xs[i] = s / u[..., i, i]
     return torch.stack(xs, dim=-1)
+
+
+def chol_solve_vec(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(L L^T) x = b for L (..., d, d) lower, b (..., d)."""
+    return solve_upper_vec(l.transpose(-1, -2), solve_lower_vec(l, b))
+
+
+def chol_solve_mat(l: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """(L L^T) X = M for M (..., d, k), one column solve per column of M
+    (the JAX package vmaps `chol_solve_vec` over the columns; here the
+    column axis rides along as a batch axis)."""
+    cols = chol_solve_vec(l[..., None, :, :], m.transpose(-1, -2))  # (..., k, d)
+    return cols.transpose(-1, -2)
 
 
 def rt_solve_lower(l: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,8 @@ from .nonlinear import (
     NonlinearOptimizerStatus,
     OptimizerInfo,
 )
-from .normal import SparseNormal, SparseNormalBuilder
+from .normal import BlockNormal, BlockNormalBuilder, SparseNormal, SparseNormalBuilder
+from .schur import SchurNormal, SchurNormalBuilder, eliminate_points
 
 __all__ = [
     "GaussNewton",
@@ -17,6 +18,11 @@ __all__ = [
     "NonlinearLeastSquares",
     "NonlinearOptimizerStatus",
     "OptimizerInfo",
+    "BlockNormal",
+    "BlockNormalBuilder",
     "SparseNormal",
     "SparseNormalBuilder",
+    "SchurNormal",
+    "SchurNormalBuilder",
+    "eliminate_points",
 ]

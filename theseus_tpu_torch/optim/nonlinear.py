@@ -7,8 +7,9 @@ device value back to the host, so a solve on the card is one stream of
 launches; `run_while` checks after every iteration whether all elements are
 done (one host sync per iteration) and stops early.
 
-Forward only: the layer refuses inputs that require grad. The sparse
-linearization is the one ported; "dense" and "schur" raise.
+Forward only: the layer refuses inputs that require grad. The "sparse"
+(block Cholesky) and "schur" (landmark elimination, optim/schur.py)
+linearizations are ported; "dense" raises.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from ..core.compiled import CompiledObjective
-from .normal import SparseNormalBuilder
+from .normal import BlockNormalBuilder, SparseNormalBuilder
 
 
 class NonlinearOptimizerStatus:
@@ -87,16 +88,19 @@ class NonlinearLeastSquares:
         rel_err_tolerance: float = 1e-8,
         **opt_kwargs,
     ):
-        if linearization in ("dense", "schur"):
+        if linearization == "dense":
             raise NotImplementedError(
-                f"linearization='{linearization}' is not ported yet (ROADMAP.md, queue 1); "
-                "use 'sparse'"
+                "linearization='dense' is not ported yet (ROADMAP.md, queue 1); "
+                "use 'sparse' or 'schur'"
             )
-        if linearization != "sparse":
+        if linearization not in ("sparse", "schur"):
             raise ValueError("linearization must be 'dense', 'sparse' or 'schur'")
         self.objective = objective
         self.linearization = linearization
         self.ordering = ordering
+        # schur: predicate(name, group) -> True for the variables to eliminate
+        # (default optim.schur.eliminate_points: every Euclidean variable)
+        self.eliminate = opt_kwargs.pop("eliminate", None)
         self._normal_builder = None
         self.opts = NLSOptions(
             max_iterations=max_iterations,
@@ -111,12 +115,19 @@ class NonlinearLeastSquares:
         return self.objective.compile()
 
     @property
-    def normal_builder(self) -> SparseNormalBuilder:
+    def normal_builder(self) -> BlockNormalBuilder:
         co = self.compiled
         if self._normal_builder is None or self._normal_builder.co is not co:
-            self._normal_builder = SparseNormalBuilder(
-                co, ordering=self.ordering, damping_eps=self.opts.damping_eps
-            )
+            if self.linearization == "schur":
+                from .schur import SchurNormalBuilder, eliminate_points
+
+                self._normal_builder = SchurNormalBuilder(
+                    co, self.eliminate or eliminate_points, damping_eps=self.opts.damping_eps
+                )
+            else:
+                self._normal_builder = SparseNormalBuilder(
+                    co, ordering=self.ordering, damping_eps=self.opts.damping_eps
+                )
         return self._normal_builder
 
     def _init_scalar_state(self, opts: NLSOptions) -> float:
@@ -154,7 +165,7 @@ class NonlinearLeastSquares:
         return carry
 
     def compute_delta(self, ns, damping, opts: NLSOptions):
-        """Subclass hook: returns (delta, fail_mask) from a SparseNormal."""
+        """Subclass hook: returns (delta, fail_mask) from a BlockNormal."""
         raise NotImplementedError
 
     def _accept_and_damping(self, delta, ns, new_err, prev_err, damping, opts):

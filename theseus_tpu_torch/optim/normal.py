@@ -4,7 +4,9 @@
 elimination ordering, level schedule, flatten tables); `build` linearizes,
 assembles AtA / Atb and returns a `SparseNormal`, which exposes what the
 outer optimizers need: the damped solve, Atb, the quadratic form and the
-AtA diagonal. The dense and Schur backends are not ported yet.
+AtA diagonal. `BlockNormal` / `BlockNormalBuilder` hold what the sparse and
+the Schur backend (optim/schur.py) share; the dense backend is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -18,24 +20,22 @@ from ..sparse.cholesky import NumericSchedule, sparse_block_solve
 from .ordering import symbolic_for
 
 
-class SparseNormal:
-    def __init__(self, builder: "SparseNormalBuilder", ata, atb_blocks):
+def finite_or_zero(delta):
+    """A batch element whose step came out non-finite (a non-positive pivot)
+    gets a zero step and bad=True. Returns (delta (B, D), bad (B,))."""
+    bad = torch.any(~torch.isfinite(delta), dim=-1)
+    return torch.where(bad[..., None], torch.zeros_like(delta), delta), bad
+
+
+class BlockNormal:
+    """Assembled AtA blocks and Atb, with the quadratic form and diagonal
+    the outer optimizers read."""
+
+    def __init__(self, builder: "BlockNormalBuilder", ata, atb_blocks):
         self.builder = builder
         self.ata = ata  # (n_slots, B, d, d)
         self.atb_blocks = atb_blocks  # (n, B, d)
         self.Atb = builder.flatten(atb_blocks)  # (B, D)
-
-    def solve(self, damping=0.0, ellipsoidal=False):
-        """Returns (delta (B, D), fail (B,)): a batch element whose solve
-        came out non-finite (e.g. a non-positive pivot) gets a zero delta
-        and fail=True."""
-        bld = self.builder
-        ata = apply_block_damping(bld.pattern, self.ata, damping, ellipsoidal, bld.damping_eps)
-        x = sparse_block_solve(bld.sched, ata, self.atb_blocks)
-        delta = bld.flatten(x)
-        bad = torch.any(~torch.isfinite(delta), dim=-1)
-        delta = torch.where(bad[..., None], torch.zeros_like(delta), delta)
-        return delta, bad
 
     def quad(self, v):
         bld = self.builder
@@ -50,15 +50,25 @@ class SparseNormal:
         return bld.flatten(torch.diagonal(dblocks, dim1=-2, dim2=-1))
 
 
-class SparseNormalBuilder:
-    """Owns the static symbolic state (pattern, schedule, flatten tables)."""
+class SparseNormal(BlockNormal):
+    def solve(self, damping=0.0, ellipsoidal=False):
+        """Returns (delta (B, D), fail (B,)); see finite_or_zero."""
+        bld = self.builder
+        ata = apply_block_damping(bld.pattern, self.ata, damping, ellipsoidal, bld.damping_eps)
+        x = sparse_block_solve(bld.sched, ata, self.atb_blocks)
+        return finite_or_zero(bld.flatten(x))
 
-    def __init__(self, co: CompiledObjective, ordering="auto", damping_eps: float = 1e-8):
+
+class BlockNormalBuilder:
+    """The static tables every block backend needs: the block pattern and
+    the (n, B, d) <-> (B, total_dof) flatten tables."""
+
+    normal_cls = BlockNormal
+
+    def __init__(self, co: CompiledObjective, damping_eps: float = 1e-8):
         self.co = co
         self.damping_eps = damping_eps
         self.pattern = build_block_pattern(co)
-        self.sym = symbolic_for(self.pattern, ordering, co.var_names)
-        self.sched = NumericSchedule(self.sym, self.pattern)
 
         # flatten tables: (n, B, d) <-> (B, total_dof)
         d = self.pattern.d
@@ -105,7 +115,18 @@ class SparseNormalBuilder:
         flat[:, self._on(v.device)["sel"]] = v
         return flat.reshape(bsz, self.pattern.n_vars, self.pattern.d).movedim(1, 0)
 
-    def build(self, state, aux) -> SparseNormal:
+    def build(self, state, aux) -> BlockNormal:
         blocks = self.co.linearize_blocks(state, aux)
         ata, atb = assemble(self.pattern, blocks)
-        return SparseNormal(self, ata, atb)
+        return self.normal_cls(self, ata, atb)
+
+
+class SparseNormalBuilder(BlockNormalBuilder):
+    """Adds the symbolic state: elimination ordering and level schedule."""
+
+    normal_cls = SparseNormal
+
+    def __init__(self, co: CompiledObjective, ordering="auto", damping_eps: float = 1e-8):
+        super().__init__(co, damping_eps)
+        self.sym = symbolic_for(self.pattern, ordering, co.var_names)
+        self.sched = NumericSchedule(self.sym, self.pattern)

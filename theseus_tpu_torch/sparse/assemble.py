@@ -17,7 +17,7 @@ import torch
 
 from .. import config
 from .assemble_kernel import AssemblyTables, assemble_blocks, build_assembly_tables
-from .refine import hp_dtype
+from .refine import MatvecTables, hp_dtype, matvec_tables
 
 
 @dataclasses.dataclass
@@ -38,7 +38,7 @@ class BlockPattern:
     pad_diag: np.ndarray  # (n, d) 1.0 on padding dims of each var's diag block
     dof_mask: np.ndarray  # (n, d) 1.0 on true dims
     asm_tables: Optional[AssemblyTables] = None
-    _device: Dict[tuple, Dict[str, torch.Tensor]] = dataclasses.field(default_factory=dict, repr=False)
+    _device: Dict[tuple, object] = dataclasses.field(default_factory=dict, repr=False)
 
     def masks(self, device, dtype) -> Dict[str, torch.Tensor]:
         """pad_diag and dof_mask as tensors on `device`, built once: a copy
@@ -49,6 +49,15 @@ class BlockPattern:
                 "pad_diag": torch.as_tensor(self.pad_diag, dtype=dtype, device=device),
                 "dof_mask": torch.as_tensor(self.dof_mask, dtype=dtype, device=device),
             }
+        return self._device[key]
+
+    def matvec_tables(self, device) -> MatvecTables:
+        """Gather tables of the iterative-refinement block SpMV, as tensors
+        on `device` (built once per device)."""
+        key = ("matvec", str(device))
+        if key not in self._device:
+            t = matvec_tables(self.pair_slot, self.n_vars)
+            self._device[key] = MatvecTables(*(torch.as_tensor(a, device=device) for a in t))
         return self._device[key]
 
 

@@ -22,7 +22,7 @@ import torch
 
 from .assemble import BlockPattern
 from .level_kernels import level_bwd_subst, level_factor, level_fwd_subst
-from .refine import MatvecTables, block_matvec, hp_dtype, matvec_tables, refine, refine_active
+from .refine import block_matvec, hp_dtype, refine, refine_active
 from .structure import SymbolicFactor
 
 
@@ -56,19 +56,7 @@ class NumericSchedule:
         self.perm = np.asarray(sym.perm, dtype=np.int32)
         self.iperm = np.asarray(sym.iperm, dtype=np.int32)
         self.level_tables = [self._build_level_table(cols) for cols in sym.levels]
-        self._matvec_tables: Dict[str, MatvecTables] = {}
         self._device: Dict[str, tuple] = {}
-
-    def matvec_tables(self, device) -> MatvecTables:
-        """Gather tables of the iterative-refinement block SpMV, as tensors on
-        `device` (built once per device)."""
-        key = str(device)
-        if key not in self._matvec_tables:
-            t = matvec_tables(self.pattern.pair_slot, self.pattern.n_vars)
-            self._matvec_tables[key] = MatvecTables(
-                *(torch.as_tensor(a, device=device) for a in t)
-            )
-        return self._matvec_tables[key]
 
     def _build_level_table(self, cols):
         """Per-level tables built directly from the symbolic lists, padded to
@@ -220,7 +208,7 @@ def _refine_with_factor(sched, lflat, ata_flat, b, x0):
 
     if not refine_active(b.dtype):
         return x0
-    tables = sched.matvec_tables(b.device)
+    tables = sched.pattern.matvec_tables(b.device)
     hp = hp_dtype(b.dtype)
     return refine(
         lambda r: solve_with_factor(sched, lflat, r),

@@ -1,10 +1,16 @@
-"""Carry a JAX-package PGO problem into the port (JAX counterpart: scripts/dump_problem_npz.py, the writer of these arrays).
+"""Carry a JAX-package PGO or BA problem into the port (JAX counterpart: scripts/dump_problem_npz.py, the writer of the PGO arrays).
 
 The port's analog of converting weights: the JAX package's problem arrives
-as numpy arrays under the keys `scripts/dump_problem_npz.py` writes
-(`gt` (N,B,3,4), `edges` (E,2), `measurements` (E,B,3,4), `init` (N,B,3,4),
-`prior_weight`), and comes out as the port's Objective plus its input dict,
-so both packages solve the identical problem.
+as numpy arrays and comes out as the port's problem, so both packages solve
+the identical problem.
+
+- PGO, under the keys `scripts/dump_problem_npz.py` writes: `gt` (N,B,3,4),
+  `edges` (E,2), `measurements` (E,B,3,4), `init` (N,B,3,4),
+  `prior_weight`; out comes the port's Objective plus its input dict.
+- BA, the fields of the JAX package's `BAProblem`: `poses` (C,B,3,4),
+  `points` (P,B,3), `focals`, `k1`, `k2` (C,B,1), `obs_cam`, `obs_pt` (O,),
+  `obs_img` (O,B,2), optionally `gt_poses`, `gt_points`; out comes the
+  port's BAProblem (build its objective with `build_ba_objective`).
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import numpy as np
 import torch
 
 from ..core import Objective
+from .examples.bundle_adjustment import BAProblem
 from .examples.pose_graph import build_pgo_objective, pose_values
 
 
@@ -36,3 +43,27 @@ def load_problem_npz(path, dtype: torch.dtype = torch.float32, device="cpu"):
     with np.load(path) as f:
         arrays = {k: f[k] for k in ("gt", "edges", "measurements", "init", "prior_weight")}
     return problem_from_arrays(arrays, dtype=dtype, device=device)
+
+
+BA_KEYS = ("poses", "points", "focals", "k1", "k2", "obs_cam", "obs_pt", "obs_img")
+
+
+def ba_problem_from_arrays(
+    arrays: Mapping[str, np.ndarray], dtype: torch.dtype = torch.float32, device="cpu"
+) -> BAProblem:
+    def t(k):
+        return torch.as_tensor(np.array(arrays[k]), dtype=dtype, device=device)
+
+    gt = {k: t(k) for k in ("gt_poses", "gt_points") if k in arrays}
+    return BAProblem(
+        poses=t("poses"), points=t("points"), focals=t("focals"), k1=t("k1"), k2=t("k2"),
+        obs_cam=np.asarray(arrays["obs_cam"], np.int64), obs_pt=np.asarray(arrays["obs_pt"], np.int64),
+        obs_img=t("obs_img"), **gt,
+    )
+
+
+def load_ba_npz(path, dtype: torch.dtype = torch.float32, device="cpu") -> BAProblem:
+    """ba_problem_from_arrays on an .npz holding a BAProblem's arrays."""
+    with np.load(path) as f:
+        arrays = {k: f[k] for k in BA_KEYS + ("gt_poses", "gt_points") if k in f}
+    return ba_problem_from_arrays(arrays, dtype=dtype, device=device)
