@@ -6,10 +6,15 @@ toolkit (nvcc):
 
     python3 chip_smoke.py
 
-It imports neither jax nor theseus_tpu. Two main paths run through
-`TheseusLayer.forward`: PGO (256 poses x batch 128, sparse linearization)
-and BA (128 cameras x 4000 points x batch 1, visibility 0.4: 204,800
-Reprojection observations, Schur linearization). In order:
+It imports neither jax nor theseus_tpu. Three main paths run through
+`TheseusLayer.forward`: the PGO forward solve (256 poses x batch 128,
+sparse linearization, level plan), the BA forward solve (128 cameras x 4000
+points x batch 1, visibility 0.4: 204,800 Reprojection observations, Schur
+linearization) and the PGO training step (256 x 128: implicit backward
+through the whole-sweep plan, `config.set_whole_sweep(True)`, and an SGD
+step on a loop-closure weight). A fourth, the AoS Between entry point
+`between_linearize_fused`, has no caller in the package and is driven
+alone. In order:
 
 1. fails fast without a CUDA device or outside a checkout;
 2. builds the CUDA kernels from theseus_tpu_torch/csrc (nvcc, sm_90a, one
@@ -19,17 +24,26 @@ Reprojection observations, Schur linearization). In order:
    the shapes the main paths give it (PGO: Between at K=257, B=128, the
    assembly of both buckets, every etree level's (C, rl, ul); BA:
    Reprojection at K=204,800, B=1 and at 16 x 200 x batch 16, the mixed-dof
-   assembly), in float32 and float64, each line with its deviation and
-   tolerance;
+   assembly; the whole-sweep factor (against its per-column twin and the
+   level kernels' factor, slot for slot) and substitutions at PGO 256 x 128
+   and 2048 x 8; the AoS Between entry at K=257, B=128), in float32 and
+   float64, each line with its deviation and tolerance;
 4. slice phases, one per path: the float32 forward with the launch counters
    reset just before and read just after; the converged plateau against the
    plain-twin float64 solve of the same problem on the card; the problem of
    the committed JAX float64 golden (PGO 64 x 16, BA 16 x 200 x 4); more
    requests on fresh inputs; for PGO one solve with the high-precision tier;
+   the training path: three float32 implicit steps with the counters read
+   around forward and backward(), the gradient against the float64
+   plain-twin step and against the level-kernel step, and an unrolled
+   float64 step at 64 x 16 against the twins;
 5. timing phase: ms per LM iteration (marginal window, as bench.py) for the
-   kernel path and the plain-twin path (PGO 64 x 16 and 256 x 128; BA
-   16 x 200 x 16 and 128 x 4000 x 1), and each kernel against its twin at
-   the main-path shapes (CUDA events);
+   level kernels, the whole-sweep kernels and the plain twins (PGO 64 x 16,
+   256 x 128 and 2048 x 8; BA 16 x 200 x 16 and 128 x 4000 x 1), ms per
+   training step (whole against level), and each kernel against its twin
+   and its library yardstick at the main-path shapes (CUDA events), beside
+   its bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s, the
+   larger);
 6. profile phase: per path, synced stage times of one LM iteration and a
    torch.profiler window (device busy and idle share, launches, top
    kernels);
@@ -71,14 +85,23 @@ BA_OPTS = dict(adaptive_damping=True, ellipsoidal_damping=True, linearization="s
 # on the same inputs (measured on the CPU), so two float32 implementations
 # may differ by that much: 2e-3. The same amplification (~1e4 eps) in
 # float64 gives ~2e-12: 1e-10.
+# The AoS Between entry runs the Between kernel: the same tolerance.
+# The whole-sweep kernels are held against their twins over a whole sweep,
+# where rounding-order differences compound through the etree levels: at
+# most 2.0e-6 in float32, measured on an H100 80GB HBM3 at 700 W (2048 x 8),
+# so 1e-4; float64 stays at the default (1.8e-15 measured).
 KERNEL_TOL = {
-    "float32": {"between_se3": 2e-3, "default": 2e-5},
-    "float64": {"between_se3": 1e-10, "default": 1e-12},
+    "float32": {"between_se3": 2e-3, "between_se3_aos": 2e-3, "whole_factor": 1e-4,
+                "whole_fwd_subst": 1e-4, "whole_bwd_subst": 1e-4, "default": 2e-5},
+    "float64": {"between_se3": 1e-10, "between_se3_aos": 1e-10, "default": 1e-12},
 }
+_SWEEP = "a whole sweep: rounding order compounds through the levels"
 TOL_REASON = {
     "float32": {"between_se3": "f32 jlog cancellation near theta=0.2, atan2",
+                "between_se3_aos": "f32 jlog cancellation near theta=0.2, atan2",
+                "whole_factor": _SWEEP, "whole_fwd_subst": _SWEEP, "whole_bwd_subst": _SWEEP,
                 "default": "summation order, FMA"},
-    "float64": {"between_se3": "jlog cancellation at 1e4 eps",
+    "float64": {"between_se3": "jlog cancellation at 1e4 eps", "between_se3_aos": "jlog cancellation at 1e4 eps",
                 "default": "same formulas, rounding order"},
 }
 # Per-batch final error of a float32 kernel solve against a float64 solve of
@@ -102,7 +125,40 @@ KERNEL_INFO = {
     "level_fwd_subst": ("theseus_tpu_torch/csrc/level_subst.cu", "theseus_tpu/sparse/pallas_factorize.py:260"),
     "level_bwd_subst": ("theseus_tpu_torch/csrc/level_subst.cu", "theseus_tpu/sparse/pallas_factorize.py:260"),
     "reprojection": ("theseus_tpu_torch/csrc/reprojection.cu", "theseus_tpu/ops/pallas_reprojection.py:171"),
+    "whole_factor": ("theseus_tpu_torch/csrc/whole_factor.cu", "theseus_tpu/sparse/pallas_whole.py:319"),
+    "whole_fwd_subst": ("theseus_tpu_torch/csrc/whole_subst.cu", "theseus_tpu/sparse/pallas_whole.py:508"),
+    "whole_bwd_subst": ("theseus_tpu_torch/csrc/whole_subst.cu", "theseus_tpu/sparse/pallas_whole.py:523"),
+    "between_se3_aos": ("theseus_tpu_torch/csrc/between_se3.cu", "theseus_tpu/ops/pallas_between.py:60"),
 }
+
+# The training path (the JAX package's __graft_entry__ step): PGO 256 x 128
+# float32, LM with adaptive damping, up to ITERS iterations, implicit
+# backward, a loop-closure weight theta learned by SGD_STEPS steps of SGD.
+TRAIN = (256, 128)
+THETA0 = 1.0
+SGD_STEPS = 3
+SGD_FIRST_STEP = 0.05  # the learning rate is set so that the first step moves theta by this
+# float32 kernel gradient against the float64 plain-twin gradient of the same
+# step: float32 LM stalls within ~3e-4 of the float64 error plateau and the
+# implicit gradient is taken at the stalled point, which moves it by up to
+# ~1e-2 relative at 256 x 128 (8.2e-3 measured on an H100 80GB HBM3, 700 W).
+# The level-kernel step sees the same float32 plateau. 5e-2.
+GRAD_RTOL_F32 = 5e-2
+# float64 unrolled step (64 x 16, 10 LM iterations), kernels against twins:
+# the same arithmetic in another order through 10 differentiated iterations.
+UNROLL = (64, 16, 10)
+GRAD_RTOL_F64 = 1e-7
+WHOLE_SHAPES = ((256, 128), (2048, 8))
+# the card's peaks for the bound: HBM3 bytes/s and float32 FLOP/s outside the
+# tensor cores (H100 SXM data sheet, at the 700 W limit)
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = 67e12
+# approximate arithmetic per (edge, batch) of the Between linearization
+# (two composes, log, jlog, the 6 x 6 adjoint product) and per (observation,
+# batch) of the Reprojection linearization: operation counts for the bound,
+# which both kernels exceed by far in bytes
+BETWEEN_FLOPS = 800
+REPROJECTION_FLOPS = 200
 
 
 class CheckFailed(AssertionError):
@@ -229,13 +285,15 @@ def phase_build():
         name = m.group(1)
         if not ("between_se3" in name or "reprojection" in name or "Li6E" in name):
             continue
-        kind = next(k for k in ("between_se3", "reprojection", "assemble", "level_factor", "fwd_subst",
-                                "bwd_subst") if k in name)
+        kind = next(k for k in ("between_se3", "reprojection", "assemble", "whole_factor", "whole_fwd",
+                                "whole_bwd", "level_factor", "fwd_subst", "bwd_subst") if k in name)
+        if kind in ("whole_fwd", "whole_bwd"):  # the vector in shared memory or in device memory
+            kind += " smem" if "Lb1E" in name else " global"
         dt = "f64" if "kernelId" in name else "f32"
         info = " ".join(l.strip() for l in log[i + 1 : i + 5])
         regs = re.search(r"Used (\d+) registers", info)
         spill = re.search(r"(\d+) bytes spill stores", info)
-        print(f"[build] {kind:<13} {dt}: {regs.group(1) if regs else '?'} registers, "
+        print(f"[build] {kind:<17} {dt}: {regs.group(1) if regs else '?'} registers, "
               f"{spill.group(1) if spill else '?'} bytes spilled")
 
 
@@ -373,6 +431,65 @@ def phase_ba_kernels(dev, max_abs):
                                 assemble_blocks_plain(pattern, padded), note)
                 max_abs["assemble_blocks"][dn] = max(max_abs["assemble_blocks"][dn], e)
         max_abs.setdefault("reprojection", {})[dn] = worst
+    torch.cuda.synchronize()
+    return max_abs
+
+
+def whole_system(n, b, dtype, dev):
+    """The LM-damped PGO system of an n x b problem, assembled by the plain
+    twins: the inputs of the whole-sweep kernels."""
+    from theseus_tpu_torch import config
+    from theseus_tpu_torch.sparse.assemble import apply_block_damping, assemble
+
+    prob = synthetic_problem(n, b, dtype, dev)
+    bld = prob.builder
+    with config.plain_path():
+        blocks = prob.co.linearize_blocks(prob.state, prob.aux)
+        ata, atb = assemble(bld.pattern, blocks)
+        ata = apply_block_damping(bld.pattern, ata, 1e-3, False, 1e-8)
+    return prob, ata, atb
+
+
+def phase_whole_kernels(dev, max_abs):
+    """Rows 6-8 at PGO 256 x 128 and 2048 x 8, and row 9 at K=257, B=128:
+    the factor against its per-column twin and against the level kernels'
+    factor slot for slot (slot 0 zero); each substitution against its twin
+    on the twin's factor."""
+    import torch
+
+    from theseus_tpu_torch import config
+    from theseus_tpu_torch.ops.between_se3 import between_linearize_fused, between_linearize_plain
+    from theseus_tpu_torch.sparse.cholesky import factorize_levels
+    from theseus_tpu_torch.sparse.whole import whole_bwd_subst, whole_factor, whole_fwd_subst
+
+    for dtype in (torch.float32, torch.float64):
+        dn = str(dtype).split(".")[-1]
+        for n, b in WHOLE_SHAPES:
+            prob, ata, atb = whole_system(n, b, dtype, dev)
+            sched = prob.builder.sched
+            note = f"PGO {n}x{b} nnz_l={sched.sym.nnz_l}"
+            lflat = whole_factor(sched, ata)
+            lflat_l = factorize_levels(sched, ata)
+            with config.plain_path():
+                lflat_p = whole_factor(sched, ata)
+                y_p = whole_fwd_subst(sched, lflat_p, atb)
+                x_p = whole_bwd_subst(sched, lflat_p, y_p)
+            y = whole_fwd_subst(sched, lflat_p, atb)
+            x = whole_bwd_subst(sched, lflat_p, y_p)
+            torch.cuda.synchronize()
+            check(float(lflat[0].abs().max()) == 0.0, "whole_factor: slot 0 is not zero")
+            for name, got, want, what in (("whole_factor", lflat, lflat_p, "twin"),
+                                          ("whole_factor", lflat, lflat_l, "level kernels"),
+                                          ("whole_fwd_subst", y, y_p, "twin"),
+                                          ("whole_bwd_subst", x, x_p, "twin")):
+                e = _dev_report(name, dn, got, want, f"{note} vs {what}")
+                if what == "twin":
+                    max_abs.setdefault(name, {})[dn] = max(max_abs.get(name, {}).get(dn, 0.0), e)
+        prob = synthetic_problem(*TRAIN, dtype, dev)
+        v1, v2, meas = between_operands(prob)
+        e = _dev_report("between_se3_aos", dn, between_linearize_fused(v1, v2, meas),
+                        between_linearize_plain(v1, v2, meas), f"K={v1.shape[0]} B={v1.shape[1]}")
+        max_abs.setdefault("between_se3_aos", {})[dn] = e
     torch.cuda.synchronize()
     return max_abs
 
@@ -559,6 +676,156 @@ def phase_ba_slice(dev):
     return launches
 
 
+def train_problem(n, b, dtype, dev, iters=ITERS):
+    """The flagship training problem: (layer, pose inputs, ground truth)."""
+    import theseus_tpu_torch as tt
+    from theseus_tpu_torch.utils.examples.pose_graph import (
+        build_pgo_objective, pose_values, synthetic_pose_graph, training_weights)
+
+    gt, edges, meas, init = synthetic_pose_graph(n, b, seed=0, dtype=dtype, device=dev)
+    w_odo, w_loop = training_weights()
+    obj, _ = build_pgo_objective(n, edges, meas, gt[0], dtype=dtype, device=dev,
+                                 edge_weight=w_odo, loop_weight=w_loop)
+    layer = tt.TheseusLayer(tt.LevenbergMarquardt(obj, max_iterations=iters, adaptive_damping=True))
+    return layer, pose_values(init), gt
+
+
+def train_step(layer, poses, gt, theta, mode="implicit"):
+    """One forward and backward() of the outer loss; returns (loss, info,
+    launches during forward, launches during backward)."""
+    import torch
+
+    from theseus_tpu_torch import _cuda
+    from theseus_tpu_torch.utils.examples.pose_graph import mean_sq_local
+
+    theta.grad = None
+    before = dict(_cuda.launches)
+    out, info = layer.forward(dict(poses, w_loop=theta.reshape(1, 1)), optimizer_kwargs={"backward_mode": mode})
+    loss = mean_sq_local(out, gt)
+    mid = dict(_cuda.launches)
+    loss.backward()
+    torch.cuda.synchronize()
+    after = dict(_cuda.launches)
+    return (loss.detach(), info, {k: mid[k] - before[k] for k in mid},
+            {k: after[k] - mid[k] for k in mid})
+
+
+def _grad_at(dtype, dev, whole, plain=False, shape=None, mode="implicit", iters=ITERS):
+    """d loss / d theta at THETA0 of one training step."""
+    import torch
+
+    from theseus_tpu_torch import config
+
+    layer, poses, gt = train_problem(*(shape or TRAIN), dtype, dev, iters=iters)
+    theta = torch.tensor(THETA0, dtype=dtype, device=dev, requires_grad=True)
+    config.set_whole_sweep(whole)
+    try:
+        if plain:
+            with config.plain_path():
+                loss, _, fwd, bwd = train_step(layer, poses, gt, theta, mode)
+        else:
+            loss, _, fwd, bwd = train_step(layer, poses, gt, theta, mode)
+    finally:
+        config.set_whole_sweep(False)
+    return float(loss), float(theta.grad), fwd, bwd
+
+
+LEVEL_KERNELS = ("level_factor", "level_fwd_subst", "level_bwd_subst")
+
+
+def phase_train(dev):
+    """The training path: SGD_STEPS implicit steps at 256 x 128 float32 on
+    the whole-sweep kernels, counters reset just before and read just
+    after, checked around each forward and backward()."""
+    import numpy as np
+    import torch
+
+    from theseus_tpu_torch import _cuda, config
+
+    layer, poses, gt = train_problem(*TRAIN, torch.float32, dev)
+    theta = torch.tensor(THETA0, dtype=torch.float32, device=dev, requires_grad=True)
+    losses, grads, sgd = [], [], None
+    config.set_whole_sweep(True)
+    try:
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        for step in range(SGD_STEPS):
+            loss, info, fwd, bwd = train_step(layer, poses, gt, theta)
+            g = theta.grad.detach().clone()
+            if sgd is None:
+                sgd = torch.optim.SGD([theta], lr=SGD_FIRST_STEP / max(abs(float(g)), 1e-30))
+            sgd.step()
+            losses.append(float(loss))
+            grads.append(float(g))
+            # one solve per LM iteration the early-exit loop ran (history rows
+            # past the initial one) and one for the final Gauss-Newton step
+            solves = int(torch.isfinite(info.err_history).all(dim=1).sum())
+            print(f"[train] step {step}: loss {losses[-1]:.8e}, d loss/d theta {grads[-1]:.6e}, "
+                  f"theta -> {float(theta.detach()):.6f}; {solves} solves; forward launches "
+                  f"{ {k: v for k, v in fwd.items() if v} }, backward launches { {k: v for k, v in bwd.items() if v} }")
+            check(np.isfinite(losses[-1]) and np.isfinite(grads[-1]) and grads[-1] != 0.0,
+                  "training step: loss or gradient not finite, or zero gradient")
+            for k in ("whole_factor", "whole_fwd_subst", "whole_bwd_subst"):
+                check(fwd[k] == solves, f"forward: {k} launched {fwd[k]} times for {solves} solves")
+            check(bwd["whole_factor"] == 0, "backward() launched a factorization")
+            check(bwd["whole_fwd_subst"] == 1 and bwd["whole_bwd_subst"] == 1,
+                  f"backward(): substitution launches {bwd['whole_fwd_subst']}, {bwd['whole_bwd_subst']}, expected 1, 1")
+            check(all(fwd[k] == 0 and bwd[k] == 0 for k in LEVEL_KERNELS), "the whole-sweep step ran level kernels")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        config.set_whole_sweep(False)
+    launches = dict(_cuda.launches)
+    print(f"[train] {TRAIN[0]}x{TRAIN[1]} float32, {SGD_STEPS} implicit steps in {wall:.3f} s wall, "
+          f"launches {launches}")
+    check(losses[-1] < losses[0], f"the outer loss did not fall: {losses}")
+
+    # the same first step: float64 plain twins (level plan) and float32 level kernels
+    _, g64, _, _ = _grad_at(torch.float64, dev, whole=False, plain=True)
+    rel = abs(grads[0] - g64) / abs(g64)
+    print(f"[train] gradient, float32 whole-sweep kernels vs float64 plain twins: {grads[0]:.6e} vs {g64:.6e}, "
+          f"rel {rel:.3e} (tol {GRAD_RTOL_F32:.0e}: float32 LM plateau)")
+    check(rel <= GRAD_RTOL_F32, "training gradient off the float64 twin gradient")
+    _, gl, fwd, bwd = _grad_at(torch.float32, dev, whole=False)
+    check(all(fwd[k] > 0 for k in LEVEL_KERNELS) and fwd["whole_factor"] == 0 and bwd["level_factor"] == 0,
+          "the level-plan step did not run the level kernels alone")
+    rel = abs(grads[0] - gl) / abs(gl)
+    print(f"[train] gradient, whole-sweep vs level kernels (float32): {grads[0]:.6e} vs {gl:.6e}, "
+          f"rel {rel:.3e} (tol {GRAD_RTOL_F32:.0e})")
+    check(rel <= GRAD_RTOL_F32, "whole-sweep gradient off the level-plan gradient")
+
+    # unroll at smaller depth, float64: the d_ata path of the solve's backward
+    n, b, iters = UNROLL
+    _, gu, fwd, bwd = _grad_at(torch.float64, dev, whole=True, shape=(n, b), mode="unroll", iters=iters)
+    _, gup, _, _ = _grad_at(torch.float64, dev, whole=False, plain=True, shape=(n, b), mode="unroll", iters=iters)
+    rel = abs(gu - gup) / abs(gup)
+    print(f"[train] unroll {n}x{b} float64, {iters} LM iterations: kernels {gu:.12e} vs plain twins {gup:.12e}, "
+          f"rel {rel:.3e} (tol {GRAD_RTOL_F64:.0e}); backward launches "
+          f"{ {k: v for k, v in bwd.items() if v} }")
+    check(rel <= GRAD_RTOL_F64 and gu != 0.0, "unrolled gradient off the twins")
+    check(bwd["whole_factor"] == 0 and bwd["whole_fwd_subst"] == iters, "unroll backward launches")
+    return launches
+
+
+def phase_aos_entry(dev):
+    """Row 9's entry point, as its caller would use it: one call at the PGO
+    main path's Between shape, counters reset just before."""
+    import torch
+
+    from theseus_tpu_torch import _cuda
+    from theseus_tpu_torch.ops.between_se3 import between_linearize_fused
+
+    v1, v2, meas = between_operands(synthetic_problem(*TRAIN, torch.float32, dev))
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    j1, j2, err = between_linearize_fused(v1, v2, meas)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.launches)
+    check(launches["between_se3_aos"] == 1 and bool(torch.isfinite(err).all()), "AoS Between entry")
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # phase 5: timing
 # ---------------------------------------------------------------------------
@@ -600,39 +867,145 @@ def cuda_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the float32 peak."""
+    tb, tf = nbytes / PEAK_BYTES, flops / PEAK_FLOPS
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def factor_flops(sched, bsz, d):
+    """Operations of one factorization, counted from the schedule's valid
+    blocks: 2 d^3 per present update block, d^3 / 3 per POTRF, d^3 per TRSM
+    row block."""
+    import numpy as np
+
+    present = (sched.upd_slots != 0) | (np.arange(sched.upd_slots.shape[2]) == 0)[None, None, :]
+    present &= sched.upd_valid[:, :, None] & sched.row_valid[:, None, :]
+    rows = int(sched.row_valid.sum())
+    return bsz * (2 * d ** 3 * int(present.sum()) + sched.n_head * d ** 3 / 3 + (rows - sched.n_head) * d ** 3)
+
+
+def subst_flops(sched, bsz, d, forward):
+    """Operations of one substitution sweep: 2 d^2 per off-diagonal factor
+    block it reads, d^2 per diagonal solve."""
+    blocks = int(sched.upd_valid.sum()) if forward else int(sched.row_valid.sum()) - sched.n_head
+    return bsz * (2 * d * d * blocks + d * d * sched.n_head)
+
+
+def dense_h(pattern, ata):
+    """The block matrix as a dense (B, n d, n d) tensor (diagonal blocks
+    symmetrised, as the factorizations read them): the library yardstick's
+    input."""
+    import torch
+
+    n, d, bsz = pattern.n_vars, pattern.d, ata.shape[1]
+    h = torch.zeros((bsz, n * d, n * d), dtype=ata.dtype, device=ata.device)
+    for (i, j), slot in pattern.pair_slot.items():
+        blk = ata[slot]
+        if i == j:
+            h[:, i * d:(i + 1) * d, i * d:(i + 1) * d] = 0.5 * (blk + blk.transpose(-1, -2))
+        else:
+            h[:, i * d:(i + 1) * d, j * d:(j + 1) * d] = blk
+            h[:, j * d:(j + 1) * d, i * d:(i + 1) * d] = blk.transpose(-1, -2)
+    return h
+
+
+def train_step_ms(dev, whole):
+    """Wall ms of one float32 training step at TRAIN: (forward, backward()),
+    each ended by a sync, after one warm-up step on the same problem."""
+    import torch
+
+    from theseus_tpu_torch import config
+    from theseus_tpu_torch.utils.examples.pose_graph import mean_sq_local
+
+    layer, poses, gt = train_problem(*TRAIN, torch.float32, dev)
+    theta = torch.tensor(THETA0, dtype=torch.float32, device=dev, requires_grad=True)
+    config.set_whole_sweep(whole)
+    try:
+        train_step(layer, poses, gt, theta)  # warm: device tables, autograd
+        theta.grad = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = layer.forward(dict(poses, w_loop=theta.reshape(1, 1)), optimizer_kwargs={"backward_mode": "implicit"})
+        loss = mean_sq_local(out, gt)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+    finally:
+        config.set_whole_sweep(False)
+
+
 def phase_timing(dev, card):
     import torch
 
     from theseus_tpu_torch import config
-    from theseus_tpu_torch.ops.between_se3 import between_linearize, between_linearize_plain
+    from theseus_tpu_torch.ops.between_se3 import (
+        between_linearize, between_linearize_fused, between_linearize_plain)
     from theseus_tpu_torch.ops.reprojection import reprojection_linearize, reprojection_linearize_plain
     from theseus_tpu_torch.sparse.assemble_kernel import assemble_blocks, assemble_blocks_plain
     from theseus_tpu_torch.sparse.level_kernels import (
         level_bwd_subst, level_bwd_subst_plain, level_factor, level_factor_plain,
         level_fwd_subst, level_fwd_subst_plain)
+    from theseus_tpu_torch.sparse.whole import whole_bwd_subst, whole_factor, whole_fwd_subst
 
     iters = {}
-    for label, make in (("pgo 64x16", lambda: golden_problem(torch.float32, dev)),
-                        ("pgo 256x128", lambda: synthetic_problem(256, 128, torch.float32, dev)),
-                        ("ba 16x200x16", lambda: ba_problem(*BA_SMALL, torch.float32, dev)),
-                        ("ba 128x4000x1", lambda: ba_problem(*BA_MAIN, torch.float32, dev))):
+    for label, make, plain in (("pgo 64x16", lambda: golden_problem(torch.float32, dev), True),
+                               ("pgo 256x128", lambda: synthetic_problem(256, 128, torch.float32, dev), True),
+                               ("pgo 2048x8", lambda: synthetic_problem(2048, 8, torch.float32, dev), False),
+                               ("ba 16x200x16", lambda: ba_problem(*BA_SMALL, torch.float32, dev), True),
+                               ("ba 128x4000x1", lambda: ba_problem(*BA_MAIN, torch.float32, dev), True)):
         prob = make()
-        kern = lm_iter_ms(prob)
-        with config.plain_path():
-            plain = lm_iter_ms(prob)
-        iters[label] = (kern, plain)
-        print(f"[timing] {label} float32 LM iteration: kernels {kern:.4f} ms, plain twins "
-              f"{plain:.4f} ms (marginal over 20 iterations, min of 3) on {card}")
+        row = {"kernels": lm_iter_ms(prob)}
+        if label.startswith("pgo"):
+            config.set_whole_sweep(True)
+            try:
+                row["whole"] = lm_iter_ms(prob)
+            finally:
+                config.set_whole_sweep(False)
+        if plain:
+            with config.plain_path():
+                row["plain"] = lm_iter_ms(prob)
+        iters[label] = row
+        print(f"[timing] {label} float32 LM iteration: " + ", ".join(f"{k} {v:.4f} ms" for k, v in row.items())
+              + f" (kernels: level plan; marginal over 20 iterations, min of 3) on {card}")
 
-    prob = synthetic_problem(256, 128, torch.float32, dev)
+    steps = {"level": [], "whole": []}
+    for whole in (False, True, True, False):
+        steps["whole" if whole else "level"].append(train_step_ms(dev, whole))
+    train_ms = {k: {"forward": sum(f for f, _ in v) / len(v), "backward": sum(b for _, b in v) / len(v)}
+                for k, v in steps.items()}
+    for k, v in steps.items():
+        print(f"[timing] training step {TRAIN[0]}x{TRAIN[1]} float32, {k} plan: (forward, backward()) ms "
+              + ", ".join(f"({f:.3f}, {b:.3f})" for f, b in v) + f" (order level, whole, whole, level) on {card}")
+
+    prob = synthetic_problem(*TRAIN, torch.float32, dev)
     v1, v2, meas = between_operands(prob)
     _, ata, lflat, y, x, b_perm = plain_system(prob)
     padded = padded_blocks(prob)
     pattern = prob.builder.pattern
+    sched = prob.builder.sched
     lv = level_inputs(prob, ata, lflat, y, x, b_perm)
+    _, w_ata, w_atb = whole_system(*TRAIN, torch.float32, dev)
+    with config.plain_path():
+        w_l = whole_factor(sched, w_ata)
+        w_y = whole_fwd_subst(sched, w_l, w_atb)
     ba = ba_problem(*BA_MAIN, torch.float32, dev)
     rops = reprojection_operands(ba)
     ba_padded, ba_pattern = padded_blocks(ba), ba.builder.pattern
+
+    def plain(fn):
+        def run():
+            with config.plain_path():
+                return fn()
+        return run
+
     pairs = {
         "between_se3": (lambda: between_linearize(v1, v2, meas),
                         lambda: between_linearize_plain(v1, v2, meas)),
@@ -648,15 +1021,70 @@ def phase_timing(dev, card):
                          lambda: reprojection_linearize_plain(*rops)),
         "assemble_blocks ba": (lambda: assemble_blocks(ba_pattern, ba_padded),
                                lambda: assemble_blocks_plain(ba_pattern, ba_padded)),
+        "whole_factor": (lambda: whole_factor(sched, w_ata), plain(lambda: whole_factor(sched, w_ata))),
+        "whole_fwd_subst": (lambda: whole_fwd_subst(sched, w_l, w_atb),
+                            plain(lambda: whole_fwd_subst(sched, w_l, w_atb))),
+        "whole_bwd_subst": (lambda: whole_bwd_subst(sched, w_l, w_y),
+                            plain(lambda: whole_bwd_subst(sched, w_l, w_y))),
+        "between_se3_aos": (lambda: between_linearize_fused(v1, v2, meas),
+                            lambda: between_linearize_plain(v1, v2, meas)),
     }
     times = {}
     for name, (k, p) in pairs.items():
-        times[name] = (cuda_ms(k), cuda_ms(p))
+        times[name] = (cuda_ms(k), cuda_ms(p, reps=3 if name.startswith("whole") else 20))
         what = "one sweep over all levels" if name.startswith("level") else "one call"
         shape = "BA 128x4000x1" if name in ("reprojection", "assemble_blocks ba") else "PGO 256x128"
         print(f"[timing] {name:<18} {shape} float32, {what}: kernel {times[name][0]:.4f} ms, "
-              f"plain twin {times[name][1]:.4f} ms (CUDA events, mean of 20) on {card}")
-    return iters, times
+              f"plain twin {times[name][1]:.4f} ms (CUDA events) on {card}")
+
+    # library yardsticks on the densified H: one PyTorch call each, timed
+    # here only; the port never calls them
+    h = dense_h(pattern, w_ata)
+    l_dense = torch.linalg.cholesky_ex(h)[0]
+    rhs = prob.builder.flatten(w_atb)[..., None]
+    library = {
+        "cholesky_ex": cuda_ms(lambda: torch.linalg.cholesky_ex(h), reps=5),
+        "solve_triangular lower": cuda_ms(lambda: torch.linalg.solve_triangular(l_dense, rhs, upper=False), reps=5),
+        "solve_triangular upper": cuda_ms(
+            lambda: torch.linalg.solve_triangular(l_dense.transpose(-1, -2), rhs, upper=True), reps=5),
+    }
+    print(f"[timing] library yardsticks on the dense H {tuple(h.shape)} float32: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in library.items()) + f" on {card}")
+    del h, l_dense
+
+    # bounds from this run's inputs
+    d, bsz = pattern.d, v1.shape[1]
+    j1, j2, err = between_linearize_plain(v1, v2, meas)
+    between = _bound(_nbytes(v1, v2, meas, j1, j2, err), BETWEEN_FLOPS * v1.shape[0] * bsz)
+    asm_out = assemble_blocks_plain(pattern, padded)
+    tables = pattern.asm_tables
+    m = padded[0][1].shape[2]
+    rops_out = reprojection_linearize_plain(*rops)
+    fac_out = sum(_nbytes(f[0]) for f, _, _ in lv)
+    bounds = {
+        "between_se3": between,
+        "between_se3_aos": between,
+        "assemble_blocks": _bound(
+            _nbytes(*[t for jacs, e in padded for t in (*jacs, e)], *asm_out),
+            bsz * (2 * m * d * d * len(tables.ata_items) + 2 * m * d * len(tables.atb_items))),
+        "level_factor": _bound(sum(_nbytes(*f) for f, _, _ in lv) + fac_out, factor_flops(sched, bsz, d)),
+        "level_fwd_subst": _bound(sum(_nbytes(*fw) + _nbytes(fw[2]) for _, fw, _ in lv),
+                                  subst_flops(sched, bsz, d, True)),
+        "level_bwd_subst": _bound(sum(_nbytes(*bw) + _nbytes(bw[2]) for _, _, bw in lv),
+                                  subst_flops(sched, bsz, d, False)),
+        "reprojection": _bound(_nbytes(*rops, *rops_out), REPROJECTION_FLOPS * rops[0].shape[0] * rops[0].shape[1]),
+        "whole_factor": _bound(_nbytes(w_ata, w_l), factor_flops(sched, bsz, d)),
+        "whole_fwd_subst": _bound(_nbytes(w_l, w_atb, w_y), subst_flops(sched, bsz, d, True)),
+        "whole_bwd_subst": _bound(_nbytes(w_l, w_y, w_y), subst_flops(sched, bsz, d, False)),
+    }
+    lib = {"level_factor": library["cholesky_ex"], "whole_factor": library["cholesky_ex"],
+           "level_fwd_subst": library["solve_triangular lower"],
+           "whole_fwd_subst": library["solve_triangular lower"],
+           "level_bwd_subst": library["solve_triangular upper"],
+           "whole_bwd_subst": library["solve_triangular upper"]}
+    for name, (bms, by) in bounds.items():
+        print(f"[timing] bound {name:<16} {bms:.4f} ms ({by}); kernel {times[name][0]:.4f} ms on {card}")
+    return iters, times, train_ms, bounds, lib
 
 
 # ---------------------------------------------------------------------------
@@ -683,11 +1111,15 @@ def phase_profile(dev, card, n_iters=5):
 
     from theseus_tpu_torch.sparse.assemble import assemble
 
+    from theseus_tpu_torch import config
+
     for label, prob in (("pgo 256x128", synthetic_problem(256, 128, torch.float32, dev)),
+                        ("pgo 256x128 whole", synthetic_problem(256, 128, torch.float32, dev)),
                         ("ba {}x{}x{}".format(*BA_SMALL), ba_problem(*BA_SMALL, torch.float32, dev)),
                         ("ba {}x{}x{}".format(*BA_MAIN), ba_problem(*BA_MAIN, torch.float32, dev))):
         opt, opts, co, bld = prob.opt, prob.opt.opts, prob.co, prob.builder
         state, aux = prob.state, prob.aux
+        config.set_whole_sweep(label.endswith("whole"))
         with torch.no_grad():
             blocks = co.linearize_blocks(state, aux)
             ns = bld.build(state, aux)
@@ -709,6 +1141,7 @@ def phase_profile(dev, card, n_iters=5):
                 carry = opt.run_scan(carry, aux, n_iters, opts)
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3
+        config.set_whole_sweep(False)
         events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
         by_name = {}
@@ -743,9 +1176,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     phase_build()
-    max_abs = phase_ba_kernels(dev, phase_kernels(dev))
-    launches = {"pgo": phase_slice(dev), "ba": phase_ba_slice(dev)}
-    iters, times = phase_timing(dev, card)
+    max_abs = phase_whole_kernels(dev, phase_ba_kernels(dev, phase_kernels(dev)))
+    launches = {"pgo": phase_slice(dev), "ba": phase_ba_slice(dev), "train": phase_train(dev),
+                "aos_entry": phase_aos_entry(dev)}
+    iters, times, train_ms, bounds, library = phase_timing(dev, card)
     phase_profile(dev, card)
     check("jax" not in sys.modules and "theseus_tpu" not in sys.modules, "jax was imported")
 
@@ -753,15 +1187,17 @@ def main() -> int:
     for name, (source, replaces) in KERNEL_INFO.items():
         by_path = {path: n[name] for path, n in launches.items() if n[name]}
         check(bool(by_path), f"{name} was never launched by a main path")
+        bound_ms, bound_by = bounds[name]
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max_abs[name]["float32"], "ms": times[name][0], "plain_ms": times[name][1],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library.get(name),
         }
         if name == "assemble_blocks":  # the BA main path's shape, beside PGO's
             entry["ms_ba"], entry["plain_ms_ba"] = times["assemble_blocks ba"]
         kernels.append(entry)
-    print(json.dumps({"lm_iter_ms": {k: {"kernels": v[0], "plain": v[1]} for k, v in iters.items()}}))
+    print(json.dumps({"lm_iter_ms": iters, "train_step_ms": train_ms}))
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -43,7 +43,7 @@ def _jax_problem():
 
 
 def _port_solve(prob, dtype=torch.float64, use_families=True):
-    obj, _, _ = build_ba_objective(prob, dtype=dtype, use_families=use_families)
+    obj, _, _ = build_ba_objective(prob, dtype=dtype, device="cpu", use_families=use_families)
     return tt.TheseusLayer(tt.LevenbergMarquardt(obj, **OPTS)).forward(ba_values(prob, use_families))
 
 
@@ -55,7 +55,7 @@ def test_lm_solve_matches_jax_layer():
     jp = _jax_problem()
     jobj, _, _ = jbuild(jp, dtype=jnp.float64)
     jout, jinfo = jt.TheseusLayer(jt.LevenbergMarquardt(jobj, **OPTS)).forward(jba_values(jp))
-    out, info = _port_solve(ba_problem_from_arrays(_arrays(jp), dtype=torch.float64))
+    out, info = _port_solve(ba_problem_from_arrays(_arrays(jp), dtype=torch.float64, device="cpu"))
     np.testing.assert_allclose(info.last_err.numpy(), np.asarray(jinfo.last_err), rtol=1e-9)
     np.testing.assert_array_equal(info.status.numpy(), np.asarray(jinfo.status))
     np.testing.assert_array_equal(info.converged_iter.numpy(), np.asarray(jinfo.converged_iter))
@@ -64,7 +64,7 @@ def test_lm_solve_matches_jax_layer():
 
 
 def test_per_cost_objective_reaches_the_family_plateau():
-    prob = ba_problem_from_arrays(_arrays(_jax_problem()), dtype=torch.float64)
+    prob = ba_problem_from_arrays(_arrays(_jax_problem()), dtype=torch.float64, device="cpu")
     _, fam = _port_solve(prob)
     _, per = _port_solve(prob, use_families=False)
     torch.testing.assert_close(per.last_err, fam.last_err, rtol=1e-9, atol=0)
@@ -75,8 +75,8 @@ def test_float32_solve_close_to_float64_plateau():
     stalls about 1.9e-3 (relative) above the float64 plateau on this problem
     (measured; 1.8e-3 at 16 x 200 x 4); 5e-3 holds it."""
     arrays = _arrays(_jax_problem())
-    _, i64 = _port_solve(ba_problem_from_arrays(arrays, dtype=torch.float64))
-    _, i32 = _port_solve(ba_problem_from_arrays(arrays, dtype=torch.float32), dtype=torch.float32)
+    _, i64 = _port_solve(ba_problem_from_arrays(arrays, dtype=torch.float64, device="cpu"))
+    _, i32 = _port_solve(ba_problem_from_arrays(arrays, dtype=torch.float32, device="cpu"), dtype=torch.float32)
     np.testing.assert_allclose(i32.last_err.double().numpy(), i64.last_err.numpy(), rtol=5e-3)
 
 
@@ -85,7 +85,7 @@ def test_synthetic_visibility_matches_jax(cams, pts, vis):
     """Same (camera, point) pairs as the JAX generator, including its rule
     that every point is seen by at least two cameras (the 0.03 case)."""
     jp = jsynthetic(num_cameras=cams, num_points=pts, batch=1, visibility=vis, dtype=jnp.float64)
-    prob = synthetic_ba(cams, pts, batch=1, visibility=vis)
+    prob = synthetic_ba(cams, pts, batch=1, visibility=vis, device="cpu")
     np.testing.assert_array_equal(prob.obs_cam, np.asarray(jp.obs_cam))
     np.testing.assert_array_equal(prob.obs_pt, np.asarray(jp.obs_pt))
     assert np.bincount(prob.obs_pt, minlength=pts).min() >= 2
@@ -94,8 +94,8 @@ def test_synthetic_visibility_matches_jax(cams, pts, vis):
 def test_synthetic_geometry():
     """Ground truth reprojects onto the observations up to the pixel noise;
     the same seed gives the same problem."""
-    prob = synthetic_ba(6, 40, batch=3, seed=4, visibility=0.5, pixel_noise=1e-3, dtype=torch.float64)
-    a = synthetic_ba(6, 40, batch=3, seed=4, visibility=0.5, pixel_noise=1e-3, dtype=torch.float64)
+    prob = synthetic_ba(6, 40, batch=3, seed=4, visibility=0.5, pixel_noise=1e-3, dtype=torch.float64, device="cpu")
+    a = synthetic_ba(6, 40, batch=3, seed=4, visibility=0.5, pixel_noise=1e-3, dtype=torch.float64, device="cpu")
     assert torch.equal(prob.obs_img, a.obs_img) and torch.equal(prob.poses, a.poses)
     assert prob.poses.shape == (6, 3, 3, 4) and prob.points.shape == (40, 3, 3)
     assert prob.obs_img.shape == (len(prob.obs_cam), 3, 2)
@@ -103,19 +103,19 @@ def test_synthetic_geometry():
     assert (pc[..., 2] > 1.0).all()  # every point well off every camera plane
     proj = -pc[..., :2] / pc[..., 2:3] * prob.focals[prob.obs_cam]
     assert float((proj - prob.obs_img).abs().max()) < 6e-3
-    f32 = synthetic_ba(6, 40, batch=3, seed=4, visibility=0.5, dtype=torch.float32)
+    f32 = synthetic_ba(6, 40, batch=3, seed=4, visibility=0.5, dtype=torch.float32, device="cpu")
     assert f32.poses.dtype == torch.float32
 
 
 def test_bal_round_trip(tmp_path):
     """save_bal then load_bal returns the problem (17 significant digits);
     the JAX package's reader reads the same file to the same arrays."""
-    prob = synthetic_ba(5, 20, batch=2, seed=1, visibility=0.6, dtype=torch.float64)
+    prob = synthetic_ba(5, 20, batch=2, seed=1, visibility=0.6, dtype=torch.float64, device="cpu")
     prob.k1 = torch.full_like(prob.k1, 0.03)
     prob.k2 = torch.full_like(prob.k2, -0.002)
     path = tmp_path / "problem.txt"
     save_bal(path, prob, batch_index=1)
-    back = load_bal(path, batch=3)
+    back = load_bal(path, batch=3, device="cpu")
     np.testing.assert_array_equal(back.obs_cam, prob.obs_cam)
     np.testing.assert_array_equal(back.obs_pt, prob.obs_pt)
     for k in ("poses", "points", "focals", "k1", "k2", "obs_img"):
@@ -127,7 +127,7 @@ def test_bal_round_trip(tmp_path):
 
 
 def test_load_ba_npz_reads_the_golden():
-    prob = load_ba_npz(GOLDEN, dtype=torch.float32)
+    prob = load_ba_npz(GOLDEN, dtype=torch.float32, device="cpu")
     assert (prob.num_cameras, prob.num_points) == (16, 200)
     assert prob.poses.shape == (16, 4, 3, 4) and prob.poses.dtype == torch.float32
     assert prob.obs_cam.dtype == np.int64 and len(prob.obs_cam) == prob.obs_img.shape[0]

@@ -68,8 +68,8 @@ def test_port_reaches_golden_plateau_on_cpu():
     from theseus_tpu_torch.utils.convert import load_ba_npz
     from theseus_tpu_torch.utils.examples.bundle_adjustment import ba_values, build_ba_objective
 
-    prob = load_ba_npz(FIXTURE, dtype=torch.float64)
-    obj, _, _ = build_ba_objective(prob, dtype=torch.float64)
+    prob = load_ba_npz(FIXTURE, dtype=torch.float64, device="cpu")
+    obj, _, _ = build_ba_objective(prob, dtype=torch.float64, device="cpu")
     opt = ttt.LevenbergMarquardt(obj, max_iterations=N_ITERS, adaptive_damping=True,
                                  ellipsoidal_damping=True, linearization="schur")
     _, info = ttt.TheseusLayer(opt).forward(ba_values(prob))

@@ -85,10 +85,16 @@ def test_fused_path_matches_cost_jacobians():
 
 
 def test_requires_grad_is_refused():
+    """Inputs that require grad are no longer refused: the linearization goes
+    through its autograd Function, whose gradient is the twin's (1e-12)."""
     v1, v2, meas = (torch.as_tensor(a) for a in _problem("generic", K=2, B=2))
     v1.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        between_linearize(v1, v2, meas)
+    outs = between_linearize(v1, v2, meas)
+    assert all(o.grad_fn is not None for o in outs)
+    (got,) = torch.autograd.grad(sum(o.sum() for o in outs), v1)
+    p = v1.detach().requires_grad_(True)
+    (want,) = torch.autograd.grad(sum(o.sum() for o in between_linearize_plain(p, v2, meas)), p)
+    torch.testing.assert_close(got, want, atol=1e-12, rtol=0)
 
 
 def test_float32_twin_close_to_float64():

@@ -327,3 +327,141 @@ def test_schur_run_scan_never_syncs_with_the_host(cuda_device):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(carry["err"]).all()
+
+
+# ---------------------------------------------------------------------------
+# whole-sweep kernels (sparse/whole.py) and the backward on the card
+# ---------------------------------------------------------------------------
+def _whole_system(n_poses, batch, dtype, device):
+    from theseus_tpu_torch.sparse.assemble import apply_block_damping
+
+    bld, blocks = _pgo_normal(n_poses, batch, dtype, device)
+    with config.plain_path():
+        ata, atb = assemble(bld.pattern, blocks)
+        ata = apply_block_damping(bld.pattern, ata, 1e-3, False, 1e-8)
+    return bld, ata, atb
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_poses,batch", [(40, 6), (4400, 1)])
+def test_whole_kernels_match_twins(cuda_device, dtype, n_poses, batch):
+    """Factor slot for slot against the per-column twin and the level plan;
+    both substitutions against their twins. At 4400 poses the float64 vector
+    (4400 x 6 x 8 bytes) exceeds the shared-memory budget, so the
+    substitutions work in device memory."""
+    from theseus_tpu_torch.sparse.cholesky import factorize_levels
+    from theseus_tpu_torch.sparse.whole import whole_bwd_subst, whole_factor, whole_fwd_subst
+
+    bld, ata, atb = _whole_system(n_poses, batch, dtype, cuda_device)
+    sched = bld.sched
+    _cuda.reset_launches()
+    lflat = whole_factor(sched, ata)
+    y = whole_fwd_subst(sched, lflat, atb)
+    x = whole_bwd_subst(sched, lflat, y)
+    assert [_cuda.launches[k] for k in ("whole_factor", "whole_fwd_subst", "whole_bwd_subst")] == [1, 1, 1]
+    with config.plain_path():
+        lflat_p = whole_factor(sched, ata)
+        y_p = whole_fwd_subst(sched, lflat, atb)
+        x_p = whole_bwd_subst(sched, lflat, y_p)
+    lflat_l = factorize_levels(sched, ata)
+    torch.cuda.synchronize()
+    assert float(lflat[0].abs().max()) == 0.0
+    scale = float(lflat_p.abs().max())
+    _close(lflat, lflat_p, dtype, scale)
+    _close(lflat, lflat_l, dtype, scale)
+    _close(y, y_p, dtype, float(y_p.abs().max()))
+    _close(x, x_p, dtype, 10.0 * float(x_p.abs().max()))
+
+
+def test_whole_factor_nonpositive_pivot_is_nan(cuda_device):
+    from theseus_tpu_torch.sparse.whole import whole_factor
+
+    bld, ata, _ = _whole_system(16, 3, torch.float32, cuda_device)
+    ata = ata.clone()
+    ata[1:, 1] = -ata[1:, 1].abs()  # batch element 1: negative diagonal blocks
+    lflat = whole_factor(bld.sched, ata)
+    assert torch.isnan(lflat[1:, 1]).any() and bool(torch.isfinite(lflat[:, 0]).all())
+
+
+def test_between_fused_entry_matches_twin(cuda_device):
+    from theseus_tpu_torch.ops.between_se3 import between_linearize_fused
+
+    rng = np.random.default_rng(5)
+    K, B = 257, 9
+    v1, v2, meas = (_poses(rng, (K, B), 1.0, torch.float64, cuda_device) for _ in range(3))
+    _cuda.reset_launches()
+    got = between_linearize_fused(v1, v2, meas)
+    assert _cuda.launches["between_se3_aos"] == 1 and _cuda.launches["between_se3"] == 0
+    for g, w in zip(got, between_linearize_plain(v1, v2, meas)):
+        _close(g, w, torch.float64)
+
+
+def _training_grad(device, dtype, mode, whole, n=32, b=8, iters=20, cls=None):
+    """Outer loss and d loss / d theta of the flagship training step."""
+    import theseus_tpu_torch as tt
+    from theseus_tpu_torch.utils.examples.pose_graph import mean_sq_local, training_weights
+
+    gt, edges, meas, init = synthetic_pose_graph(n, b, seed=6, dtype=dtype, device=device)
+    w_odo, w_loop = training_weights()
+    obj, _ = build_pgo_objective(n, edges, meas, gt[0], dtype=dtype, device=device,
+                                 edge_weight=w_odo, loop_weight=w_loop)
+    opt = (cls or tt.LevenbergMarquardt)(obj, max_iterations=iters, **({} if cls else {"adaptive_damping": True}))
+    theta = torch.tensor(1.3, dtype=dtype, device=device, requires_grad=True)
+    inputs = dict(pose_values(init), w_loop=theta.reshape(1, 1))
+    config.set_whole_sweep(whole)
+    try:
+        out, _ = tt.TheseusLayer(opt).forward(inputs, optimizer_kwargs={"backward_mode": mode})
+        loss = mean_sq_local(out, gt)
+        before = dict(_cuda.launches)
+        loss.backward()
+        during = {k: _cuda.launches[k] - before[k] for k in before}
+    finally:
+        config.set_whole_sweep(False)
+    return float(loss.detach()), float(theta.grad), before, during
+
+
+@pytest.mark.parametrize("mode", ["implicit", "unroll"])
+def test_training_gradient_on_card_matches_twins(cuda_device, mode):
+    """float64 on the card: the kernels' gradient equals the plain twins'
+    (whole-sweep and level plans) to rounding order; the implicit backward
+    launches one substitution pair and no factorization."""
+    import theseus_tpu_torch as tt
+
+    kw = {"cls": tt.GaussNewton, "iters": 6} if mode == "unroll" else {}
+    _cuda.reset_launches()
+    loss, grad, fwd, bwd = _training_grad(cuda_device, torch.float64, mode, True, **kw)
+    assert fwd["level_factor"] == 0 and fwd["whole_factor"] > 0
+    if mode == "implicit":
+        assert bwd["whole_factor"] == 0
+        assert bwd["whole_fwd_subst"] == 1 and bwd["whole_bwd_subst"] == 1
+    with config.plain_path():
+        loss_p, grad_p, _, _ = _training_grad(cuda_device, torch.float64, mode, False, **kw)
+    _, grad_l, _, _ = _training_grad(cuda_device, torch.float64, mode, False, **kw)
+    assert np.isfinite(grad) and grad != 0.0
+    np.testing.assert_allclose(loss, loss_p, rtol=1e-9)
+    np.testing.assert_allclose(grad, grad_p, rtol=1e-7)
+    np.testing.assert_allclose(grad, grad_l, rtol=1e-7)
+
+
+def test_whole_sweep_run_scan_never_syncs_with_the_host(cuda_device):
+    import theseus_tpu_torch as tt
+
+    gt, edges, meas, init = synthetic_pose_graph(32, 8, seed=4, dtype=torch.float32, device=cuda_device)
+    obj, _ = build_pgo_objective(32, edges, meas, gt[0], dtype=torch.float32, device=cuda_device)
+    opt = tt.LevenbergMarquardt(obj, max_iterations=3, adaptive_damping=True)
+    co = obj.compile()
+    values = obj.default_values(pose_values(init))
+    state, aux = co.pack(values, 8), co.build_aux(values, 8)
+    config.set_whole_sweep(True)
+    try:
+        with torch.no_grad():
+            carry = opt.run_scan(opt.init_carry(state, aux, opt.opts), aux, 1, opt.opts)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                carry = opt.run_scan(carry, aux, 3, opt.opts)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        config.set_whole_sweep(False)
+    assert torch.isfinite(carry["err"]).all()

@@ -26,9 +26,9 @@ KEYS = ("poses", "points", "focals", "k1", "k2", "obs_cam", "obs_pt", "obs_img")
 
 
 def _port_problem(use_families, C=5, P=30, B=2, seed=0):
-    prob = synthetic_ba(C, P, batch=B, seed=seed, visibility=0.5, dtype=torch.float64)
+    prob = synthetic_ba(C, P, batch=B, seed=seed, visibility=0.5, dtype=torch.float64, device="cpu")
     prob.k1 = 0.05 * torch.ones_like(prob.k1)  # exercise the distortion terms
-    obj, cams, pts = build_ba_objective(prob, dtype=torch.float64, use_families=use_families)
+    obj, cams, pts = build_ba_objective(prob, dtype=torch.float64, device="cpu", use_families=use_families)
     co = obj.compile()
     vals = obj.default_values(ba_values(prob, use_families))
     return prob, obj, co, co.pack(vals, B), co.build_aux(vals, B)
@@ -84,10 +84,10 @@ def test_gauge_on_a_family_member_maps_to_the_family_rows():
 
 def test_compiled_layout_matches_jax():
     jp = jsynthetic(num_cameras=4, num_points=20, batch=2, seed=1, visibility=0.6, dtype=jnp.float64)
-    prob = ba_problem_from_arrays({k: np.asarray(getattr(jp, k)) for k in KEYS}, dtype=torch.float64)
+    prob = ba_problem_from_arrays({k: np.asarray(getattr(jp, k)) for k in KEYS}, dtype=torch.float64, device="cpu")
     for fam in (True, False):
         jco = jbuild(jp, dtype=jnp.float64, use_families=fam)[0].compile()
-        co = build_ba_objective(prob, dtype=torch.float64, use_families=fam)[0].compile()
+        co = build_ba_objective(prob, dtype=torch.float64, device="cpu", use_families=fam)[0].compile()
         assert co.var_names == jco.var_names
         assert co.type_members == jco.type_members
         assert co.col_offset == jco.col_offset
@@ -124,7 +124,7 @@ def test_pack_unpack_and_batch_resolution():
 def test_family_defaults_are_identities():
     fam = Point3Family(4, name="p")
     cams = SE3Family(3, name="c")
-    obj = tt.Objective(dtype=torch.float64)
+    obj = tt.Objective(dtype=torch.float64, device="cpu")
     obj.add(tt.Local(cams[1], np.eye(3, 4)[None], name="prior"))
     obj.add(tt.Local(fam[2], np.ones((1, 3)), name="pp"))
     vals = obj.default_values()
@@ -146,7 +146,7 @@ def test_euclidean_costs_match_jax():
     rng = np.random.default_rng(3)
     a, b, m, t = (rng.standard_normal((2, 3)) for _ in range(4))
     jobj = jt.Objective(dtype=jnp.float64)
-    obj = tt.Objective(dtype=torch.float64)
+    obj = tt.Objective(dtype=torch.float64, device="cpu")
     for pkg, o in ((jt, jobj), (tt, obj)):
         pa, pb = pkg.Point3(name="a"), pkg.Point3(name="b")
         o.add(pkg.Between(pa, pb, m, name="between"))

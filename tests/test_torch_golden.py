@@ -80,7 +80,7 @@ def test_port_reaches_golden_plateau_on_cpu():
     import theseus_tpu_torch as ttt
     from theseus_tpu_torch.utils.convert import load_problem_npz
 
-    obj, inputs = load_problem_npz(FIXTURE, dtype=torch.float64)
+    obj, inputs = load_problem_npz(FIXTURE, dtype=torch.float64, device="cpu")
     opt = ttt.LevenbergMarquardt(obj, max_iterations=N_ITERS, adaptive_damping=True)
     _, info = ttt.TheseusLayer(opt).forward(inputs)
     with np.load(FIXTURE) as f:

@@ -39,7 +39,7 @@ def _arrays(n=N, b=B, dtype=jnp.float64):
 
 
 def _port_layer(arrays, dtype=torch.float64, cls=tt.LevenbergMarquardt, **kw):
-    obj, inputs = problem_from_arrays(arrays, dtype=dtype)
+    obj, inputs = problem_from_arrays(arrays, dtype=dtype, device="cpu")
     kw.setdefault("adaptive_damping", cls is tt.LevenbergMarquardt)
     return tt.TheseusLayer(cls(obj, max_iterations=ITERS, **kw)), inputs
 
@@ -78,7 +78,7 @@ def test_diagonal_weight_equals_scale_weight():
     errs = []
     for weight in (tt.ScaleCostWeight(2.0), tt.DiagonalCostWeight(np.full(6, 2.0))):
         obj, _ = build_pgo_objective(8, [tuple(e) for e in arrays["edges"]], arrays["measurements"],
-                                     arrays["gt"][0], dtype=torch.float64, edge_weight=weight)
+                                     arrays["gt"][0], dtype=torch.float64, device="cpu", edge_weight=weight)
         layer = tt.TheseusLayer(tt.LevenbergMarquardt(obj, max_iterations=ITERS, adaptive_damping=True))
         errs.append(layer.forward(pose_values(torch.as_tensor(arrays["init"])))[1].last_err)
     torch.testing.assert_close(errs[1], errs[0], rtol=1e-12, atol=0)
@@ -119,11 +119,16 @@ def test_float32_solve_close_to_float64_plateau():
     np.testing.assert_allclose(i32.last_err.double().numpy(), i64.last_err.numpy(), rtol=1e-4)
 
 
-@pytest.mark.parametrize("case", ["requires_grad", "aux_requires_grad", "dense", "schur", "implicit_mode"])
+@pytest.mark.parametrize(
+    "case", ["requires_grad", "aux_requires_grad", "dense", "schur", "implicit_mode", "dlm"])
 def test_unported_paths_raise(case):
+    """The paths still to port raise NotImplementedError naming ROADMAP.md:
+    the dense linearization, the Schur and DLM backwards. Inputs that
+    require grad on the sparse path (unroll, the default, and implicit)
+    now get a finite, non-zero gradient instead."""
     arrays, _ = _arrays(n=8, b=2)
     if case == "dense":
-        obj, _ = problem_from_arrays(arrays)
+        obj, _ = problem_from_arrays(arrays, device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tt.LevenbergMarquardt(obj, linearization=case)
         return
@@ -132,8 +137,8 @@ def test_unported_paths_raise(case):
         from theseus_tpu_torch.utils.examples.bundle_adjustment import (
             ba_values, build_ba_objective, synthetic_ba)
 
-        prob = synthetic_ba(3, 6, batch=2, dtype=torch.float64)
-        obj, _, _ = build_ba_objective(prob, dtype=torch.float64)
+        prob = synthetic_ba(3, 6, batch=2, dtype=torch.float64, device="cpu")
+        obj, _, _ = build_ba_objective(prob, dtype=torch.float64, device="cpu")
         layer = tt.TheseusLayer(tt.LevenbergMarquardt(obj, linearization="schur"))
         inputs = ba_values(prob)
         inputs["pt"] = inputs["pt"].clone().requires_grad_(True)
@@ -142,13 +147,40 @@ def test_unported_paths_raise(case):
         return
     layer, inputs = _port_layer(arrays)
     kwargs = {"backward_mode": "implicit"} if case == "implicit_mode" else {}
-    if case == "requires_grad":
+    if case == "dlm":
+        kwargs = {"backward_mode": "dlm"}
         inputs["pose_3"] = inputs["pose_3"].clone().requires_grad_(True)
-    elif case == "aux_requires_grad":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            layer.forward(inputs, optimizer_kwargs=kwargs)
+        return
+    if case == "aux_requires_grad" or case == "implicit_mode":
         prior = layer.objective.cost_functions["prior"]
-        prior.aux_vars[0].tensor = torch.as_tensor(prior.aux_vars[0].tensor).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layer.forward(inputs, optimizer_kwargs=kwargs)
+        leaf = torch.as_tensor(prior.aux_vars[0].tensor).clone().requires_grad_(True)
+        prior.aux_vars[0].tensor = leaf
+    else:
+        leaf = inputs["pose_3"] = inputs["pose_3"].clone().requires_grad_(True)
+    out, _ = layer.forward(inputs, optimizer_kwargs=kwargs)
+    loss = sum((out[f"pose_{i}"][..., 3] ** 2).sum() for i in range(8))
+    (grad,) = torch.autograd.grad(loss, leaf)
+    assert bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """Entry points run on config.default_device(), the card; without one the
+    default raises instead of falling back to the CPU."""
+    from theseus_tpu_torch import config
+    from theseus_tpu_torch.utils.examples.pose_graph import synthetic_pose_graph
+
+    arrays, _ = _arrays(n=8, b=2)
+    if not torch.cuda.is_available():
+        for build in (lambda: tt.Objective(), lambda: problem_from_arrays(arrays),
+                      lambda: synthetic_pose_graph(8, 2)):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                build()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert config.default_device() == torch.device("cuda")
+    assert tt.Objective().device == torch.device("cuda")
+    assert tt.Objective(device="cpu").device == torch.device("cpu")
 
 
 def test_precision_is_pinned_to_full_float32():

@@ -46,8 +46,8 @@ def _problems(seed=0, batch=2, cams=5, pts=24, visibility=0.6):
                       name="scale_pin"))
     keys = ("poses", "points", "focals", "k1", "k2", "obs_cam", "obs_pt", "obs_img",
             "gt_poses", "gt_points")
-    prob = ba_problem_from_arrays({k: np.asarray(getattr(jp, k)) for k in keys}, dtype=torch.float64)
-    obj, _, pts_ = build_ba_objective(prob, dtype=torch.float64, gauge_target=prob.gt_poses[0])
+    prob = ba_problem_from_arrays({k: np.asarray(getattr(jp, k)) for k in keys}, dtype=torch.float64, device="cpu")
+    obj, _, pts_ = build_ba_objective(prob, dtype=torch.float64, device="cpu", gauge_target=prob.gt_poses[0])
     obj.add(tt.Local(pts_[0], prob.gt_points[0].numpy(), tt.ScaleCostWeight(10.0), name="scale_pin"))
     return (jobj, jobj.default_values(jba_values(jp))), (obj, obj.default_values(ba_values(prob)))
 
@@ -177,7 +177,7 @@ def test_non_positive_definite_system_is_bad_with_zero_step():
 
 def test_coupled_landmarks_are_rejected():
     p1, p2 = tt.Point3(name="a"), tt.Point3(name="b")
-    obj = tt.Objective(dtype=torch.float64)
+    obj = tt.Objective(dtype=torch.float64, device="cpu")
     obj.add(tt.Between(p1, p2, np.zeros((1, 3))))
     with pytest.raises(ValueError, match="coupling two eliminated"):
         SchurNormalBuilder(obj.compile(), eliminate_points)

@@ -53,7 +53,7 @@ def _problem(n, b, dtype=jnp.float64):
         arrays = dict(gt=np.asarray(gt), edges=np.asarray(edges), measurements=np.asarray(meas),
                       init=np.asarray(init), prior_weight=10.0)
         tdt = torch.float64 if dtype == jnp.float64 else torch.float32
-        pobj, inputs = problem_from_arrays(arrays, dtype=tdt)
+        pobj, inputs = problem_from_arrays(arrays, dtype=tdt, device="cpu")
         pco = pobj.compile()
         pvals = pobj.default_values(inputs)
         pstate, paux = pco.pack(pvals, b), pco.build_aux(pvals, b)

@@ -26,6 +26,7 @@ _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 SOURCES = (
     "between_se3.cu", "assemble_blocks.cu", "level_factor.cu", "level_subst.cu", "reprojection.cu",
+    "whole_factor.cu", "whole_subst.cu",
 )
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -41,7 +42,7 @@ build_seconds: Optional[float] = None
 # kernel and nowhere else, so a run can show that it went through them.
 KERNELS = (
     "between_se3", "assemble_blocks", "level_factor", "level_fwd_subst", "level_bwd_subst",
-    "reprojection",
+    "reprojection", "whole_factor", "whole_fwd_subst", "whole_bwd_subst", "between_se3_aos",
 )
 launches = {name: 0 for name in KERNELS}
 
@@ -149,6 +150,15 @@ _SIGNATURES = {
     # pose, point, focal, feat, k1, k2, (k, b) strides of the four aux,
     # K, B, jpose, jpt, err, stream
     "th_reprojection": [_P] * 6 + [_L] * 8 + [_I, _I, _P, _P, _P, _P],
+    # ata, a_src, a_tr, col_start, col_len, ucount, upd_jk, upd_slots, order,
+    # lvl_ptr, n_levels, rmax, umax, B, d, lflat, stream
+    "th_whole_factor": [_P] * 10 + [_I] * 5 + [_P, _P],
+    # lflat, b, perm, upd_jk, upd_k, ucount, diag_slot, order, lvl_ptr,
+    # n_levels, n, umax, B, d, y, stream
+    "th_whole_fwd_subst": [_P] * 9 + [_I] * 5 + [_P, _P],
+    # lflat, y, perm, col_start, col_len, row_ids, order, lvl_ptr, n_levels,
+    # n, rmax, B, d, x, stream
+    "th_whole_bwd_subst": [_P] * 8 + [_I] * 5 + [_P, _P],
 }
 
 

@@ -10,7 +10,15 @@ solver-precision settings, and the kernel dispatch rule of the port:
 There is no dtype gate, no size gate and no fallback around a build or a
 launch: a kernel that cannot build or launch raises. The one way to run a
 twin on the card is the explicit `plain_path()` context, which comparison
-harnesses use to build the reference they hold the kernels against.
+harnesses use to build the reference they hold the kernels against. A
+kernel's autograd Function differentiates its twin at the saved inputs in
+`backward` (the JAX package's custom VJPs differentiate their pure-JAX
+references the same way); the forward value always comes from the kernel.
+
+Entry points (the Objective, the example problem builders, the loaders)
+run on `default_device()`, the card, unless the caller passes
+`device="cpu"`; without a card the default raises instead of moving to the
+CPU.
 """
 
 from __future__ import annotations
@@ -139,6 +147,21 @@ def set_schur_dense_budget(nbytes: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Whole-sweep solve (counterpart of the JAX package's PALLAS_WHOLE): each
+# factorization and each substitution sweep is one kernel launch
+# (sparse/whole.py) instead of one launch per elimination-tree level. Off by
+# default, as in the JAX package. Takes effect for schedules without a dense
+# tail; there is no size gate.
+# ---------------------------------------------------------------------------
+WHOLE_SWEEP = False
+
+
+def set_whole_sweep(enabled: bool) -> None:
+    global WHOLE_SWEEP
+    WHOLE_SWEEP = bool(enabled)
+
+
+# ---------------------------------------------------------------------------
 # Kernel dispatch (replaces the JAX package's `pallas_enabled`).
 # ---------------------------------------------------------------------------
 _PLAIN = False
@@ -171,14 +194,36 @@ def use_kernel(t: torch.Tensor) -> bool:
     )
 
 
-def check_no_grad(*tensors: torch.Tensor) -> None:
-    """The port solves forward only for now (backward modes are the next
-    step of ROADMAP.md): refuse inputs that carry autograd history instead
-    of detaching them silently."""
-    if torch.is_grad_enabled() and any(
+def default_device() -> torch.device:
+    """The device an entry point runs on when the caller names none: the
+    card. Without one this raises; it never falls back to the CPU."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "theseus_tpu_torch runs on a CUDA device by default and none is available; "
+            "pass device='cpu' to run the plain PyTorch twins on the CPU"
+        )
+    return torch.device("cuda")
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device` as a torch.device, `default_device()` when it is None."""
+    return default_device() if device is None else torch.device(device)
+
+
+def needs_grad(*tensors) -> bool:
+    """True when autograd is recording and one of `tensors` requires grad:
+    a kernel wrapper then goes through its autograd Function."""
+    return torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors
-    ):
+    )
+
+
+def check_no_grad(*tensors: torch.Tensor) -> None:
+    """Where the port has no backward yet (the Schur linearization, the
+    Reprojection op, the DLM mode; ROADMAP.md, queue 1), refuse inputs that
+    carry autograd history instead of detaching them silently."""
+    if needs_grad(*tensors):
         raise NotImplementedError(
-            "theseus_tpu_torch has no backward pass yet (ROADMAP.md, queue 1):"
+            "theseus_tpu_torch has no backward pass for this path yet (ROADMAP.md, queue 1):"
             " pass tensors that do not require grad"
         )

@@ -3,8 +3,8 @@
 The builder keeps the ordered cost functions (and cost families), the
 variables and variable families by name; all numerical work lives in the
 compiled view (`compile()`), cached until the structure changes. The
-objective fixes the dtype and the device every solve runs in: there is no
-implicit CUDA default.
+objective fixes the dtype and the device every solve runs in: the card
+(`config.default_device()`) unless the caller passes `device="cpu"`.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..config import resolve_device
 from .compiled import CompiledObjective, compile_objective
 from .cost_function import CostFunction
 from .family import CostFamily, VariableFamily
@@ -22,13 +23,13 @@ from .variable import ManifoldVariable, Variable
 
 
 class Objective:
-    def __init__(self, dtype: torch.dtype = torch.float32, device="cpu"):
+    def __init__(self, dtype: torch.dtype = torch.float32, device=None):
         self.cost_functions: "OrderedDict[str, CostFunction]" = OrderedDict()
         self.optim_vars: Dict[str, ManifoldVariable] = {}
         self.var_families: Dict[str, VariableFamily] = {}
         self.aux_vars: Dict[str, Variable] = {}
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._compiled: Optional[CompiledObjective] = None
 
     def _register_optim(self, v: ManifoldVariable):

@@ -4,20 +4,25 @@ Layout (..., 3, 4) with the rotation in [..., :3] and the translation in
 [..., 3]; tangents are [linear(3); angular(3)] with right perturbation
 g * exp(delta). The subset the PGO path needs: exp, log, jlog, compose,
 inverse, adjoint, with the JAX package's Taylor branches and eps, and the
-point action `transform` the bundle-adjustment data needs.
+point action `transform` the bundle-adjustment data needs. `exp` and `log`
+carry the JAX package's custom JVP rules as autograd Functions (see
+lie/so3.py), taken only while autograd records.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..config import get_eps
+from ..config import get_eps, needs_grad
 from . import so3
-from .utils import eye, mvp, nz, outer, so3_hat, transpose
+from .utils import antisym_project, eye, mvp, nz, outer, so3_hat, transpose
 
 DOF = 6
 SHAPE = (3, 4)
 NAME = "SE3"
+
+_D_OMC_NEAR_ZERO = -1.0 / 12.0
+_D_TMS_NEAR_ZERO = -1.0 / 60.0
 
 
 def from_rot_trans(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -36,12 +41,62 @@ def _exp_helper(x: torch.Tensor):
         + omc[..., None] * torch.linalg.cross(w, v, dim=-1)
         + tms_t[..., None] * w * torch.sum(w * v, dim=-1, keepdim=True)
     )
-    return from_rot_trans(r, t)
+    return from_rot_trans(r, t), (theta, nz(theta2, near_zero), sbt, omc, tms_t)
+
+
+def jexp(x: torch.Tensor):
+    """6x6 right Jacobian of exp and exp itself: ([J], G)."""
+    ret, (theta, theta2_nz, sbt, omc, tms_t) = _exp_helper(x)
+    near_zero = theta < get_eps("so3", "near_zero", x.dtype)
+    tms_rot = torch.where(near_zero, torch.zeros_like(theta), tms_t)
+
+    v, w = x[..., :3], x[..., 3:]
+    jrot = tms_rot[..., None, None] * outer(w, w)
+    jrot = jrot + sbt[..., None, None] * eye(3, x)
+    jrot = jrot - omc[..., None, None] * so3_hat(w)
+
+    d_omc = torch.where(near_zero, _D_OMC_NEAR_ZERO, (sbt - 2.0 * omc) / theta2_nz)
+    d_tms = torch.where(near_zero, _D_TMS_NEAR_ZERO, (omc - 3.0 * tms_t) / theta2_nz)
+
+    wv = torch.linalg.cross(w, v, dim=-1)
+    wwv = torch.linalg.cross(w, wv, dim=-1)
+    sw = tms_t[..., None] * w
+
+    jac_temp_t = outer(d_omc[..., None] * wv + d_tms[..., None] * wwv, w)
+    jac_temp_t = jac_temp_t - outer(v, sw)
+    jac_temp_t = jac_temp_t + so3_hat(-omc[..., None] * v - tms_t[..., None] * wv)
+    jac_temp_t = jac_temp_t + torch.sum(sw * v, dim=-1)[..., None, None] * eye(3, x)
+    q = transpose(ret[..., :3]) @ jac_temp_t
+
+    top = torch.cat([jrot, q], dim=-1)
+    bottom = torch.cat([torch.zeros_like(q), jrot], dim=-1)
+    return [torch.cat([top, bottom], dim=-2)], ret
+
+
+class _Exp(torch.autograd.Function):
+    """exp with the JAX rule dG = [R hat(d_ang) | R d_lin], d = J dx,
+    transposed."""
+
+    @staticmethod
+    def forward(ctx, x):
+        (jac,), g = jexp(x)
+        ctx.save_for_backward(jac, g)
+        return g
+
+    @staticmethod
+    def backward(ctx, gg):
+        jac, g = ctx.saved_tensors
+        rt = transpose(g[..., :3])
+        d_lin = mvp(rt, gg[..., 3])
+        d_ang = 2.0 * antisym_project(rt @ gg[..., :3])
+        return mvp(transpose(jac), torch.cat([d_lin, d_ang], dim=-1))
 
 
 def exp(x: torch.Tensor) -> torch.Tensor:
     """Exponential map se(3) -> SE(3). (..., 6) -> (..., 3, 4)."""
-    return _exp_helper(x)
+    if needs_grad(x):
+        return _Exp.apply(x)
+    return _exp_helper(x)[0]
 
 
 def _log_helper(g: torch.Tensor):
@@ -70,8 +125,30 @@ def _log_helper(g: torch.Tensor):
     return ret, (theta, theta2, theta2_nz, sine, cosine, tcm2_nz)
 
 
+class _Log(torch.autograd.Function):
+    """log with the JAX rule dx = J [R^T dt; antisym_project(R^T dR)],
+    transposed."""
+
+    @staticmethod
+    def forward(ctx, g):
+        (jac,), x = jlog(g)
+        ctx.save_for_backward(jac, g)
+        return x
+
+    @staticmethod
+    def backward(ctx, gx):
+        jac, g = ctx.saved_tensors
+        r = g[..., :3]
+        v = mvp(transpose(jac), gx)
+        d_rot = r @ (0.5 * so3_hat(v[..., 3:]))
+        d_t = mvp(r, v[..., :3])
+        return torch.cat([d_rot, d_t[..., None]], dim=-1)
+
+
 def log(g: torch.Tensor) -> torch.Tensor:
     """Logarithm map SE(3) -> se(3). (..., 3, 4) -> (..., 6)."""
+    if needs_grad(g):
+        return _Log.apply(g)
     return _log_helper(g)[0]
 
 

@@ -4,15 +4,18 @@ The subset the PGO path needs: exp, log, jlog, compose, inverse, adjoint.
 Right-perturbation tangent convention, and the same Taylor branches and
 per-dtype eps as the JAX package (exp near-zero Pade; log near-zero and
 near-pi branches; jlog coefficients on the wider derivative eps). All ops
-broadcast over leading batch dims. Forward only: no autograd rules yet.
+broadcast over leading batch dims. `exp` and `log` carry the JAX
+package's custom JVP rules as autograd Functions (the plain formulas give
+NaN gradients at an exact zero tangent: sqrt and the norm at 0, each 0 * inf
+under torch.where); they are taken only while autograd records.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..config import get_eps
-from .utils import antisym_project, eye, nz, outer, so3_hat, transpose
+from ..config import get_eps, needs_grad
+from .utils import antisym_project, eye, mvp, nz, outer, so3_hat, transpose
 
 DOF = 3
 SHAPE = (3, 3)
@@ -42,8 +45,39 @@ def _exp_helper(w: torch.Tensor):
     return ret, (theta, theta2, sine, cosine, sine_by_theta, one_minus_cosine_by_theta2)
 
 
+def jexp(w: torch.Tensor):
+    """Right Jacobian of exp and the exp itself: ([J], R), with
+    J_r = sin(t)/t I - (1-cos t)/t^2 hat(w) + (t - sin t)/t^3 w w^T."""
+    ret, (theta, theta2, sine, _, sbt, omc) = _exp_helper(w)
+    near_zero = theta < get_eps("so3", "near_zero", w.dtype)
+    theta3_nz = nz(theta * theta2, near_zero)
+    t_m_sine_by_t3 = torch.where(near_zero, torch.zeros_like(theta), (theta - sine) / theta3_nz)
+    jac = t_m_sine_by_t3[..., None, None] * outer(w, w)
+    jac = jac + sbt[..., None, None] * eye(3, w)
+    jac = jac - omc[..., None, None] * hat(w)
+    return [jac], ret
+
+
+class _Exp(torch.autograd.Function):
+    """exp with the JAX rule dR = R hat(J_r dw), transposed."""
+
+    @staticmethod
+    def forward(ctx, w):
+        (jac,), r = jexp(w)
+        ctx.save_for_backward(jac, r)
+        return r
+
+    @staticmethod
+    def backward(ctx, g):
+        jac, r = ctx.saved_tensors
+        # <G, R hat(v)> = 2 antisym_project(R^T G) . v
+        return mvp(transpose(jac), 2.0 * antisym_project(transpose(r) @ g))
+
+
 def exp(w: torch.Tensor) -> torch.Tensor:
     """Exponential map so(3) -> SO(3). (..., 3) -> (..., 3, 3)."""
+    if needs_grad(w):
+        return _Exp.apply(w)
     return _exp_helper(w)[0]
 
 
@@ -98,8 +132,26 @@ def _jlog_from_w(w, theta, sine, cosine):
     return jac
 
 
+class _Log(torch.autograd.Function):
+    """log with the JAX rule dw = jlog antisym_project(R^T dR), transposed."""
+
+    @staticmethod
+    def forward(ctx, g):
+        (jac,), w = jlog(g)
+        ctx.save_for_backward(jac, g)
+        return w
+
+    @staticmethod
+    def backward(ctx, gw):
+        jac, g = ctx.saved_tensors
+        # the adjoint of antisym_project is 0.5 hat
+        return g @ (0.5 * hat(mvp(transpose(jac), gw)))
+
+
 def log(g: torch.Tensor) -> torch.Tensor:
     """Logarithm map SO(3) -> so(3). (..., 3, 3) -> (..., 3)."""
+    if needs_grad(g):
+        return _Log.apply(g)
     return _log_helper(g)[0]
 
 

@@ -5,7 +5,12 @@ d = v1^{-1} v2, r = log(m^{-1} d), J2 = jlog(m^{-1} d) and
 J1 = -J2 Adj(d^{-1}). On a CUDA tensor it launches `csrc/between_se3.cu`;
 on a CPU tensor it runs `between_linearize_plain`, the pure-torch
 formulation of the same outputs (the model of the JAX package's
-`_reference_linearize`).
+`_reference_linearize`). While autograd records, the call goes through an
+autograd Function whose backward differentiates that twin.
+
+`between_linearize_fused` is the AoS entry point of the JAX package's
+`ops/pallas_between.py`, which computes the same function on the same
+(K, B, 3, 4) layout: it launches the same kernel.
 """
 
 from __future__ import annotations
@@ -13,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from .. import _cuda
-from ..config import check_no_grad, get_eps, use_kernel
+from ..config import get_eps, needs_grad, use_kernel
 from ..lie import se3
 
 
@@ -25,17 +30,60 @@ def between_linearize_plain(v1, v2, meas):
     return j1, jl, res
 
 
+def _forward(v1, v2, meas, counter):
+    """The outputs without autograd: the kernel on a CUDA tensor (its launch
+    counted under `counter`), the twin on a CPU tensor."""
+    if not use_kernel(v1):
+        return between_linearize_plain(v1, v2, meas)
+    return _launch(v1, v2, meas, counter)
+
+
+class _BetweenLinearize(torch.autograd.Function):
+    """Forward: the kernel. Backward: the VJP of `between_linearize_plain` at
+    the saved inputs (the JAX package's `_fused_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, v1, v2, meas, counter):
+        ctx.save_for_backward(v1, v2, meas)
+        return _forward(v1, v2, meas, counter)
+
+    @staticmethod
+    def backward(ctx, gj1, gj2, gerr):
+        wants = ctx.needs_input_grad[:3]
+        prims = [t.detach().requires_grad_(w) for t, w in zip(ctx.saved_tensors, wants)]
+        with torch.enable_grad():
+            outs = between_linearize_plain(*prims)
+        leaves = [p for p, w in zip(prims, wants) if w]
+        grads = iter(torch.autograd.grad(outs, leaves, (gj1, gj2, gerr), allow_unused=True))
+        return tuple(next(grads) if w else None for w in wants) + (None,)
+
+
 def between_linearize(v1, v2, meas):
     """v1, v2 (K, B, 3, 4); meas broadcastable to them (a shared measurement
     may drop the edge axis). Returns (j1, j2, err)."""
-    check_no_grad(v1, v2, meas)
     meas = meas.expand(v1.shape)
-    if not use_kernel(v1):
-        return between_linearize_plain(v1, v2, meas)
-    return _launch(v1, v2, meas)
+    if needs_grad(v1, v2, meas):
+        return _BetweenLinearize.apply(v1, v2, meas, "between_se3")
+    return _forward(v1, v2, meas, "between_se3")
 
 
-def _launch(v1, v2, meas):
+def between_linearize_fused(v1, v2, meas, block_edges: int = 8):
+    """The AoS entry point of the JAX package's ops/pallas_between.py
+    (pallas_call :60): v1, v2, meas (K, B, 3, 4) -> (j1, j2 (K, B, 6, 6),
+    err (K, B, 6)). The same function as `between_linearize`, on the same
+    kernel, counted under its own name. Any K is accepted; `block_edges`,
+    the TPU kernel's edge tiling, is validated and has no other effect."""
+    if int(block_edges) < 1:
+        raise ValueError(f"block_edges must be positive, got {block_edges}")
+    if meas.shape != v1.shape:
+        raise ValueError(f"between_linearize_fused expects meas of shape {tuple(v1.shape)}, "
+                         f"got {tuple(meas.shape)}")
+    if needs_grad(v1, v2, meas):
+        return _BetweenLinearize.apply(v1, v2, meas, "between_se3_aos")
+    return _forward(v1, v2, meas, "between_se3_aos")
+
+
+def _launch(v1, v2, meas, counter):
     if v1.dim() != 4 or tuple(v1.shape[2:]) != (3, 4) or v2.shape != v1.shape:
         raise ValueError(f"between_linearize expects (K, B, 3, 4) poses, got {v1.shape}, {v2.shape}")
     if not (v1.device == v2.device == meas.device) or not (v1.dtype == v2.dtype == meas.dtype):
@@ -58,6 +106,6 @@ def _launch(v1, v2, meas):
             get_eps("so3", "d_near_zero", dt),
             j1.data_ptr(), j2.data_ptr(), err.data_ptr(), _cuda.stream_of(v1),
         )
-    _cuda.check(rc, "between_se3")
-    _cuda.launches["between_se3"] += 1
+    _cuda.check(rc, counter)
+    _cuda.launches[counter] += 1
     return j1, j2, err

@@ -7,9 +7,10 @@ device value back to the host, so a solve on the card is one stream of
 launches; `run_while` checks after every iteration whether all elements are
 done (one host sync per iteration) and stops early.
 
-Forward only: the layer refuses inputs that require grad. The "sparse"
-(block Cholesky) and "schur" (landmark elimination, optim/schur.py)
-linearizations are ported; "dense" raises.
+The "sparse" (block Cholesky) and "schur" (landmark elimination,
+optim/schur.py) linearizations are ported; "dense" raises. The sparse one
+is differentiable end to end (the layer's backward modes); the Schur one
+refuses inputs that require grad.
 """
 
 from __future__ import annotations

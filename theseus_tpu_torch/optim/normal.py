@@ -115,9 +115,14 @@ class BlockNormalBuilder:
         flat[:, self._on(v.device)["sel"]] = v
         return flat.reshape(bsz, self.pattern.n_vars, self.pattern.d).movedim(1, 0)
 
-    def build(self, state, aux) -> BlockNormal:
+    def build(self, state, aux, detach_hessian: bool = False) -> BlockNormal:
+        """Linearize and assemble. detach_hessian: AtA carries no autograd
+        history while Atb keeps its graph (the implicit backward's final
+        Gauss-Newton step)."""
         blocks = self.co.linearize_blocks(state, aux)
         ata, atb = assemble(self.pattern, blocks)
+        if detach_hessian:
+            ata = ata.detach()
         return self.normal_cls(self, ata, atb)
 
 

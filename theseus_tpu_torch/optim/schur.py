@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..config import check_no_grad
 from ..core.compiled import CompiledObjective
 from ..ops.batched_linalg import chol_small, chol_solve_mat, chol_solve_vec
 from ..sparse.assemble import apply_block_damping
@@ -219,6 +220,12 @@ class SchurNormalBuilder(BlockNormalBuilder):
         self.pt_diag_slots = np.asarray([pattern.pair_slot[(v, v)] for v in self.pt_vars], np.int64)
         self._tables: Dict[str, Dict[str, torch.Tensor]] = {}
         self._chunks: Dict[tuple, tuple] = {}
+
+    def build(self, state, aux, detach_hessian: bool = False) -> SchurNormal:
+        """The Schur linearization has no backward yet (ROADMAP.md, queue 1):
+        inputs that require grad raise."""
+        check_no_grad(*state.values(), *(t for bucket in aux for slot in bucket for t in slot))
+        return super().build(state, aux, detach_hessian)
 
     def tables(self, device) -> Dict[str, torch.Tensor]:
         """The index tables as tensors on `device`, built once: a copy from

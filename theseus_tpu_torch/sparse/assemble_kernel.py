@@ -7,7 +7,8 @@ owner-computes reduction over the host-built CSR lists of `AssemblyTables`
 (no floating-point atomics, so the sum order is fixed); on a CPU tensor it
 runs `assemble_blocks_plain`, the model of the JAX package's
 `_assemble_xla` (without its padding epilogue, which `assemble.assemble`
-applies to both).
+applies to both). While autograd records, the call goes through an autograd
+Function whose backward differentiates that twin.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from .. import _cuda
-from ..config import check_no_grad, use_kernel
+from ..config import needs_grad, use_kernel
 from ..ops.batched_linalg import SMALL_DIM_MAX
 
 # the kernel takes its jacobian / error pointers in its parameter block
@@ -145,10 +146,53 @@ def assemble_blocks_plain(pattern, blocks):
     return ata, atb
 
 
+def _flatten(blocks):
+    """blocks -> (layout: jacobians per bucket, flat tensors jac..., err per bucket)."""
+    layout = tuple(len(jacs) for jacs, _ in blocks)
+    flat = [t for jacs, err in blocks for t in (*jacs, err)]
+    return layout, flat
+
+
+def _unflatten(layout, flat):
+    out, i = [], 0
+    for n in layout:
+        out.append((list(flat[i : i + n]), flat[i + n]))
+        i += n + 1
+    return out
+
+
+class _AssembleBlocks(torch.autograd.Function):
+    """Forward: the kernel. Backward: the VJP of `assemble_blocks_plain`,
+    which is bilinear in the jacobians and errors (the JAX package's
+    `_asm_bwd`, the VJP of `_assemble_xla`)."""
+
+    @staticmethod
+    def forward(ctx, pattern, layout, *flat):
+        ctx.pattern, ctx.layout = pattern, layout
+        ctx.save_for_backward(*flat)
+        return _assemble_forward(pattern, _unflatten(layout, flat))
+
+    @staticmethod
+    def backward(ctx, g_ata, g_atb):
+        wants = ctx.needs_input_grad[2:]
+        prims = [t.detach().requires_grad_(w) for t, w in zip(ctx.saved_tensors, wants)]
+        with torch.enable_grad():
+            outs = assemble_blocks_plain(ctx.pattern, _unflatten(ctx.layout, prims))
+        leaves = [p for p, w in zip(prims, wants) if w]
+        grads = iter(torch.autograd.grad(outs, leaves, (g_ata, g_atb), allow_unused=True))
+        return (None, None) + tuple(next(grads) if w else None for w in wants)
+
+
 def assemble_blocks(pattern, blocks):
-    """Kernel on CUDA, twin on CPU; same contract as assemble_blocks_plain."""
-    tensors = [j for jacs, _ in blocks for j in jacs] + [e for _, e in blocks]
-    check_no_grad(*tensors)
+    """Kernel on CUDA, twin on CPU; same contract as assemble_blocks_plain.
+    Differentiable in the jacobians and errors."""
+    layout, flat = _flatten(blocks)
+    if needs_grad(*flat):
+        return _AssembleBlocks.apply(pattern, layout, *flat)
+    return _assemble_forward(pattern, blocks)
+
+
+def _assemble_forward(pattern, blocks):
     err0 = blocks[0][1]
     if not use_kernel(err0):
         return assemble_blocks_plain(pattern, blocks)

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from .. import _cuda
-from ..config import check_no_grad, use_kernel
+from ..config import use_kernel
 from ..ops.batched_linalg import (
     SMALL_DIM_MAX,
     chol_small,
@@ -72,7 +72,6 @@ def _prepare(name, tensors, d):
 
 
 def level_factor(col_a, ks, kj):
-    check_no_grad(col_a, ks, kj)
     if not use_kernel(col_a):
         return level_factor_plain(col_a, ks, kj)
     C, rl, B, d, _ = col_a.shape
@@ -90,7 +89,6 @@ def level_factor(col_a, ks, kj):
 
 
 def level_fwd_subst(ljk, yk, b, ldiag):
-    check_no_grad(ljk, yk, b, ldiag)
     if not use_kernel(ljk):
         return level_fwd_subst_plain(ljk, yk, b, ldiag)
     C, ul, B, d, _ = ljk.shape
@@ -107,7 +105,6 @@ def level_fwd_subst(ljk, yk, b, ldiag):
 
 
 def level_bwd_subst(lcol, xr, y):
-    check_no_grad(lcol, xr, y)
     if not use_kernel(lcol):
         return level_bwd_subst_plain(lcol, xr, y)
     C, rl, B, d, _ = lcol.shape

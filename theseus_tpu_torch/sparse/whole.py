@@ -1,0 +1,197 @@
+"""Whole-sweep factorization and substitutions: one launch per sweep (JAX counterpart: theseus_tpu/sparse/pallas_whole.py).
+
+Three entry points, each launching its CUDA kernel on a CUDA tensor and
+running its plain twin, the per-column left-looking plan of
+sparse/cholesky.py, on a CPU tensor:
+
+- `whole_factor(sched, ata)` -> Lflat (`csrc/whole_factor.cu`,
+  replaces `_fact_kernel`, pallas_call pallas_whole.py:319);
+- `whole_fwd_subst(sched, lflat, b)` -> y (`csrc/whole_subst.cu`,
+  replaces `_fwd_kernel`, pallas_call :508);
+- `whole_bwd_subst(sched, lflat, y)` -> x (`csrc/whole_subst.cu`,
+  replaces `_bwd_kernel`, pallas_call :523).
+
+The factor keeps the level plan's AoS layout (nnz_l+1, B, d, d) with slot 0
+zero, so either plan's solve, the refinement and the solve's backward take
+one layout. `b` comes in the original variable order and `y` leaves in the
+elimination order; `x` leaves in the original order: the permutations are
+read inside the kernels, so a solve is three launches.
+
+None of the TPU layout carries over: no 128-lane batch padding (and no
+identity diagonals in pad lanes), no 8-sublane block padding, no zero
+scratch slots, no byte-packed SMEM tables. The tables are int32 arrays in
+device memory, built once per device by `WholeTables.on`.
+
+On the card each kernel gives every batch element its own block and walks
+the etree levels inside the kernel, one barrier per phase of a level: the
+columns of a level are independent, so the block's threads share them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from .. import _cuda
+from ..config import use_kernel
+from ..ops.batched_linalg import SMALL_DIM_MAX
+
+
+class WholeTables:
+    """Static int32 tables of the whole-sweep kernels, from a NumericSchedule.
+
+    Per column j (elimination order), rmax rows and umax updates:
+    a_src / a_tr (n, rmax) AtA source slot and transpose flag; col_slots
+    (n, rmax) factor slots of the column (row 0 the diagonal block);
+    col_len (n) valid rows, packed at the front; row_ids (n, rmax) the
+    rows' indices; ucount (n) valid updates, packed at the front; upd_jk
+    (n, umax) slot of L[j, k]; upd_k (n, umax) the source column k;
+    upd_slots (n, umax, rmax) slot of L[row_t, k] (0: the zero sentinel);
+    diag (n) the diagonal slot; perm (n). The level walk: `order`, the
+    columns grouped by etree level, and `lvl_ptr` (levels + 1) into it."""
+
+    def __init__(self, sched):
+        nh = sched.n_head
+        self.n = nh
+        self.rmax = int(sched.a_src.shape[1])
+        self.umax = int(sched.upd_slots.shape[1])
+        col_len = sched.row_valid.sum(axis=1)
+        ucount = sched.upd_valid.sum(axis=1)
+        if not all(sched.row_valid[j, : col_len[j]].all() for j in range(nh)):
+            raise ValueError("whole-sweep tables: column rows are not packed at the front")
+        if not all(sched.upd_valid[j, : ucount[j]].all() for j in range(nh)):
+            raise ValueError("whole-sweep tables: column updates are not packed at the front")
+        levels = [np.asarray(c, np.int64) for c in sched.sym.levels]
+        order = np.concatenate(levels) if levels else np.zeros(0, np.int64)
+        if sorted(order.tolist()) != list(range(nh)):
+            raise ValueError("whole-sweep tables: the etree levels do not cover the columns once")
+        i32 = lambda a: np.ascontiguousarray(a, dtype=np.int32)  # noqa: E731
+        self.host: Dict[str, np.ndarray] = {
+            "a_src": i32(sched.a_src),
+            "a_tr": i32(sched.a_tr),
+            "col_slots": i32(sched.col_slots),
+            "col_len": i32(col_len),
+            "row_ids": i32(sched.col_row_ids),
+            "ucount": i32(ucount),
+            "upd_jk": i32(sched.upd_jk_slots),
+            "upd_k": i32(sched.upd_k),
+            "upd_slots": i32(sched.upd_slots),
+            "diag": i32(sched.diag_slots),
+            "perm": i32(sched.perm),
+            "order": i32(order),
+            "lvl_ptr": i32(np.concatenate([[0], np.cumsum([len(c) for c in levels])])),
+        }
+        self.n_levels = len(levels)
+        self._device: Dict[str, Dict[str, torch.Tensor]] = {}
+
+    def on(self, device: torch.device) -> Dict[str, torch.Tensor]:
+        key = str(device)
+        if key not in self._device:
+            self._device[key] = {
+                k: torch.as_tensor(v, device=device) for k, v in self.host.items()
+            }
+        return self._device[key]
+
+
+def get_tables(sched) -> WholeTables:
+    t = getattr(sched, "_whole_tables", None)
+    if t is None:
+        t = WholeTables(sched)
+        sched._whole_tables = t
+    return t
+
+
+def _fn(name, t: torch.Tensor, d: int):
+    if d > SMALL_DIM_MAX:
+        raise ValueError(f"{name}: the CUDA kernel takes blocks of d <= {SMALL_DIM_MAX}, got {d}")
+    return getattr(_cuda.lib(), f"th_{name}_{_cuda.suffix(t.dtype)}")
+
+
+def _check(name, *operands):
+    """operands: (tensor, expected shape) pairs on one device and dtype."""
+    dev, dt = operands[0][0].device, operands[0][0].dtype
+    for t, shape in operands:
+        if t.device != dev or t.dtype != dt:
+            raise ValueError(f"{name}: operands must share device and dtype")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def whole_factor(sched, ata: torch.Tensor) -> torch.Tensor:
+    """ata (n_slots, B, d, d) -> Lflat (nnz_l+1, B, d, d), slot 0 zero."""
+    if not use_kernel(ata):
+        from .cholesky import _factorize_scan
+
+        return _factorize_scan(sched, ata)
+    tb = get_tables(sched)
+    bsz, d = ata.shape[1], ata.shape[-1]
+    _check("whole_factor", (ata, (sched.pattern.n_slots, bsz, d, d)))
+    fn = _fn("whole_factor", ata, d)
+    t = tb.on(ata.device)
+    ata = ata.contiguous()
+    lflat = torch.empty((sched.sym.nnz_l + 1, bsz, d, d), dtype=ata.dtype, device=ata.device)
+    with torch.cuda.device(ata.device):
+        rc = fn(ata.data_ptr(), t["a_src"].data_ptr(), t["a_tr"].data_ptr(), t["col_slots"].data_ptr(),
+                t["col_len"].data_ptr(), t["ucount"].data_ptr(), t["upd_jk"].data_ptr(),
+                t["upd_slots"].data_ptr(), t["order"].data_ptr(), t["lvl_ptr"].data_ptr(),
+                tb.n_levels, tb.rmax, tb.umax, bsz, d, lflat.data_ptr(), _cuda.stream_of(ata))
+    _cuda.check(rc, "whole_factor")
+    _cuda.launches["whole_factor"] += 1
+    return lflat
+
+
+def whole_fwd_subst(sched, lflat: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """L y = b[perm]: b (n, B, d) in the original variable order -> y
+    (n, B, d) in the elimination order."""
+    if not use_kernel(lflat):
+        from .cholesky import _fwd_scan
+
+        perm, _, _ = sched.on(b.device)
+        return _fwd_scan(sched, lflat, b[perm])
+    tb = get_tables(sched)
+    bsz, d = lflat.shape[1], lflat.shape[-1]
+    _check("whole_fwd_subst", (lflat, (sched.sym.nnz_l + 1, bsz, d, d)), (b, (tb.n, bsz, d)))
+    fn = _fn("whole_fwd_subst", lflat, d)
+    t = tb.on(lflat.device)
+    lflat, b = lflat.contiguous(), b.contiguous()
+    y = torch.empty_like(b)
+    with torch.cuda.device(lflat.device):
+        rc = fn(lflat.data_ptr(), b.data_ptr(), t["perm"].data_ptr(), t["upd_jk"].data_ptr(),
+                t["upd_k"].data_ptr(), t["ucount"].data_ptr(), t["diag"].data_ptr(),
+                t["order"].data_ptr(), t["lvl_ptr"].data_ptr(),
+                tb.n_levels, tb.n, tb.umax, bsz, d, y.data_ptr(), _cuda.stream_of(lflat))
+    _cuda.check(rc, "whole_fwd_subst")
+    _cuda.launches["whole_fwd_subst"] += 1
+    return y
+
+
+def whole_bwd_subst(sched, lflat: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """L^T x = y: y (n, B, d) in the elimination order -> x (n, B, d) in the
+    original variable order."""
+    if not use_kernel(lflat):
+        from .cholesky import _bwd_scan
+
+        _, iperm, _ = sched.on(y.device)
+        return _bwd_scan(sched, lflat, y)[iperm]
+    tb = get_tables(sched)
+    bsz, d = lflat.shape[1], lflat.shape[-1]
+    _check("whole_bwd_subst", (lflat, (sched.sym.nnz_l + 1, bsz, d, d)), (y, (tb.n, bsz, d)))
+    fn = _fn("whole_bwd_subst", lflat, d)
+    t = tb.on(lflat.device)
+    lflat, y = lflat.contiguous(), y.contiguous()
+    x = torch.empty_like(y)
+    with torch.cuda.device(lflat.device):
+        rc = fn(lflat.data_ptr(), y.data_ptr(), t["perm"].data_ptr(), t["col_slots"].data_ptr(),
+                t["col_len"].data_ptr(), t["row_ids"].data_ptr(), t["order"].data_ptr(),
+                t["lvl_ptr"].data_ptr(), tb.n_levels, tb.n, tb.rmax, bsz, d, x.data_ptr(),
+                _cuda.stream_of(lflat))
+    _cuda.check(rc, "whole_bwd_subst")
+    _cuda.launches["whole_bwd_subst"] += 1
+    return x
+
+
+def solve_whole(sched, lflat: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """H x = b with the factor: b and x (n, B, d) in the original order."""
+    return whole_bwd_subst(sched, lflat, whole_fwd_subst(sched, lflat, b))

@@ -20,16 +20,18 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
+from ..config import resolve_device
 from ..core import Objective
 from .examples.bundle_adjustment import BAProblem
 from .examples.pose_graph import build_pgo_objective, pose_values
 
 
 def problem_from_arrays(
-    arrays: Mapping[str, np.ndarray], dtype: torch.dtype = torch.float32, device="cpu"
+    arrays: Mapping[str, np.ndarray], dtype: torch.dtype = torch.float32, device=None
 ) -> Tuple[Objective, Dict[str, torch.Tensor]]:
     gt = np.asarray(arrays["gt"])
     edges = [(int(i), int(j)) for i, j in np.asarray(arrays["edges"])]
+    device = resolve_device(device)
     init = torch.as_tensor(np.array(arrays["init"]), dtype=dtype, device=device)
     obj, _ = build_pgo_objective(
         init.shape[0], edges, np.asarray(arrays["measurements"]), gt[0],
@@ -38,7 +40,7 @@ def problem_from_arrays(
     return obj, pose_values(init)
 
 
-def load_problem_npz(path, dtype: torch.dtype = torch.float32, device="cpu"):
+def load_problem_npz(path, dtype: torch.dtype = torch.float32, device=None):
     """problem_from_arrays on an .npz written by scripts/dump_problem_npz.py."""
     with np.load(path) as f:
         arrays = {k: f[k] for k in ("gt", "edges", "measurements", "init", "prior_weight")}
@@ -49,8 +51,10 @@ BA_KEYS = ("poses", "points", "focals", "k1", "k2", "obs_cam", "obs_pt", "obs_im
 
 
 def ba_problem_from_arrays(
-    arrays: Mapping[str, np.ndarray], dtype: torch.dtype = torch.float32, device="cpu"
+    arrays: Mapping[str, np.ndarray], dtype: torch.dtype = torch.float32, device=None
 ) -> BAProblem:
+    device = resolve_device(device)
+
     def t(k):
         return torch.as_tensor(np.array(arrays[k]), dtype=dtype, device=device)
 
@@ -62,7 +66,7 @@ def ba_problem_from_arrays(
     )
 
 
-def load_ba_npz(path, dtype: torch.dtype = torch.float32, device="cpu") -> BAProblem:
+def load_ba_npz(path, dtype: torch.dtype = torch.float32, device=None) -> BAProblem:
     """ba_problem_from_arrays on an .npz holding a BAProblem's arrays."""
     with np.load(path) as f:
         arrays = {k: f[k] for k in BA_KEYS + ("gt_poses", "gt_points") if k in f}

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ... import core
+from ...config import resolve_device
 from ...embodied import Local, Reprojection
 from ...lie import se3, so3
 
@@ -86,10 +87,11 @@ def synthetic_ba(
     visibility: float = 1.0,
     focal: float = 1000.0,
     dtype: torch.dtype = torch.float32,
-    device="cpu",
+    device=None,
 ) -> BAProblem:
     """Generated in float64 on the CPU from numpy's Generator(seed), then cast
-    to (dtype, device)."""
+    to (dtype, device); device None is the card (config.default_device)."""
+    device = resolve_device(device)
     obs_cam, obs_pt = visible_pairs(num_cameras, num_points, visibility)
     rng = np.random.default_rng(seed)
     f64 = torch.float64
@@ -131,11 +133,12 @@ def synthetic_ba(
     )
 
 
-def load_bal(path, batch: int = 1, dtype: torch.dtype = torch.float64, device="cpu") -> BAProblem:
+def load_bal(path, batch: int = 1, dtype: torch.dtype = torch.float64, device=None) -> BAProblem:
     """Bundle-Adjustment-in-the-Large text format: header
     'num_cams num_points num_obs', then per observation 'cam pt x y', then
     per camera 9 values (angle-axis (3), t (3), f, k1, k2), then per point
     xyz. Every array is broadcast over `batch`."""
+    device = resolve_device(device)
     with open(path) as f:
         tokens = f.read().split()
     nc, npts, nobs = (int(x) for x in tokens[:3])
@@ -187,7 +190,7 @@ def _host(a) -> np.ndarray:
 def build_ba_objective(
     prob: BAProblem,
     dtype: torch.dtype = torch.float32,
-    device="cpu",
+    device=None,
     fix_first_camera: bool = True,
     gauge_target=None,
     weight=None,

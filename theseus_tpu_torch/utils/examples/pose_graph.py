@@ -16,8 +16,9 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from ...config import resolve_device
 from ...core import Objective, ScaleCostWeight
-from ...core.variable import SE3
+from ...core.variable import SE3, Variable
 from ...embodied import Between, Local
 from ...lie import se3
 
@@ -37,11 +38,13 @@ def synthetic_pose_graph(
     meas_noise: float = 0.05,
     init_noise: float = 0.2,
     dtype: torch.dtype = torch.float32,
-    device="cpu",
+    device=None,
     extra_loop_closures: bool = True,
 ):
     """Returns (gt (N,B,3,4), edges, measurements (E,B,3,4), init (N,B,3,4)).
-    Generated in float64 on the CPU, then cast to (dtype, device)."""
+    Generated in float64 on the CPU, then cast to (dtype, device); device
+    None is the card (config.default_device)."""
+    device = resolve_device(device)
     edges = chain_edges(n_poses, extra_loop_closures)
     rng = np.random.default_rng(seed)
 
@@ -71,20 +74,45 @@ def build_pgo_objective(
     measurements,
     prior_target,
     dtype: torch.dtype = torch.float32,
-    device="cpu",
+    device=None,
     edge_weight=None,
     prior_weight: float = 10.0,
+    loop_weight=None,
 ):
     """Objective over named SE3 pose variables: a Local prior on pose_0 and a
     Between cost per edge. Measurements are sliced on the host; the compiled
-    objective stacks them and moves them to `device` in one copy."""
+    objective stacks them and moves them to `device` in one copy.
+
+    loop_weight, when given, weighs the edges after the first n_poses - 1
+    (the loop closures of `chain_edges`) and edge_weight the odometry edges
+    before them: the training problem of the flagship, whose outer loss
+    learns a loop-closure weight (see `training_weights`)."""
     obj = Objective(dtype=dtype, device=device)
     poses = [SE3(name=f"pose_{i}") for i in range(n_poses)]
     obj.add(Local(poses[0], _host(prior_target), ScaleCostWeight(float(prior_weight)), name="prior"))
     meas = _host(measurements)
     for ei, (i, j) in enumerate(edges):
-        obj.add(Between(poses[i], poses[j], meas[ei], cost_weight=edge_weight, name=f"edge_{ei}"))
+        w = loop_weight if loop_weight is not None and ei >= n_poses - 1 else edge_weight
+        obj.add(Between(poses[i], poses[j], meas[ei], cost_weight=w, name=f"edge_{ei}"))
     return obj, poses
+
+
+def training_weights():
+    """(edge_weight, loop_weight) for `build_pgo_objective`: odometry weight 1
+    and a loop-closure weight held by the aux variable "w_loop", which an
+    outer loop passes in as a (1, 1) tensor that requires grad."""
+    w_odo = ScaleCostWeight(Variable(np.ones((1, 1)), name="w_odo"))
+    w_loop = ScaleCostWeight(Variable(np.ones((1, 1)), name="w_loop"))
+    return w_odo, w_loop
+
+
+def mean_sq_local(values: Dict[str, torch.Tensor], gt: torch.Tensor) -> torch.Tensor:
+    """The flagship's outer loss: the mean over poses and batch of the squared
+    SE3 `local` (log(pose^{-1} gt)) from each solved pose to its ground truth
+    gt (N, B, 3, 4)."""
+    sol = torch.stack([values[f"pose_{i}"] for i in range(gt.shape[0])])
+    d = se3.log(se3.compose(se3.inverse(sol), gt))
+    return torch.mean(torch.sum(d * d, dim=-1))
 
 
 def pose_values(init) -> Dict[str, object]:
