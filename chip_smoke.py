@@ -25,9 +25,11 @@ alone. In order:
    assembly of both buckets, every etree level's (C, rl, ul); BA:
    Reprojection at K=204,800, B=1 and at 16 x 200 x batch 16, the mixed-dof
    assembly; the whole-sweep factor (against its per-column twin and the
-   level kernels' factor, slot for slot) and substitutions at PGO 256 x 128
-   and 2048 x 8; the AoS Between entry at K=257, B=128), in float32 and
-   float64, each line with its deviation and tolerance;
+   level kernels' factor, slot for slot, which must be equal bit for bit)
+   and substitutions at PGO 256 x 128 and 2048 x 8; the AoS Between entry
+   at K=257, B=128), in float32 and float64, each line with its deviation
+   and tolerance; the assembly is launched twice at PGO 256 x 128, BA
+   128 x 4000 x 1 and BA 16 x 200 x 16 and must give the same bits;
 4. slice phases, one per path: the float32 forward with the launch counters
    reset just before and read just after; the converged plateau against the
    plain-twin float64 solve of the same problem on the card; the problem of
@@ -41,9 +43,11 @@ alone. In order:
    level kernels, the whole-sweep kernels and the plain twins (PGO 64 x 16,
    256 x 128 and 2048 x 8; BA 16 x 200 x 16 and 128 x 4000 x 1), ms per
    training step (whole against level), and each kernel against its twin
-   and its library yardstick at the main-path shapes (CUDA events), beside
-   its bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s, the
-   larger);
+   and its library yardstick at the main-path shapes (CUDA events: calls
+   back to back, and the device time alone with the queue prefilled by a
+   sleep kernel), beside its bound (bytes over 3.35 TB/s or operations over
+   67 TFLOP/s, the larger); the level factor per launch at its widest and
+   deepest level and at the smallest shape (the launch floor);
 6. profile phase: per path, synced stage times of one LM iteration and a
    torch.profiler window (device busy and idle share, launches, top
    kernels);
@@ -55,6 +59,7 @@ Any failed check raises and the script exits non-zero.
 
 from __future__ import annotations
 
+import copy
 import json
 import re
 import subprocess
@@ -159,6 +164,9 @@ PEAK_FLOPS = 67e12
 # which both kernels exceed by far in bytes
 BETWEEN_FLOPS = 800
 REPROJECTION_FLOPS = 200
+# torch.cuda._sleep spins for a number of SM clock cycles; the H100's boost
+# clock is at most 1.98 GHz, so this many cycles last at least one second
+SLEEP_CYCLES_PER_S = 2.0e9
 
 
 class CheckFailed(AssertionError):
@@ -320,6 +328,19 @@ def _dev_report(name, dtype_name, got, want, shape_note=""):
     return worst_abs
 
 
+def _repeatable(name, fn, note):
+    """Two launches of fn on the same inputs: the outputs must be equal bit
+    for bit (the kernel sums in a fixed order and uses no atomics)."""
+    import torch
+
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    print(f"[kernel] {name:<15} {note:<34} two launches bitwise equal: {same}")
+    check(same, f"{name} {note}: two launches on the same inputs differ")
+    return first
+
+
 def level_inputs(prob, ata, lflat, y, x, b_perm):
     """Per-level operands of the three level kernels, gathered by the
     solver's own functions from a plain-twin factorization and solve."""
@@ -383,8 +404,9 @@ def phase_kernels(dev):
         _, ata, lflat, y, x, b_perm = plain_system(prob)
         padded = padded_blocks(prob)
         note = "buckets K=" + ",".join(str(err.shape[0]) for _, err in padded)
-        e = _dev_report("assemble_blocks", dn, assemble_blocks(prob.builder.pattern, padded),
-                        assemble_blocks_plain(prob.builder.pattern, padded), note)
+        got = _repeatable("assemble_blocks", lambda: assemble_blocks(prob.builder.pattern, padded),
+                          f"{dn} PGO 256x128")
+        e = _dev_report("assemble_blocks", dn, got, assemble_blocks_plain(prob.builder.pattern, padded), note)
         max_abs.setdefault("assemble_blocks", {})[dn] = e
 
         worst = {"level_factor": 0.0, "level_fwd_subst": 0.0, "level_bwd_subst": 0.0}
@@ -408,7 +430,8 @@ def phase_kernels(dev):
 
 def phase_ba_kernels(dev, max_abs):
     """Reprojection at the BA main-path shape and at 16 x 200 x 16, and the
-    mixed-dof (camera 6, point 3 padded to 6) assembly at the main shape."""
+    mixed-dof (camera 6, point 3 padded to 6) assembly at both: split lists
+    with B = 1 and with 1 < B < 32, each launched twice."""
     import torch
 
     from theseus_tpu_torch.ops.reprojection import reprojection_linearize, reprojection_linearize_plain
@@ -423,13 +446,13 @@ def phase_ba_kernels(dev, max_abs):
             note = f"K={ops[0].shape[0]} B={ops[0].shape[1]}"
             worst = max(worst, _dev_report("reprojection", dn, reprojection_linearize(*ops),
                                            reprojection_linearize_plain(*ops), note))
-            if shape == BA_MAIN:
-                padded = padded_blocks(prob)
-                note = "BA buckets K=" + ",".join(str(err.shape[0]) for _, err in padded)
-                pattern = prob.builder.pattern
-                e = _dev_report("assemble_blocks", dn, assemble_blocks(pattern, padded),
-                                assemble_blocks_plain(pattern, padded), note)
-                max_abs["assemble_blocks"][dn] = max(max_abs["assemble_blocks"][dn], e)
+            padded = padded_blocks(prob)
+            pattern = prob.builder.pattern
+            label = "BA {}x{}x{}".format(*shape)
+            note = f"{label} split {len(pattern.asm_tables.split)}"
+            got = _repeatable("assemble_blocks", lambda: assemble_blocks(pattern, padded), f"{dn} {note}")
+            e = _dev_report("assemble_blocks", dn, got, assemble_blocks_plain(pattern, padded), note)
+            max_abs["assemble_blocks"][dn] = max(max_abs["assemble_blocks"][dn], e)
         max_abs.setdefault("reprojection", {})[dn] = worst
     torch.cuda.synchronize()
     return max_abs
@@ -485,6 +508,12 @@ def phase_whole_kernels(dev, max_abs):
                 e = _dev_report(name, dn, got, want, f"{note} vs {what}")
                 if what == "twin":
                     max_abs.setdefault(name, {})[dn] = max(max_abs.get(name, {}).get(dn, 0.0), e)
+            # the level kernel forms each entry's update in whole_factor's
+            # order and runs its POTRF / TRSM statements: the same bits
+            diff = float((lflat_l - lflat).abs().max())
+            print(f"[kernel] level_factor    {dn} {note}: factorize_levels vs whole_factor "
+                  f"max |diff| = {diff!r} (must be exactly 0.0)")
+            check(diff == 0.0, f"level_factor {dn} {note}: factor differs from whole_factor's by {diff!r}")
         prob = synthetic_problem(*TRAIN, dtype, dev)
         v1, v2, meas = between_operands(prob)
         e = _dev_report("between_se3_aos", dn, between_linearize_fused(v1, v2, meas),
@@ -867,6 +896,33 @@ def cuda_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps=20, warmup=3):
+    """ms per call of the device work alone: the stream is held by a sleep
+    kernel while the host enqueues all reps, so the wrappers' host cost
+    (Python, ctypes) does not stretch the window as it does in cuda_ms.
+    Fails if the sleep ended before the host had enqueued every call."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2.0 * host_s * SLEEP_CYCLES_PER_S) + 100_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    prefilled = not start.query()
+    torch.cuda.synchronize()
+    check(prefilled, "device_ms: the sleep ended before the timed calls were enqueued")
+    return start.elapsed_time(end) / reps
+
+
 def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -895,6 +951,22 @@ def subst_flops(sched, bsz, d, forward):
     block it reads, d^2 per diagonal solve."""
     blocks = int(sched.upd_valid.sum()) if forward else int(sched.row_valid.sum()) - sched.n_head
     return bsz * (2 * d * d * blocks + d * d * sched.n_head)
+
+
+def assembly_bound(pattern, padded):
+    """Bound of one assembly: every jacobian and error read once, AtA and
+    Atb written once; 2 m d^2 operations per AtA item, 2 m d per Atb item,
+    with m the item's bucket's residual dimension."""
+    import numpy as np
+
+    from theseus_tpu_torch.sparse.assemble_kernel import assemble_blocks_plain
+
+    t = pattern.asm_tables
+    m_src = np.array([padded[bi][1].shape[2] for bi, _ in t.sources])
+    bsz, d = padded[0][1].shape[1], pattern.d
+    flops = bsz * (2 * d * d * int(m_src[t.ata_items[:, 0]].sum()) + 2 * d * int(m_src[t.atb_items[:, 0]].sum()))
+    inputs = [x for jacs, e in padded for x in (*jacs, e)]
+    return _bound(_nbytes(*inputs, *assemble_blocks_plain(pattern, padded)), flops)
 
 
 def dense_h(pattern, ata):
@@ -999,6 +1071,8 @@ def phase_timing(dev, card):
     ba = ba_problem(*BA_MAIN, torch.float32, dev)
     rops = reprojection_operands(ba)
     ba_padded, ba_pattern = padded_blocks(ba), ba.builder.pattern
+    deep = synthetic_problem(*WHOLE_SHAPES[1], torch.float32, dev)
+    lv_deep = level_inputs(deep, *plain_system(deep)[1:])
 
     def plain(fn):
         def run():
@@ -1021,6 +1095,8 @@ def phase_timing(dev, card):
                          lambda: reprojection_linearize_plain(*rops)),
         "assemble_blocks ba": (lambda: assemble_blocks(ba_pattern, ba_padded),
                                lambda: assemble_blocks_plain(ba_pattern, ba_padded)),
+        "level_factor 2048x8": (lambda: [level_factor(*f) for f, _, _ in lv_deep],
+                                lambda: [level_factor_plain(*f) for f, _, _ in lv_deep]),
         "whole_factor": (lambda: whole_factor(sched, w_ata), plain(lambda: whole_factor(sched, w_ata))),
         "whole_fwd_subst": (lambda: whole_fwd_subst(sched, w_l, w_atb),
                             plain(lambda: whole_fwd_subst(sched, w_l, w_atb))),
@@ -1029,13 +1105,67 @@ def phase_timing(dev, card):
         "between_se3_aos": (lambda: between_linearize_fused(v1, v2, meas),
                             lambda: between_linearize_plain(v1, v2, meas)),
     }
-    times = {}
+    times, dev_times = {}, {}
     for name, (k, p) in pairs.items():
         times[name] = (cuda_ms(k), cuda_ms(p, reps=3 if name.startswith("whole") else 20))
+        dev_times[name] = device_ms(k)
         what = "one sweep over all levels" if name.startswith("level") else "one call"
-        shape = "BA 128x4000x1" if name in ("reprojection", "assemble_blocks ba") else "PGO 256x128"
-        print(f"[timing] {name:<18} {shape} float32, {what}: kernel {times[name][0]:.4f} ms, "
-              f"plain twin {times[name][1]:.4f} ms (CUDA events) on {card}")
+        shape = ("BA 128x4000x1" if name in ("reprojection", "assemble_blocks ba")
+                 else "PGO 2048x8" if name.endswith("2048x8") else "PGO 256x128")
+        print(f"[timing] {name:<19} {shape} float32, {what}: kernel {times[name][0]:.4f} ms back to back, "
+              f"{dev_times[name]:.4f} ms device (queue prefilled), plain twin {times[name][1]:.4f} ms "
+              f"(CUDA events) on {card}")
+
+    # the assembly at BA 128 x 4000 x 1 with 2, 4, 8 and 16 items a chunk
+    # (the plan's ITEMS_PER_CHUNK), each checked for repeatability
+    import theseus_tpu_torch.sparse.assemble_kernel as asm_mod
+
+    chosen, sweep = asm_mod.ITEMS_PER_CHUNK, []
+    try:
+        for ipt in (2, 4, 8, 16):
+            asm_mod.ITEMS_PER_CHUNK = ipt
+            variant = copy.copy(ba_pattern)
+            variant.asm_tables = asm_mod.build_assembly_tables(ba_pattern)
+            _repeatable("assemble_blocks", lambda: assemble_blocks(variant, ba_padded), f"float32 BA, {ipt} a chunk")
+            sweep.append(f"{ipt}: {device_ms(lambda: assemble_blocks(variant, ba_padded)) * 1e3:.1f} us")
+    finally:
+        asm_mod.ITEMS_PER_CHUNK = chosen
+    print(f"[timing] assemble_blocks BA 128x4000x1 float32 by items a chunk (device): {', '.join(sweep)} "
+          f"(the plan uses {chosen}) on {card}")
+    # where that time goes: the split lists alone and the short lists alone
+    # (the other outputs left unwritten; the short part alone launches in
+    # blocks of 128, as a plan without split lists does)
+    parts = []
+    for label, split_only in (("split lists", True), ("short lists", False)):
+        tables = copy.copy(ba_pattern.asm_tables)
+        tables._device = {}
+        if split_only:
+            tables.short_ata = tables.short_ata[:0]
+            tables.short_atb = tables.short_atb[:0]
+        else:
+            tables.split = tables.split[:0]
+        variant = copy.copy(ba_pattern)
+        variant.asm_tables = tables
+        parts.append(f"{label} {device_ms(lambda: assemble_blocks(variant, ba_padded)) * 1e3:.1f} us")
+    print(f"[timing] assemble_blocks BA 128x4000x1 float32 parts (device): {', '.join(parts)} on {card}")
+
+    # the level kernel per launch: the widest and the deepest level of each
+    # sweep, and the floor (one column, one row, one update, batch 1)
+    for label, levels in (("256x128", lv), ("2048x8", lv_deep)):
+        shapes = [(f[0].shape[0], f[0].shape[1], f[1].shape[1]) for f, _, _ in levels]
+        widest = max(range(len(levels)), key=lambda i: shapes[i][0] * shapes[i][1])
+        deepest = max(range(len(levels)), key=lambda i: shapes[i][2])
+        for which, i in (("widest", widest), ("deepest", deepest)):
+            f = levels[i][0]
+            us = device_ms(lambda: level_factor(*f), reps=50) * 1e3
+            print(f"[timing] level_factor {label} {which} level {i} (C, rl, ul) = {shapes[i]}: "
+                  f"{us:.2f} us per launch (device, queue prefilled) on {card}")
+    d = pattern.d
+    col_a1 = torch.eye(d, device=dev).expand(1, 1, 1, d, d).contiguous()
+    ks1, kj1 = torch.zeros((1, 1, 1, 1, d, d), device=dev), torch.zeros((1, 1, 1, d, d), device=dev)
+    floor_us = device_ms(lambda: level_factor(col_a1, ks1, kj1), reps=50) * 1e3
+    print(f"[timing] level_factor floor (C, rl, ul, B) = (1, 1, 1, 1): {floor_us:.2f} us per launch "
+          f"(device, queue prefilled) on {card}")
 
     # library yardsticks on the densified H: one PyTorch call each, timed
     # here only; the port never calls them
@@ -1056,18 +1186,16 @@ def phase_timing(dev, card):
     d, bsz = pattern.d, v1.shape[1]
     j1, j2, err = between_linearize_plain(v1, v2, meas)
     between = _bound(_nbytes(v1, v2, meas, j1, j2, err), BETWEEN_FLOPS * v1.shape[0] * bsz)
-    asm_out = assemble_blocks_plain(pattern, padded)
-    tables = pattern.asm_tables
-    m = padded[0][1].shape[2]
     rops_out = reprojection_linearize_plain(*rops)
     fac_out = sum(_nbytes(f[0]) for f, _, _ in lv)
     bounds = {
         "between_se3": between,
         "between_se3_aos": between,
-        "assemble_blocks": _bound(
-            _nbytes(*[t for jacs, e in padded for t in (*jacs, e)], *asm_out),
-            bsz * (2 * m * d * d * len(tables.ata_items) + 2 * m * d * len(tables.atb_items))),
+        "assemble_blocks": assembly_bound(pattern, padded),
+        "assemble_blocks ba": assembly_bound(ba_pattern, ba_padded),
         "level_factor": _bound(sum(_nbytes(*f) for f, _, _ in lv) + fac_out, factor_flops(sched, bsz, d)),
+        "level_factor 2048x8": _bound(sum(_nbytes(*f) + _nbytes(f[0]) for f, _, _ in lv_deep),
+                                      factor_flops(deep.builder.sched, WHOLE_SHAPES[1][1], d)),
         "level_fwd_subst": _bound(sum(_nbytes(*fw) + _nbytes(fw[2]) for _, fw, _ in lv),
                                   subst_flops(sched, bsz, d, True)),
         "level_bwd_subst": _bound(sum(_nbytes(*bw) + _nbytes(bw[2]) for _, _, bw in lv),
@@ -1083,8 +1211,9 @@ def phase_timing(dev, card):
            "level_bwd_subst": library["solve_triangular upper"],
            "whole_bwd_subst": library["solve_triangular upper"]}
     for name, (bms, by) in bounds.items():
-        print(f"[timing] bound {name:<16} {bms:.4f} ms ({by}); kernel {times[name][0]:.4f} ms on {card}")
-    return iters, times, train_ms, bounds, lib
+        print(f"[timing] bound {name:<19} {bms:.4f} ms ({by}); kernel {times[name][0]:.4f} ms back to back, "
+              f"{dev_times[name]:.4f} ms device on {card}")
+    return iters, times, dev_times, train_ms, bounds, lib
 
 
 # ---------------------------------------------------------------------------
@@ -1179,7 +1308,7 @@ def main() -> int:
     max_abs = phase_whole_kernels(dev, phase_ba_kernels(dev, phase_kernels(dev)))
     launches = {"pgo": phase_slice(dev), "ba": phase_ba_slice(dev), "train": phase_train(dev),
                 "aos_entry": phase_aos_entry(dev)}
-    iters, times, train_ms, bounds, library = phase_timing(dev, card)
+    iters, times, dev_times, train_ms, bounds, library = phase_timing(dev, card)
     phase_profile(dev, card)
     check("jax" not in sys.modules and "theseus_tpu" not in sys.modules, "jax was imported")
 
@@ -1193,9 +1322,16 @@ def main() -> int:
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max_abs[name]["float32"], "ms": times[name][0], "plain_ms": times[name][1],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library.get(name),
+            "device_ms": dev_times[name],
         }
         if name == "assemble_blocks":  # the BA main path's shape, beside PGO's
             entry["ms_ba"], entry["plain_ms_ba"] = times["assemble_blocks ba"]
+            entry["device_ms_ba"] = dev_times["assemble_blocks ba"]
+            entry["bound_ms_ba"], entry["bound_by_ba"] = bounds["assemble_blocks ba"]
+        if name == "level_factor":  # the deep and narrow sweep, beside 256 x 128's
+            entry["ms_2048x8"], entry["plain_ms_2048x8"] = times["level_factor 2048x8"]
+            entry["device_ms_2048x8"] = dev_times["level_factor 2048x8"]
+            entry["bound_ms_2048x8"], _ = bounds["level_factor 2048x8"]
         kernels.append(entry)
     print(json.dumps({"lm_iter_ms": iters, "train_step_ms": train_ms}))
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")

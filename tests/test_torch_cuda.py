@@ -298,6 +298,51 @@ def test_assemble_kernel_matches_twin_at_mixed_dof(cuda_device, dtype):
     _close(atb, atb_p, dtype, float(atb_p.abs().max()))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_assemble_kernel_split_lists(cuda_device, dtype, batch):
+    """Camera lists of ~100 items, split into 13 chunks (B = 1: a warp per
+    output; B = 3: a block per output, batch tile 4 with one lane idle),
+    against the twin and bitwise repeatable over two launches."""
+    from theseus_tpu_torch.sparse.assemble import _pad_jac
+
+    opt, obj, vals = _ba_layer(cuda_device, dtype, cams=8, pts=200, batch=batch)
+    co = obj.compile()
+    state, aux = co.pack(vals), co.build_aux(vals)
+    pattern = opt.normal_builder.pattern
+    assert len(pattern.asm_tables.split) > 0
+    with config.plain_path():
+        blocks = co.linearize_blocks(state, aux)
+    padded = [([_pad_jac(j, pattern.d) for j in jacs], err) for jacs, err in blocks]
+    _cuda.reset_launches()
+    ata, atb = assemble_blocks(pattern, padded)
+    ata2, atb2 = assemble_blocks(pattern, padded)
+    assert _cuda.launches["assemble_blocks"] == 2
+    ata_p, atb_p = assemble_blocks_plain(pattern, padded)
+    torch.cuda.synchronize()
+    assert torch.equal(ata, ata2) and torch.equal(atb, atb2)
+    _close(ata, ata_p, dtype, float(ata_p.abs().max()))
+    _close(atb, atb_p, dtype, float(atb_p.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_level_factor_bit_equal_to_whole_factor(cuda_device, dtype):
+    """Both kernels form each entry's update in the same order (u outer, k
+    inner, from zero) and run the same POTRF and TRSM statements."""
+    from theseus_tpu_torch.sparse.cholesky import factorize_levels
+    from theseus_tpu_torch.sparse.whole import whole_factor
+
+    bld, ata, _ = _whole_system(64, 16, dtype, cuda_device)
+    _cuda.reset_launches()
+    lflat_l = factorize_levels(bld.sched, ata)
+    lflat_w = whole_factor(bld.sched, ata)
+    torch.cuda.synchronize()
+    assert _cuda.launches["level_factor"] == len(bld.sched.level_tables)
+    assert _cuda.launches["whole_factor"] == 1
+    assert bool(torch.isfinite(lflat_l).all())
+    assert float((lflat_l - lflat_w).abs().max()) == 0.0
+
+
 def test_ba_schur_solve_on_card_matches_cpu_twins(cuda_device):
     import theseus_tpu_torch as tt
 

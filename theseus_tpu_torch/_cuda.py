@@ -136,10 +136,12 @@ _SIGNATURES = {
     # v1, v2, meas, meas_k_stride, meas_b_stride, K, B, eps x3, j1, j2, err, stream
     "th_between_se3": [_P, _P, _P, _L, _L, _I, _I, _D, _D, _D, _P, _P, _P, _P],
     # jac ptrs, err ptrs, m (host arrays), n_src, ata rowptr, ata items,
-    # n_slots, atb rowptr, atb items, n_vars, B, d, ata, atb, stream
+    # atb rowptr, atb items, split rows, n_split, n_large, tile, threads,
+    # short ata slots, n, short atb rows, n, B, d, vec (jacobians 16-byte
+    # aligned), ata, atb, stream
     "th_assemble_blocks": [
         ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_I), _I,
-        _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P,
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P,
     ],
     # col_a, ks, kj, C, rl, ul, B, d, out, stream
     "th_level_factor": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],

@@ -9,6 +9,16 @@ runs `assemble_blocks_plain`, the model of the JAX package's
 `_assemble_xla` (without its padding epilogue, which `assemble.assemble`
 applies to both). While autograd records, the call goes through an autograd
 Function whose backward differentiates that twin.
+
+Long lists are split. An output (AtA slot or Atb row) with more than
+`SPLIT` contributions is cut into G = min(GMAX, ceil(count /
+ITEMS_PER_CHUNK)) contiguous chunks of its CSR list, and the threads of
+one block (or, when the chunks fit, one warp) sum one chunk each and
+combine the partials in a fixed tree. Every other output is summed item by
+item, one thread per (output, batch element, block row). The plan depends
+on the pattern alone, and the launch geometry on the pattern and the batch
+size (`split_geometry`), never on the data: two launches on the same
+inputs give the same bits.
 """
 
 from __future__ import annotations
@@ -27,6 +37,21 @@ from ..ops.batched_linalg import SMALL_DIM_MAX
 # the kernel takes its jacobian / error pointers in its parameter block
 MAX_SOURCES = 32
 
+# The split plan. An output with at most SPLIT items costs at most SPLIT
+# dependent item loads in one thread, about what a chunk and the tree cost;
+# beyond that it is split. At BA 128 x 4000 the camera rows (~1,600 items)
+# become 256 chunks of 6-7 and the point rows (~51) 13 chunks of 3-4; the
+# camera-point slots (1 item) and every PGO output (at most 4) stay whole.
+# Of 2, 4, 8 and 16 items a chunk, 4 was fastest there on the H100
+# (chip_smoke.py times the four).
+SPLIT = 16
+ITEMS_PER_CHUNK = 4
+SPLIT_THREADS = 256  # threads of a block that reduces one long output
+GMAX = SPLIT_THREADS  # chunks per output: one thread each at B = 1
+BATCH_TILE_MAX = 8  # batch elements per split block (lanes on one item)
+WARP = 32
+SHORT_THREADS = 128  # block size of a launch without split outputs
+
 
 @dataclasses.dataclass
 class AssemblyTables:
@@ -36,7 +61,11 @@ class AssemblyTables:
     ata_ptr (n_slots + 1,), ata_items (n, 4) int32: (src_s, src_t, edge,
     flags) with flags bit 0 = store the transpose, bit 1 = also add the
     transpose. atb_ptr (n_vars + 1,), atb_items (n, 2): (src, edge). Items
-    are ordered by (bucket, slot pair, edge) within each output."""
+    are ordered by (bucket, slot pair, edge) within each output.
+
+    The split plan: split (n_split, 4) int32 rows (kind 0 = AtA slot /
+    1 = Atb row, output, count, G), longest list first; short_ata and
+    short_atb list the outputs of at most `split` items, in index order."""
 
     n_slots: int
     n_vars: int
@@ -47,20 +76,64 @@ class AssemblyTables:
     atb_ptr: np.ndarray
     atb_items: np.ndarray
     atb_gather: np.ndarray
+    split: np.ndarray
+    short_ata: np.ndarray
+    short_atb: np.ndarray
     _device: Dict[str, tuple] = dataclasses.field(default_factory=dict, repr=False)
 
     def on(self, device: torch.device):
-        """The tables as tensors on `device`, built once per device."""
+        """The tables as tensors on `device`, built once per device:
+        (ata_ptr, ata_items, atb_ptr, atb_items, atb_gather, split,
+        short_ata, short_atb)."""
         key = str(device)
         if key not in self._device:
-            self._device[key] = tuple(
-                torch.as_tensor(a, dtype=torch.int32, device=device).contiguous()
-                for a in (self.ata_ptr, self.ata_items, self.atb_ptr, self.atb_items)
-            ) + (torch.as_tensor(self.atb_gather, dtype=torch.long, device=device),)
+            i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=device).contiguous()  # noqa: E731
+            self._device[key] = (
+                i32(self.ata_ptr), i32(self.ata_items), i32(self.atb_ptr), i32(self.atb_items),
+                torch.as_tensor(self.atb_gather, dtype=torch.long, device=device),
+                i32(self.split), i32(self.short_ata), i32(self.short_atb),
+            )
         return self._device[key]
 
 
-def build_assembly_tables(pattern) -> AssemblyTables:
+def chunk_count(count: int) -> int:
+    """G, the number of chunks of a split list of `count` items."""
+    return min(GMAX, -(-count // ITEMS_PER_CHUNK))
+
+
+def chunk_bounds(count: int, n_chunks: int) -> np.ndarray:
+    """Offsets (n_chunks + 1,) of the chunks within the list: contiguous,
+    in CSR order, the first count % n_chunks one item longer (the kernel's
+    rule: chunk g starts at g q + min(g, count % n_chunks))."""
+    q, rem = divmod(count, n_chunks)
+    g = np.arange(n_chunks + 1)
+    return g * q + np.minimum(g, rem)
+
+
+def split_plan(ata_ptr: np.ndarray, atb_ptr: np.ndarray, split: int = SPLIT):
+    """(split rows, short AtA slots, short Atb rows) from the list lengths."""
+    counts = [np.diff(ata_ptr), np.diff(atb_ptr)]
+    rows = [(kind, int(o), int(c), chunk_count(int(c)))
+            for kind, cnt in enumerate(counts) for o, c in enumerate(cnt) if c > split]
+    rows.sort(key=lambda r: -r[2])  # stable: ties keep (kind, output) order
+    short = [np.flatnonzero(cnt <= split).astype(np.int32) for cnt in counts]
+    return np.asarray(rows, np.int32).reshape(-1, 4), short[0], short[1]
+
+
+def split_geometry(tables: AssemblyTables, bsz: int):
+    """(tile, n_large, threads) of one launch at batch size bsz. A split
+    block covers `tile` batch elements (the fastest lane index, so lanes on
+    one item read neighbouring jacobian rows) and SPLIT_THREADS // tile
+    chunks. The first n_large split outputs have more chunks than one warp
+    holds (G tile > 32) and get a block each; the rest get one warp each."""
+    if len(tables.split) == 0:
+        return 1, 0, SHORT_THREADS
+    tile = min(BATCH_TILE_MAX, 1 << max(0, bsz - 1).bit_length())
+    n_large = int((tables.split[:, 3] * tile > WARP).sum())
+    return tile, n_large, SPLIT_THREADS
+
+
+def build_assembly_tables(pattern, split: int = SPLIT) -> AssemblyTables:
     sources: List[Tuple[int, int]] = []
     src_of: Dict[Tuple[int, int], int] = {}
     for bi, gvars in enumerate(pattern.bucket_gvars):
@@ -112,10 +185,11 @@ def build_assembly_tables(pattern) -> AssemblyTables:
     row = np.repeat(np.arange(pattern.n_vars), counts)
     pos = np.arange(len(atb_items)) - atb_ptr[row]
     atb_gather[row, pos] = src_base[atb_items[:, 0]] + atb_items[:, 1]
+    split_rows, short_ata, short_atb = split_plan(ata_ptr, atb_ptr, split)
     return AssemblyTables(
         n_slots=pattern.n_slots, n_vars=pattern.n_vars, d=pattern.d, sources=sources,
         ata_ptr=ata_ptr, ata_items=ata_items, atb_ptr=atb_ptr, atb_items=atb_items,
-        atb_gather=atb_gather,
+        atb_gather=atb_gather, split=split_rows, short_ata=short_ata, short_atb=short_atb,
     )
 
 
@@ -224,14 +298,17 @@ def _assemble_forward(pattern, blocks):
     c_jac = (ctypes.c_void_p * n)(*jac_ptrs)
     c_err = (ctypes.c_void_p * n)(*err_ptrs)
     c_m = (ctypes.c_int * n)(*ms)
-    ata_ptr, ata_items, atb_ptr, atb_items, _ = tables.on(dev)
+    ata_ptr, ata_items, atb_ptr, atb_items, _, split, short_ata, short_atb = tables.on(dev)
+    tile, n_large, threads = split_geometry(tables, bsz)
     ata = torch.empty((tables.n_slots, bsz, d, d), dtype=dtype, device=dev)
     atb = torch.empty((tables.n_vars, bsz, d), dtype=dtype, device=dev)
     with torch.cuda.device(dev):
         rc = fn(c_jac, c_err, c_m, n,
-                ata_ptr.data_ptr(), ata_items.data_ptr(), tables.n_slots,
-                atb_ptr.data_ptr(), atb_items.data_ptr(), tables.n_vars,
-                bsz, d, ata.data_ptr(), atb.data_ptr(), _cuda.stream_of(err0))
+                ata_ptr.data_ptr(), ata_items.data_ptr(), atb_ptr.data_ptr(), atb_items.data_ptr(),
+                split.data_ptr(), len(tables.split), n_large, tile, threads,
+                short_ata.data_ptr(), len(tables.short_ata), short_atb.data_ptr(), len(tables.short_atb),
+                bsz, d, int(all(p % 16 == 0 for p in jac_ptrs)), ata.data_ptr(), atb.data_ptr(),
+                _cuda.stream_of(err0))
     _cuda.check(rc, "assemble_blocks")
     _cuda.launches["assemble_blocks"] += 1
     del keep
