@@ -26,10 +26,12 @@ alone. In order:
    Reprojection at K=204,800, B=1 and at 16 x 200 x batch 16, the mixed-dof
    assembly; the whole-sweep factor (against its per-column twin and the
    level kernels' factor, slot for slot, which must be equal bit for bit)
-   and substitutions at PGO 256 x 128 and 2048 x 8; the AoS Between entry
-   at K=257, B=128), in float32 and float64, each line with its deviation
-   and tolerance; the assembly is launched twice at PGO 256 x 128, BA
-   128 x 4000 x 1 and BA 16 x 200 x 16 and must give the same bits;
+   and substitutions at PGO 256 x 128 and 2048 x 8, with the shared- or
+   device-memory variant each shape takes; the AoS Between entry at K=257,
+   B=128), in float32 and float64, each line with its deviation and
+   tolerance; the assembly is launched twice at PGO 256 x 128, BA
+   128 x 4000 x 1 and BA 16 x 200 x 16, and the level forward substitution
+   sweep at PGO 256 x 128 and 2048 x 8, and each must give the same bits;
 4. slice phases, one per path: the float32 forward with the launch counters
    reset just before and read just after; the converged plateau against the
    plain-twin float64 solve of the same problem on the card; the problem of
@@ -46,8 +48,10 @@ alone. In order:
    and its library yardstick at the main-path shapes (CUDA events: calls
    back to back, and the device time alone with the queue prefilled by a
    sleep kernel), beside its bound (bytes over 3.35 TB/s or operations over
-   67 TFLOP/s, the larger); the level factor per launch at its widest and
-   deepest level and at the smallest shape (the launch floor);
+   67 TFLOP/s, the larger); the whole factor also at 2048 x 8 and by
+   threads a block; the level factor and forward substitution per launch
+   at their widest and deepest level and at the smallest shape (the launch
+   floor);
 6. profile phase: per path, synced stage times of one LM iteration and a
    torch.profiler window (device busy and idle share, launches, top
    kernels);
@@ -295,7 +299,7 @@ def phase_build():
             continue
         kind = next(k for k in ("between_se3", "reprojection", "assemble", "whole_factor", "whole_fwd",
                                 "whole_bwd", "level_factor", "fwd_subst", "bwd_subst") if k in name)
-        if kind in ("whole_fwd", "whole_bwd"):  # the vector in shared memory or in device memory
+        if kind in ("whole_fwd", "whole_bwd", "whole_factor"):  # shared memory or device memory
             kind += " smem" if "Lb1E" in name else " global"
         dt = "f64" if "kernelId" in name else "f32"
         info = " ".join(l.strip() for l in log[i + 1 : i + 5])
@@ -477,13 +481,16 @@ def phase_whole_kernels(dev, max_abs):
     """Rows 6-8 at PGO 256 x 128 and 2048 x 8, and row 9 at K=257, B=128:
     the factor against its per-column twin and against the level kernels'
     factor slot for slot (slot 0 zero); each substitution against its twin
-    on the twin's factor."""
+    on the twin's factor. At both shapes also the level forward substitution
+    sweep: two launches bitwise equal, and each level against its twin."""
     import torch
 
     from theseus_tpu_torch import config
     from theseus_tpu_torch.ops.between_se3 import between_linearize_fused, between_linearize_plain
     from theseus_tpu_torch.sparse.cholesky import factorize_levels
-    from theseus_tpu_torch.sparse.whole import whole_bwd_subst, whole_factor, whole_fwd_subst
+    from theseus_tpu_torch.sparse.level_kernels import level_fwd_subst, level_fwd_subst_plain
+    from theseus_tpu_torch.sparse.whole import (
+        whole_bwd_subst, whole_factor, whole_factor_smem_bytes, whole_factor_variant, whole_fwd_subst)
 
     for dtype in (torch.float32, torch.float64):
         dn = str(dtype).split(".")[-1]
@@ -491,6 +498,17 @@ def phase_whole_kernels(dev, max_abs):
             prob, ata, atb = whole_system(n, b, dtype, dev)
             sched = prob.builder.sched
             note = f"PGO {n}x{b} nnz_l={sched.sym.nnz_l}"
+            d, isz = ata.shape[-1], ata.element_size()
+            print(f"[kernel] whole_factor    {dn} {note}: {whole_factor_variant(sched, d, isz)}-memory variant "
+                  f"(factor, level table and 3 record buffers {whole_factor_smem_bytes(sched, d, isz)} bytes)")
+            lv = level_inputs(prob, *plain_system(prob)[1:])
+            fwd_ops = [fw for _, fw, _ in lv]
+            got = _repeatable("level_fwd_subst", lambda: [level_fwd_subst(*f) for f in fwd_ops],
+                              f"{dn} PGO {n}x{b} sweep")
+            for li, (g, f) in enumerate(zip(got, fwd_ops)):
+                e = _dev_report("level_fwd_subst", dn, g, level_fwd_subst_plain(*f),
+                                f"{n}x{b} level {li:2d} C={f[0].shape[0]} ul={f[0].shape[1]}")
+                max_abs["level_fwd_subst"][dn] = max(max_abs["level_fwd_subst"][dn], e)
             lflat = whole_factor(sched, ata)
             lflat_l = factorize_levels(sched, ata)
             with config.plain_path():
@@ -900,7 +918,9 @@ def device_ms(fn, reps=20, warmup=3):
     """ms per call of the device work alone: the stream is held by a sleep
     kernel while the host enqueues all reps, so the wrappers' host cost
     (Python, ctypes) does not stretch the window as it does in cuda_ms.
-    Fails if the sleep ended before the host had enqueued every call."""
+    The sleep lasts twice the host's enqueue time; if it ended before the
+    host had enqueued every call (a slow moment on the host), the window is
+    taken again with a sleep twice as long, and after three tries it fails."""
     import torch
 
     for _ in range(warmup):
@@ -912,15 +932,17 @@ def device_ms(fn, reps=20, warmup=3):
     host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(2.0 * host_s * SLEEP_CYCLES_PER_S) + 100_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    prefilled = not start.query()
-    torch.cuda.synchronize()
-    check(prefilled, "device_ms: the sleep ended before the timed calls were enqueued")
-    return start.elapsed_time(end) / reps
+    for attempt in range(3):
+        torch.cuda._sleep(int(2.0 ** (attempt + 1) * host_s * SLEEP_CYCLES_PER_S) + 100_000)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        prefilled = not start.query()
+        torch.cuda.synchronize()
+        if prefilled:
+            return start.elapsed_time(end) / reps
+    check(False, "device_ms: the sleep ended before the timed calls were enqueued, three times")
 
 
 def _nbytes(*tensors):
@@ -1073,6 +1095,8 @@ def phase_timing(dev, card):
     ba_padded, ba_pattern = padded_blocks(ba), ba.builder.pattern
     deep = synthetic_problem(*WHOLE_SHAPES[1], torch.float32, dev)
     lv_deep = level_inputs(deep, *plain_system(deep)[1:])
+    deep_w, dw_ata, _ = whole_system(*WHOLE_SHAPES[1], torch.float32, dev)
+    deep_sched = deep_w.builder.sched
 
     def plain(fn):
         def run():
@@ -1098,6 +1122,8 @@ def phase_timing(dev, card):
         "level_factor 2048x8": (lambda: [level_factor(*f) for f, _, _ in lv_deep],
                                 lambda: [level_factor_plain(*f) for f, _, _ in lv_deep]),
         "whole_factor": (lambda: whole_factor(sched, w_ata), plain(lambda: whole_factor(sched, w_ata))),
+        "whole_factor 2048x8": (lambda: whole_factor(deep_sched, dw_ata),
+                                plain(lambda: whole_factor(deep_sched, dw_ata))),
         "whole_fwd_subst": (lambda: whole_fwd_subst(sched, w_l, w_atb),
                             plain(lambda: whole_fwd_subst(sched, w_l, w_atb))),
         "whole_bwd_subst": (lambda: whole_bwd_subst(sched, w_l, w_y),
@@ -1107,7 +1133,11 @@ def phase_timing(dev, card):
     }
     times, dev_times = {}, {}
     for name, (k, p) in pairs.items():
-        times[name] = (cuda_ms(k), cuda_ms(p, reps=3 if name.startswith("whole") else 20))
+        # the whole-sweep twins run a Python loop over the columns: seconds a
+        # call at 2048 x 8, so that one is timed once
+        p_ms = (cuda_ms(p, reps=1, warmup=0) if name == "whole_factor 2048x8"
+                else cuda_ms(p, reps=3 if name.startswith("whole") else 20))
+        times[name] = (cuda_ms(k), p_ms)
         dev_times[name] = device_ms(k)
         what = "one sweep over all levels" if name.startswith("level") else "one call"
         shape = ("BA 128x4000x1" if name in ("reprojection", "assemble_blocks ba")
@@ -1149,23 +1179,27 @@ def phase_timing(dev, card):
         parts.append(f"{label} {device_ms(lambda: assemble_blocks(variant, ba_padded)) * 1e3:.1f} us")
     print(f"[timing] assemble_blocks BA 128x4000x1 float32 parts (device): {', '.join(parts)} on {card}")
 
-    # the level kernel per launch: the widest and the deepest level of each
-    # sweep, and the floor (one column, one row, one update, batch 1)
+    # the level factor and forward substitution per launch: the widest and
+    # the deepest level of each sweep, and the floor (one column, one row,
+    # one update, batch 1)
     for label, levels in (("256x128", lv), ("2048x8", lv_deep)):
         shapes = [(f[0].shape[0], f[0].shape[1], f[1].shape[1]) for f, _, _ in levels]
         widest = max(range(len(levels)), key=lambda i: shapes[i][0] * shapes[i][1])
         deepest = max(range(len(levels)), key=lambda i: shapes[i][2])
         for which, i in (("widest", widest), ("deepest", deepest)):
-            f = levels[i][0]
+            f, fw = levels[i][0], levels[i][1]
             us = device_ms(lambda: level_factor(*f), reps=50) * 1e3
-            print(f"[timing] level_factor {label} {which} level {i} (C, rl, ul) = {shapes[i]}: "
-                  f"{us:.2f} us per launch (device, queue prefilled) on {card}")
+            us_fwd = device_ms(lambda: level_fwd_subst(*fw), reps=50) * 1e3
+            print(f"[timing] {label} {which} level {i} (C, rl, ul) = {shapes[i]}: level_factor {us:.2f} us, "
+                  f"level_fwd_subst {us_fwd:.2f} us per launch (device, queue prefilled) on {card}")
     d = pattern.d
     col_a1 = torch.eye(d, device=dev).expand(1, 1, 1, d, d).contiguous()
     ks1, kj1 = torch.zeros((1, 1, 1, 1, d, d), device=dev), torch.zeros((1, 1, 1, d, d), device=dev)
     floor_us = device_ms(lambda: level_factor(col_a1, ks1, kj1), reps=50) * 1e3
-    print(f"[timing] level_factor floor (C, rl, ul, B) = (1, 1, 1, 1): {floor_us:.2f} us per launch "
-          f"(device, queue prefilled) on {card}")
+    fwd1 = (kj1, torch.zeros((1, 1, 1, d), device=dev), torch.zeros((1, 1, d), device=dev), col_a1[:, 0])
+    floor_fwd_us = device_ms(lambda: level_fwd_subst(*fwd1), reps=50) * 1e3
+    print(f"[timing] floor (C, rl, ul, B) = (1, 1, 1, 1): level_factor {floor_us:.2f} us, level_fwd_subst "
+          f"{floor_fwd_us:.2f} us per launch (device, queue prefilled) on {card}")
 
     # library yardsticks on the densified H: one PyTorch call each, timed
     # here only; the port never calls them
@@ -1202,6 +1236,8 @@ def phase_timing(dev, card):
                                   subst_flops(sched, bsz, d, False)),
         "reprojection": _bound(_nbytes(*rops, *rops_out), REPROJECTION_FLOPS * rops[0].shape[0] * rops[0].shape[1]),
         "whole_factor": _bound(_nbytes(w_ata, w_l), factor_flops(sched, bsz, d)),
+        "whole_factor 2048x8": _bound(_nbytes(dw_ata) + (deep_sched.sym.nnz_l + 1) * dw_ata[0].numel() * 4,
+                                      factor_flops(deep_sched, WHOLE_SHAPES[1][1], d)),
         "whole_fwd_subst": _bound(_nbytes(w_l, w_atb, w_y), subst_flops(sched, bsz, d, True)),
         "whole_bwd_subst": _bound(_nbytes(w_l, w_y, w_y), subst_flops(sched, bsz, d, False)),
     }
@@ -1328,10 +1364,10 @@ def main() -> int:
             entry["ms_ba"], entry["plain_ms_ba"] = times["assemble_blocks ba"]
             entry["device_ms_ba"] = dev_times["assemble_blocks ba"]
             entry["bound_ms_ba"], entry["bound_by_ba"] = bounds["assemble_blocks ba"]
-        if name == "level_factor":  # the deep and narrow sweep, beside 256 x 128's
-            entry["ms_2048x8"], entry["plain_ms_2048x8"] = times["level_factor 2048x8"]
-            entry["device_ms_2048x8"] = dev_times["level_factor 2048x8"]
-            entry["bound_ms_2048x8"], _ = bounds["level_factor 2048x8"]
+        if name in ("level_factor", "whole_factor"):  # the deep and narrow shape, beside 256 x 128's
+            entry["ms_2048x8"], entry["plain_ms_2048x8"] = times[f"{name} 2048x8"]
+            entry["device_ms_2048x8"] = dev_times[f"{name} 2048x8"]
+            entry["bound_ms_2048x8"], _ = bounds[f"{name} 2048x8"]
         kernels.append(entry)
     print(json.dumps({"lm_iter_ms": iters, "train_step_ms": train_ms}))
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")

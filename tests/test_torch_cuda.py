@@ -97,8 +97,17 @@ def test_between_kernel_shared_measurement(cuda_device):
         _close(g, w_, torch.float64)
 
 
-def _pgo_normal(n_poses, batch, dtype, device, seed=0):
+def _pgo_normal(n_poses, batch, dtype, device, seed=0, clique=0):
+    """clique > 0 also joins `clique` poses spread along the chain all to
+    all: the first of them eliminated has a factor column of at least
+    `clique` block rows."""
     gt, edges, meas, init = synthetic_pose_graph(n_poses, batch, seed=seed, dtype=dtype, device=device)
+    if clique:
+        hub = list(range(0, n_poses, n_poses // clique))[:clique]
+        extra = [(i, j) for i in hub for j in hub if i < j and (i, j) not in set(map(tuple, edges))]
+        e = torch.as_tensor(extra)
+        meas = torch.cat([meas, se3.compose(se3.inverse(gt[e[:, 0]]), gt[e[:, 1]])])
+        edges = list(edges) + extra
     obj, _ = build_pgo_objective(n_poses, edges, meas, gt[0], dtype=dtype, device=device)
     co = obj.compile()
     values = obj.default_values(pose_values(init))
@@ -162,6 +171,29 @@ def test_level_kernels_ragged_shapes(cuda_device):
         lcol[:, 0] = lower
         xr = t(C, rl, B, d)
         _close(level_bwd_subst(lcol, xr, b), level_bwd_subst_plain(lcol, xr, b), dt, 10.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("C,ul,B", [(1, 17, 128), (32, 1, 128), (3, 40, 7), (2, 400, 3)])
+def test_level_fwd_subst_repeatable_and_matches_twin(cuda_device, dtype, C, ul, B):
+    """The PGO 256 x 128 deepest level (1, 17) and widest (32, 1), a list
+    longer than a warp's lanes, and one longer than 48 KB of shared memory
+    holds (staged in chunks, fwd_subst_geometry): two launches give the same
+    bits (the update list is summed in a fixed tree), within tolerance of
+    the twin."""
+    rng = np.random.default_rng(7)
+    d = 6
+    t = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=dtype, device=cuda_device)  # noqa: E731
+    ljk, yk, b = t(C, ul, B, d, d), t(C, ul, B, d), t(C, B, d)
+    ldiag = torch.tril(t(C, B, d, d)) + 4.0 * torch.eye(d, dtype=dtype, device=cuda_device)
+    _cuda.reset_launches()
+    y1 = level_fwd_subst(ljk, yk, b, ldiag)
+    y2 = level_fwd_subst(ljk, yk, b, ldiag)
+    assert _cuda.launches["level_fwd_subst"] == 2
+    want = level_fwd_subst_plain(ljk, yk, b, ldiag)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+    _close(y1, want, dtype, float(want.abs().max()))
 
 
 def test_level_factor_nonpositive_pivot_is_nan(cuda_device):
@@ -326,13 +358,16 @@ def test_assemble_kernel_split_lists(cuda_device, dtype, batch):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_level_factor_bit_equal_to_whole_factor(cuda_device, dtype):
+@pytest.mark.parametrize("n_poses,batch,variant", [(64, 16, "shared"), (4400, 1, "device")])
+def test_level_factor_bit_equal_to_whole_factor(cuda_device, dtype, n_poses, batch, variant):
     """Both kernels form each entry's update in the same order (u outer, k
-    inner, from zero) and run the same POTRF and TRSM statements."""
+    inner, from zero) and run the same POTRF and TRSM statements, whether
+    the whole factor is built in shared or in device memory."""
     from theseus_tpu_torch.sparse.cholesky import factorize_levels
-    from theseus_tpu_torch.sparse.whole import whole_factor
+    from theseus_tpu_torch.sparse.whole import whole_factor, whole_factor_variant
 
-    bld, ata, _ = _whole_system(64, 16, dtype, cuda_device)
+    bld, ata, _ = _whole_system(n_poses, batch, dtype, cuda_device)
+    assert whole_factor_variant(bld.sched, ata.shape[-1], ata.element_size()) == variant
     _cuda.reset_launches()
     lflat_l = factorize_levels(bld.sched, ata)
     lflat_w = whole_factor(bld.sched, ata)
@@ -341,6 +376,33 @@ def test_level_factor_bit_equal_to_whole_factor(cuda_device, dtype):
     assert _cuda.launches["whole_factor"] == 1
     assert bool(torch.isfinite(lflat_l).all())
     assert float((lflat_l - lflat_w).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_poses,batch,variant", [(48, 4, "shared"), (1200, 2, "device")])
+def test_whole_factor_long_columns(cuda_device, dtype, n_poses, batch, variant):
+    """Nine poses joined all to all give a column of nine block rows or
+    more, so its TRSM has more items ((rows - 1) d = 48 at d = 6) than a
+    warp has lanes: the kernel runs the items beyond 32 after the POTRF.
+    Bit-equal to the level factor and within tolerance of the twin, in
+    both variants."""
+    from theseus_tpu_torch.sparse.cholesky import factorize_levels
+    from theseus_tpu_torch.sparse.whole import get_tables, whole_factor, whole_factor_variant
+
+    bld, ata, _ = _whole_system(n_poses, batch, dtype, cuda_device, clique=9)
+    d = ata.shape[-1]
+    assert whole_factor_variant(bld.sched, d, ata.element_size()) == variant
+    assert (int(get_tables(bld.sched).host["fact_lvl"][:, 2].max()) - 1) * d > 32
+    _cuda.reset_launches()
+    lflat_l = factorize_levels(bld.sched, ata)
+    lflat_w = whole_factor(bld.sched, ata)
+    assert _cuda.launches["whole_factor"] == 1
+    with config.plain_path():
+        lflat_p = whole_factor(bld.sched, ata)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(lflat_w).all())
+    assert float((lflat_l - lflat_w).abs().max()) == 0.0
+    _close(lflat_w, lflat_p, dtype, float(lflat_p.abs().max()))
 
 
 def test_ba_schur_solve_on_card_matches_cpu_twins(cuda_device):
@@ -377,10 +439,10 @@ def test_schur_run_scan_never_syncs_with_the_host(cuda_device):
 # ---------------------------------------------------------------------------
 # whole-sweep kernels (sparse/whole.py) and the backward on the card
 # ---------------------------------------------------------------------------
-def _whole_system(n_poses, batch, dtype, device):
+def _whole_system(n_poses, batch, dtype, device, clique=0):
     from theseus_tpu_torch.sparse.assemble import apply_block_damping
 
-    bld, blocks = _pgo_normal(n_poses, batch, dtype, device)
+    bld, blocks = _pgo_normal(n_poses, batch, dtype, device, clique=clique)
     with config.plain_path():
         ata, atb = assemble(bld.pattern, blocks)
         ata = apply_block_damping(bld.pattern, ata, 1e-3, False, 1e-8)
@@ -391,14 +453,18 @@ def _whole_system(n_poses, batch, dtype, device):
 @pytest.mark.parametrize("n_poses,batch", [(40, 6), (4400, 1)])
 def test_whole_kernels_match_twins(cuda_device, dtype, n_poses, batch):
     """Factor slot for slot against the per-column twin and the level plan;
-    both substitutions against their twins. At 4400 poses the float64 vector
-    (4400 x 6 x 8 bytes) exceeds the shared-memory budget, so the
+    both substitutions against their twins. At 40 poses the factor is built
+    in shared memory, at 4400 in device memory; there the float64 vector
+    (4400 x 6 x 8 bytes) exceeds the shared-memory budget too, so the
     substitutions work in device memory."""
     from theseus_tpu_torch.sparse.cholesky import factorize_levels
-    from theseus_tpu_torch.sparse.whole import whole_bwd_subst, whole_factor, whole_fwd_subst
+    from theseus_tpu_torch.sparse.whole import (
+        whole_bwd_subst, whole_factor, whole_factor_variant, whole_fwd_subst)
 
     bld, ata, atb = _whole_system(n_poses, batch, dtype, cuda_device)
     sched = bld.sched
+    assert whole_factor_variant(sched, ata.shape[-1], ata.element_size()) == (
+        "shared" if n_poses == 40 else "device")
     _cuda.reset_launches()
     lflat = whole_factor(sched, ata)
     y = whole_fwd_subst(sched, lflat, atb)

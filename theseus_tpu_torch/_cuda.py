@@ -145,16 +145,18 @@ _SIGNATURES = {
     ],
     # col_a, ks, kj, C, rl, ul, B, d, out, stream
     "th_level_factor": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
-    # ljk, yk, b, ldiag, C, ul, B, d, y, stream
-    "th_level_fwd_subst": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # ljk, yk, b, ldiag, C, ul, B, d, batch tile, lanes per output, u
+    # chunk (sparse/level_kernels.py fwd_subst_geometry), y, stream
+    "th_level_fwd_subst": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     # lcol, xr, y, C, rl, B, d, x, stream
     "th_level_bwd_subst": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     # pose, point, focal, feat, k1, k2, (k, b) strides of the four aux,
     # K, B, jpose, jpt, err, stream
     "th_reprojection": [_P] * 6 + [_L] * 8 + [_I, _I, _P, _P, _P, _P],
-    # ata, a_src, a_tr, col_start, col_len, ucount, upd_jk, upd_slots, order,
-    # lvl_ptr, n_levels, rmax, umax, B, d, lflat, stream
-    "th_whole_factor": [_P] * 10 + [_I] * 5 + [_P, _P],
+    # ata, level records, lvl (n_levels, 4), n_levels, factor slots, largest
+    # record's ints, shared-memory bytes (0: the factor in device memory), B,
+    # d, lflat, stream
+    "th_whole_factor": [_P, _P, _P, _I, _I, _I, _L, _I, _I, _P, _P],
     # lflat, b, perm, upd_jk, upd_k, ucount, diag_slot, order, lvl_ptr,
     # n_levels, n, umax, B, d, y, stream
     "th_whole_fwd_subst": [_P] * 9 + [_I] * 5 + [_P, _P],

@@ -12,14 +12,36 @@
 // forward kernel likewise expects invalid updates zeroed. The iterative
 // refinement step reuses both kernels.
 //
-// Design: one thread per (column, batch), the d-vectors (d <= 8, a template
-// parameter) in registers, loops over ul / rl of any size. AoS layout:
-// forward ljk (C, ul, B, d, d), yk (C, ul, B, d), b (C, B, d),
+// AoS layout: forward ljk (C, ul, B, d, d), yk (C, ul, B, d), b (C, B, d),
 // ldiag (C, B, d, d) -> y (C, B, d); backward lcol (C, rl, B, d, d),
 // xr (C, rl, B, d), y (C, B, d) -> x (C, B, d).
 //
-// What bounds it on the H100: memory and launch latency. A thread reads
-// ul (or rl) d x d blocks for 2 d^2 flops each: about half a flop per byte.
+// What bounds it on the H100: memory and launch latency. The kernel reads
+// ul (or rl) d x d blocks for 2 d^2 flops each: about half a flop per byte,
+// and a sweep is one launch per etree level (13 at 256 poses), each short.
+//
+// Forward design. The first design gave one thread to each (column, batch)
+// and walked the update list in series: on a deep level (C = 1, ul = 17) a
+// thread paid ul dependent memory latencies, neighbouring lanes read blocks
+// 144 bytes apart, and a wide level (C = 32, ul = 1) filled 16 SMs. Now a
+// block owns (column c, a tile of bt batch elements) and:
+//   1. copies the tile's ul (ljk, yk) runs, its diagonal blocks and b into
+//      shared memory by cp.async: for a fixed (c, u) the tile's blocks are
+//      contiguous, so neighbouring lanes copy neighbouring elements, and
+//      every load of the level is in flight at once (one memory round trip);
+//   2. gives gu lanes (a power of two, up to 32) to each output (batch
+//      element, row i); lane g sums L[u][i][:] y[u] over u = g, g + gu, ...
+//      in order, j inner, and the gu partials are added by __shfl_down_sync
+//      in a fixed tree (no atomics: two launches give the same bits);
+//   3. one thread per batch element solves L_jj y = b - sum with today's
+//      statements.
+// The host picks (bt, gu, u chunk) per launch (sparse/level_kernels.py
+// fwd_subst_geometry); a level longer than the chunk stages it in chunks of
+// a multiple of gu, which keeps each lane's order.
+// The backward kernel keeps one thread per (column, batch), the d-vectors
+// (d <= 8, a template parameter) in registers.
+
+#include <cuda_pipeline.h>
 
 #include "common.cuh"
 
@@ -28,41 +50,84 @@ namespace {
 template <typename T, int D>
 __global__ void fwd_subst_kernel(const T* __restrict__ ljk, const T* __restrict__ yk,
                                  const T* __restrict__ bvec, const T* __restrict__ ldiag, int C,
-                                 int ul, int B, T* __restrict__ y) {
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<long long>(C) * B) return;
-  const long long c = idx / B;
-  const long long b = idx % B;
-  const long long DD = D * D;
-  T acc[D];
-#pragma unroll
-  for (int i = 0; i < D; ++i) acc[i] = bvec[idx * D + i];
-  for (int u = 0; u < ul; ++u) {
-    const long long row = (c * ul + u) * B + b;
-    const T* l = ljk + row * DD;
-    const T* v = yk + row * D;
-    T vv[D];
-#pragma unroll
-    for (int j = 0; j < D; ++j) vv[j] = v[j];
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      T s = acc[i];
-#pragma unroll
-      for (int j = 0; j < D; ++j) s -= l[i * D + j] * vv[j];
-      acc[i] = s;
+                                 int ul, int B, int bt, int gu, int uc, T* __restrict__ y) {
+  constexpr int DD = D * D;
+  extern __shared__ __align__(16) unsigned char fs_smem[];
+  const int nbt = (B + bt - 1) / bt;
+  const int c = blockIdx.x / nbt;
+  const int b0 = (blockIdx.x % nbt) * bt;
+  const int tb = min(bt, B - b0);
+  T* ls = reinterpret_cast<T*>(fs_smem);  // [uc][bt d^2]
+  T* ys = ls + uc * bt * DD;              // [uc][bt d]
+  T* lds = ys + uc * bt * D;              // [bt d^2] the diagonal blocks
+  T* acc = lds + bt * DD;                 // [bt d] b, then b - sum
+  const long long rowL = static_cast<long long>(B) * DD;
+  const long long rowY = static_cast<long long>(B) * D;
+  const long long cb = static_cast<long long>(c) * B + b0;
+  const T* l_c = ljk + static_cast<long long>(c) * ul * rowL + static_cast<long long>(b0) * DD;
+  const T* y_c = yk + static_cast<long long>(c) * ul * rowY + static_cast<long long>(b0) * D;
+
+  for (int x = threadIdx.x; x < tb * DD; x += blockDim.x)
+    __pipeline_memcpy_async(lds + x, ldiag + cb * DD + x, sizeof(T));
+  for (int x = threadIdx.x; x < tb * D; x += blockDim.x)
+    __pipeline_memcpy_async(acc + x, bvec + cb * D + x, sizeof(T));
+
+  const int g = threadIdx.x % gu;
+  const int o = threadIdx.x / gu;  // output: batch element bl of the tile, row i
+  const int bl = o / D;
+  const int i = o % D;
+  const bool mine = bl < tb;
+  T part = T(0);
+  for (int u0 = 0; u0 < ul; u0 += uc) {
+    const int nu = min(uc, ul - u0);
+    for (int x = threadIdx.x; x < nu * tb * DD; x += blockDim.x) {
+      const int uu = x / (tb * DD);
+      const int r = x % (tb * DD);
+      __pipeline_memcpy_async(ls + uu * bt * DD + r, l_c + (u0 + uu) * rowL + r, sizeof(T));
     }
+    for (int x = threadIdx.x; x < nu * tb * D; x += blockDim.x) {
+      const int uu = x / (tb * D);
+      const int r = x % (tb * D);
+      __pipeline_memcpy_async(ys + uu * bt * D + r, y_c + (u0 + uu) * rowY + r, sizeof(T));
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    if (mine) {
+      for (int uu = g; uu < nu; uu += gu) {
+        const T* l = ls + uu * bt * DD + bl * DD + i * D;
+        const T* v = ys + uu * bt * D + bl * D;
+#pragma unroll
+        for (int j = 0; j < D; ++j) part += l[j] * v[j];
+      }
+    }
+    __syncthreads();  // before the next chunk overwrites the buffers
   }
-  const T* ld = ldiag + idx * DD;
-  T out[D];
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    T s = acc[i];
-#pragma unroll
-    for (int k = 0; k < i; ++k) s -= ld[i * D + k] * out[k];
-    out[i] = s / ld[i * D + i];
+  if (ul <= 0) {
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
   }
+  // lane g += lane g + off, off = gu / 2, gu / 4, ..., 1
+  for (int off = gu >> 1; off > 0; off >>= 1) part += __shfl_down_sync(0xffffffffu, part, off, gu);
+  if (mine && g == 0) acc[bl * D + i] -= part;
+  __syncthreads();
+
+  if (threadIdx.x < tb) {
+    const T* ld = lds + threadIdx.x * DD;
+    const T* a = acc + threadIdx.x * D;
+    T out[D];
 #pragma unroll
-  for (int i = 0; i < D; ++i) y[idx * D + i] = out[i];
+    for (int r = 0; r < D; ++r) {
+      T s = a[r];
+#pragma unroll
+      for (int k = 0; k < r; ++k) s -= ld[r * D + k] * out[k];
+      out[r] = s / ld[r * D + r];
+    }
+    T* yo = y + (cb + threadIdx.x) * D;
+#pragma unroll
+    for (int r = 0; r < D; ++r) yo[r] = out[r];
+  }
 }
 
 template <typename T, int D>
@@ -120,12 +185,19 @@ __global__ void bwd_subst_kernel(const T* __restrict__ lcol, const T* __restrict
 
 template <typename T, int D>
 int fwd_d(const void* ljk, const void* yk, const void* b, const void* ldiag, int C, int ul, int B,
-          void* y, cudaStream_t st) {
-  const long long n = static_cast<long long>(C) * B;
-  if (n <= 0) return 0;
-  fwd_subst_kernel<T, D><<<th_blocks(n), TH_BLOCK, 0, st>>>(
+          int bt, int gu, int uc, void* y, cudaStream_t st) {
+  if (C <= 0 || B <= 0) return 0;
+  const int threads = (bt * D * gu + 31) / 32 * 32;
+  if (bt < 1 || gu < 1 || gu > 32 || (gu & (gu - 1)) || uc < 1 || (uc < ul && uc % gu) ||
+      threads > 1024)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const size_t smem = sizeof(T) * (static_cast<size_t>(uc) + 1) * bt * (D * D + D);
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long blocks = static_cast<long long>(C) * ((B + bt - 1) / bt);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  fwd_subst_kernel<T, D><<<static_cast<unsigned>(blocks), threads, smem, st>>>(
       static_cast<const T*>(ljk), static_cast<const T*>(yk), static_cast<const T*>(b),
-      static_cast<const T*>(ldiag), C, ul, B, static_cast<T*>(y));
+      static_cast<const T*>(ldiag), C, ul, B, bt, gu, uc, static_cast<T*>(y));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -142,9 +214,9 @@ int bwd_d(const void* lcol, const void* xr, const void* y, int C, int rl, int B,
 
 template <typename T>
 int fwd(const void* ljk, const void* yk, const void* b, const void* ldiag, int C, int ul, int B,
-        int d, void* y, void* stream) {
+        int d, int bt, int gu, int uc, void* y, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define TH_FWD(DD) fwd_d<T, DD>(ljk, yk, b, ldiag, C, ul, B, y, st)
+#define TH_FWD(DD) fwd_d<T, DD>(ljk, yk, b, ldiag, C, ul, B, bt, gu, uc, y, st)
   TH_SUB_SWITCH(TH_FWD)
 #undef TH_FWD
 }
@@ -161,15 +233,15 @@ int bwd(const void* lcol, const void* xr, const void* y, int C, int rl, int B, i
 }  // namespace
 
 TH_EXPORT int th_level_fwd_subst_f32(const void* ljk, const void* yk, const void* b,
-                                     const void* ldiag, int C, int ul, int B, int d, void* y,
-                                     void* stream) {
-  return fwd<float>(ljk, yk, b, ldiag, C, ul, B, d, y, stream);
+                                     const void* ldiag, int C, int ul, int B, int d, int bt,
+                                     int gu, int uc, void* y, void* stream) {
+  return fwd<float>(ljk, yk, b, ldiag, C, ul, B, d, bt, gu, uc, y, stream);
 }
 
 TH_EXPORT int th_level_fwd_subst_f64(const void* ljk, const void* yk, const void* b,
-                                     const void* ldiag, int C, int ul, int B, int d, void* y,
-                                     void* stream) {
-  return fwd<double>(ljk, yk, b, ldiag, C, ul, B, d, y, stream);
+                                     const void* ldiag, int C, int ul, int B, int d, int bt,
+                                     int gu, int uc, void* y, void* stream) {
+  return fwd<double>(ljk, yk, b, ldiag, C, ul, B, d, bt, gu, uc, y, stream);
 }
 
 TH_EXPORT int th_level_bwd_subst_f32(const void* lcol, const void* xr, const void* y, int C,

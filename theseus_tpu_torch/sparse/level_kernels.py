@@ -11,7 +11,8 @@ All operands are AoS with the batch before the block: (C, rows, B, d, d)
 and (C, rows, B, d). The gathers that build them and the scatters of the
 results stay in sparse/cholesky.py. The twins follow cholesky.py's
 `_factorize_levels` / `_solve_levels` arithmetic through the unrolled
-ops/batched_linalg routines.
+ops/batched_linalg routines. The forward kernel's launch geometry is chosen
+here (`fwd_subst_geometry`), where the CPU tests reach it.
 """
 
 from __future__ import annotations
@@ -27,6 +28,13 @@ from ..ops.batched_linalg import (
     solve_lower_vec,
     solve_upper_vec,
 )
+
+# level_fwd_subst's geometry (fwd_subst_geometry)
+WARP = 32
+FWD_TILE_MAX = 32  # batch elements a block
+FWD_THREADS_MAX = 1024
+FWD_BLOCKS_PER_SM = 2  # the tile shrinks until the launch fills each SM this often
+FWD_SMEM_MAX = 48 * 1024  # the launcher's limit (no opt-in)
 
 
 # ---------------------------------------------------------------------------
@@ -88,6 +96,36 @@ def level_factor(col_a, ks, kj):
     return out
 
 
+def fwd_subst_geometry(C: int, ul: int, B: int, d: int, itemsize: int, min_blocks: int):
+    """(bt, gu, uc) of one `level_fwd_subst` launch (csrc/level_subst.cu):
+    a block per (column, tile of bt batch elements), gu lanes per output
+    (batch element, row) sharing its update list, the list staged uc
+    updates at a time (uc = ul, or a multiple of gu).
+
+    gu is the power of two at or above ul, up to 32. bt starts at
+    FWD_TILE_MAX and halves while a block would exceed FWD_THREADS_MAX
+    threads or the launch would have fewer than min_blocks blocks
+    (FWD_BLOCKS_PER_SM times the card's SMs: 264 on the H100), or
+    one staged chunk of gu updates would exceed FWD_SMEM_MAX; then bt <= B."""
+    gu = 1
+    while gu < min(ul, WARP):
+        gu *= 2
+    per_u = (d * d + d) * itemsize  # one (ljk, yk) block pair, or (ldiag, b)
+
+    def smem(bt, uc):
+        return (uc + 1) * bt * per_u
+
+    bt = FWD_TILE_MAX
+    while bt > 1 and (bt * d * gu > FWD_THREADS_MAX or C * -(-B // bt) < min_blocks
+                      or smem(bt, min(max(ul, 1), gu)) > FWD_SMEM_MAX):
+        bt //= 2
+    bt = max(1, min(bt, B))
+    uc = max(ul, 1)
+    if smem(bt, uc) > FWD_SMEM_MAX:
+        uc = max(gu, (FWD_SMEM_MAX // (bt * per_u) - 1) // gu * gu)
+    return bt, gu, uc
+
+
 def level_fwd_subst(ljk, yk, b, ldiag):
     if not use_kernel(ljk):
         return level_fwd_subst_plain(ljk, yk, b, ldiag)
@@ -95,10 +133,12 @@ def level_fwd_subst(ljk, yk, b, ldiag):
     if yk.shape != (C, ul, B, d) or b.shape != (C, B, d) or ldiag.shape != (C, B, d, d):
         raise ValueError(f"level_fwd_subst: shapes {ljk.shape}, {yk.shape}, {b.shape}, {ldiag.shape} do not agree")
     fn, (ljk, yk, b, ldiag) = _prepare("level_fwd_subst", [ljk, yk, b, ldiag], d)
+    sms = torch.cuda.get_device_properties(ljk.device).multi_processor_count
+    bt, gu, uc = fwd_subst_geometry(C, ul, B, d, ljk.element_size(), FWD_BLOCKS_PER_SM * sms)
     y = torch.empty_like(b)
     with torch.cuda.device(ljk.device):
         rc = fn(ljk.data_ptr(), yk.data_ptr(), b.data_ptr(), ldiag.data_ptr(), C, ul, B, d,
-                y.data_ptr(), _cuda.stream_of(ljk))
+                bt, gu, uc, y.data_ptr(), _cuda.stream_of(ljk))
     _cuda.check(rc, "level_fwd_subst")
     _cuda.launches["level_fwd_subst"] += 1
     return y

@@ -24,7 +24,10 @@ device memory, built once per device by `WholeTables.on`.
 
 On the card each kernel gives every batch element its own block and walks
 the etree levels inside the kernel, one barrier per phase of a level: the
-columns of a level are independent, so the block's threads share them.
+columns of a level are independent, so the block's threads share them. The
+factor kernel keeps the block's factor in shared memory while it builds it
+when the factor and its staged index records fit WHOLE_FACTOR_SMEM_MAX
+(`whole_factor_smem_bytes`), and in device memory otherwise.
 """
 
 from __future__ import annotations
@@ -38,19 +41,69 @@ from .. import _cuda
 from ..config import use_kernel
 from ..ops.batched_linalg import SMALL_DIM_MAX
 
+# Shared-memory budget of one whole_factor block, under the 232,448 bytes a
+# block may opt into on the H100: a factor that fits is built there.
+WHOLE_FACTOR_SMEM_MAX = 224 * 1024
+# Record buffers the kernel stages (WF_STAGES in csrc/whole_factor.cu, whose
+# launcher rejects fewer bytes than its layout): level lv in use, lv + 1
+# landed, lv + 2 in flight.
+WHOLE_FACTOR_STAGES = 3
+
+
+def factor_records(tables: Dict[str, np.ndarray], levels):
+    """The whole factor's per-level index records (csrc/whole_factor.cu).
+
+    For a level with nc columns and the level's maxima rl (rows) and ul
+    (updates), one int32 run: col_len[nc], ucount[nc], col_slots[nc, rl],
+    a_code[nc, rl] = a_src * 2 + a_tr, upd_jk[nc, ul], upd_slots[nc, ul, rl].
+    Returns (records concatenated, lvl (n_levels, 4) = (offset, nc, rl, ul),
+    the largest record's ints)."""
+    runs, lvl, off = [], [], 0
+    for cols in levels:
+        rl = int(tables["col_len"][cols].max())
+        ul = int(tables["ucount"][cols].max())
+        run = np.concatenate([
+            tables["col_len"][cols],
+            tables["ucount"][cols],
+            tables["col_slots"][cols, :rl].ravel(),
+            (2 * tables["a_src"][cols, :rl] + tables["a_tr"][cols, :rl]).ravel(),
+            tables["upd_jk"][cols, :ul].ravel(),
+            tables["upd_slots"][cols, :ul, :rl].ravel(),
+        ]).astype(np.int32)
+        lvl.append((off, len(cols), rl, ul))
+        runs.append(run)
+        off += len(run)
+    rec = np.concatenate(runs) if runs else np.zeros(0, np.int32)
+    lvl = np.asarray(lvl, np.int32).reshape(-1, 4)
+    return rec, lvl, max((len(r) for r in runs), default=0)
+
+
+def whole_factor_smem_bytes(sched, d: int, itemsize: int) -> int:
+    """Shared memory whole_factor's block needs to keep the factor there:
+    the factor ((nnz_l + 1) d^2 values, rounded up to 16 bytes), the level
+    table (16 bytes a level) and WHOLE_FACTOR_STAGES buffers of the largest
+    level record."""
+    t = get_tables(sched)
+    factor = -(-(sched.sym.nnz_l + 1) * d * d * itemsize // 16) * 16
+    return factor + 16 * t.n_levels + WHOLE_FACTOR_STAGES * t.stage_ints * 4
+
+
+def whole_factor_variant(sched, d: int, itemsize: int) -> str:
+    """"shared" when the factor is built in shared memory, else "device"."""
+    return "shared" if whole_factor_smem_bytes(sched, d, itemsize) <= WHOLE_FACTOR_SMEM_MAX else "device"
+
 
 class WholeTables:
     """Static int32 tables of the whole-sweep kernels, from a NumericSchedule.
 
     Per column j (elimination order), rmax rows and umax updates:
-    a_src / a_tr (n, rmax) AtA source slot and transpose flag; col_slots
-    (n, rmax) factor slots of the column (row 0 the diagonal block);
-    col_len (n) valid rows, packed at the front; row_ids (n, rmax) the
-    rows' indices; ucount (n) valid updates, packed at the front; upd_jk
-    (n, umax) slot of L[j, k]; upd_k (n, umax) the source column k;
-    upd_slots (n, umax, rmax) slot of L[row_t, k] (0: the zero sentinel);
-    diag (n) the diagonal slot; perm (n). The level walk: `order`, the
-    columns grouped by etree level, and `lvl_ptr` (levels + 1) into it."""
+    col_slots (n, rmax) factor slots of the column (row 0 the diagonal
+    block); col_len (n) valid rows, packed at the front; row_ids (n, rmax)
+    the rows' indices; ucount (n) valid updates, packed at the front; upd_jk
+    (n, umax) slot of L[j, k]; upd_k (n, umax) the source column k; diag (n)
+    the diagonal slot; perm (n). The level walk: `order`, the columns
+    grouped by etree level, and `lvl_ptr` (levels + 1) into it. The factor
+    kernel's per-level records: `fact_rec`, `fact_lvl` (`factor_records`)."""
 
     def __init__(self, sched):
         nh = sched.n_head
@@ -69,20 +122,21 @@ class WholeTables:
             raise ValueError("whole-sweep tables: the etree levels do not cover the columns once")
         i32 = lambda a: np.ascontiguousarray(a, dtype=np.int32)  # noqa: E731
         self.host: Dict[str, np.ndarray] = {
-            "a_src": i32(sched.a_src),
-            "a_tr": i32(sched.a_tr),
             "col_slots": i32(sched.col_slots),
             "col_len": i32(col_len),
             "row_ids": i32(sched.col_row_ids),
             "ucount": i32(ucount),
             "upd_jk": i32(sched.upd_jk_slots),
             "upd_k": i32(sched.upd_k),
-            "upd_slots": i32(sched.upd_slots),
             "diag": i32(sched.diag_slots),
             "perm": i32(sched.perm),
             "order": i32(order),
             "lvl_ptr": i32(np.concatenate([[0], np.cumsum([len(c) for c in levels])])),
         }
+        rec, lvl, self.stage_ints = factor_records(
+            dict(self.host, a_src=i32(sched.a_src), a_tr=i32(sched.a_tr), upd_slots=i32(sched.upd_slots)),
+            levels)
+        self.host["fact_rec"], self.host["fact_lvl"] = rec, lvl
         self.n_levels = len(levels)
         self._device: Dict[str, Dict[str, torch.Tensor]] = {}
 
@@ -130,13 +184,15 @@ def whole_factor(sched, ata: torch.Tensor) -> torch.Tensor:
     _check("whole_factor", (ata, (sched.pattern.n_slots, bsz, d, d)))
     fn = _fn("whole_factor", ata, d)
     t = tb.on(ata.device)
+    smem = whole_factor_smem_bytes(sched, d, ata.element_size())
+    if smem > WHOLE_FACTOR_SMEM_MAX:
+        smem = 0  # the device-memory variant
     ata = ata.contiguous()
     lflat = torch.empty((sched.sym.nnz_l + 1, bsz, d, d), dtype=ata.dtype, device=ata.device)
     with torch.cuda.device(ata.device):
-        rc = fn(ata.data_ptr(), t["a_src"].data_ptr(), t["a_tr"].data_ptr(), t["col_slots"].data_ptr(),
-                t["col_len"].data_ptr(), t["ucount"].data_ptr(), t["upd_jk"].data_ptr(),
-                t["upd_slots"].data_ptr(), t["order"].data_ptr(), t["lvl_ptr"].data_ptr(),
-                tb.n_levels, tb.rmax, tb.umax, bsz, d, lflat.data_ptr(), _cuda.stream_of(ata))
+        rc = fn(ata.data_ptr(), t["fact_rec"].data_ptr(), t["fact_lvl"].data_ptr(), tb.n_levels,
+                sched.sym.nnz_l + 1, tb.stage_ints, smem, bsz, d, lflat.data_ptr(),
+                _cuda.stream_of(ata))
     _cuda.check(rc, "whole_factor")
     _cuda.launches["whole_factor"] += 1
     return lflat
