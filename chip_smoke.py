@@ -6,15 +6,17 @@ toolkit (nvcc):
 
     python3 chip_smoke.py
 
-It imports neither jax nor theseus_tpu. Three main paths run through
+It imports neither jax nor theseus_tpu. Four main paths run through
 `TheseusLayer.forward`: the PGO forward solve (256 poses x batch 128,
 sparse linearization, level plan), the BA forward solve (128 cameras x 4000
 points x batch 1, visibility 0.4: 204,800 Reprojection observations, Schur
-linearization) and the PGO training step (256 x 128: implicit backward
+linearization), the PGO training step (256 x 128: implicit backward
 through the whole-sweep plan, `config.set_whole_sweep(True)`, and an SGD
-step on a loop-closure weight). A fourth, the AoS Between entry point
-`between_linearize_fused`, has no caller in the package and is driven
-alone. In order:
+step on a loop-closure weight) and the dense-tail PGO (a 16 x 16 grid of
+poses at batch 128: 14 head levels through the level kernels, a 51-column
+dense tail through one batched cholesky_ex; the tail phase prints both). A fifth, the AoS Between
+entry point `between_linearize_fused`, has no caller in the package and is
+driven alone. In order:
 
 1. fails fast without a CUDA device or outside a checkout;
 2. builds the CUDA kernels from theseus_tpu_torch/csrc (nvcc, sm_90a, one
@@ -30,8 +32,11 @@ alone. In order:
    device-memory variant each shape takes; the AoS Between entry at K=257,
    B=128), in float32 and float64, each line with its deviation and
    tolerance; the assembly is launched twice at PGO 256 x 128, BA
-   128 x 4000 x 1 and BA 16 x 200 x 16, and the level forward substitution
-   sweep at PGO 256 x 128 and 2048 x 8, and each must give the same bits;
+   128 x 4000 x 1 and BA 16 x 200 x 16, the level forward substitution
+   sweep and the whole forward sweep at PGO 256 x 128 and 2048 x 8, and the
+   Between kernel at 257 x 128 and at a K B that is a multiple of no block
+   (257 x 127), and each must give the same bits; the whole forward sweep
+   must equal the level forward sweep on the same factor, exactly;
 4. slice phases, one per path: the float32 forward with the launch counters
    reset just before and read just after; the converged plateau against the
    plain-twin float64 solve of the same problem on the card; the problem of
@@ -40,29 +45,35 @@ alone. In order:
    the training path: three float32 implicit steps with the counters read
    around forward and backward(), the gradient against the float64
    plain-twin step and against the level-kernel step, and an unrolled
-   float64 step at 64 x 16 against the twins;
+   float64 step at 64 x 16 against the twins; the grid with the dense
+   tail: the float32 forward (counters, one cholesky_ex a factorization),
+   its plateau against the float64 plain-twin solve, and one implicit
+   training step against the float64 twins' gradient;
 5. timing phase: ms per LM iteration (marginal window, as bench.py) for the
    level kernels, the whole-sweep kernels and the plain twins (PGO 64 x 16,
-   256 x 128 and 2048 x 8; BA 16 x 200 x 16 and 128 x 4000 x 1), ms per
+   256 x 128 and 2048 x 8, the grid; BA 16 x 200 x 16 and 128 x 4000 x 1), ms per
    training step (whole against level), and each kernel against its twin
    and its library yardstick at the main-path shapes (CUDA events: calls
    back to back, and the device time alone with the queue prefilled by a
    sleep kernel), beside its bound (bytes over 3.35 TB/s or operations over
-   67 TFLOP/s, the larger); the whole factor also at 2048 x 8 and by
-   threads a block; the level factor and forward substitution per launch
-   at their widest and deepest level and at the smallest shape (the launch
-   floor);
+   67 TFLOP/s, the larger); the whole factor and forward sweep also at
+   2048 x 8; the redesigned rows with the first designs' device times
+   beside; the level factor and forward substitution per launch at
+   their widest and deepest level and at the smallest shape (the launch
+   floor); the grid's tail POTRF, tail elimination and factorization;
 6. profile phase: per path, synced stage times of one LM iteration and a
    torch.profiler window (device busy and idle share, launches, top
    kernels);
-7. prints one JSON line of kernel results, the card's name and power limit,
-   and as the last line {"ok": true, "device": {...}}.
+7. prints the seconds each phase took, one JSON line of kernel results, the
+   card's name and power limit, and as the last line
+   {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import re
@@ -70,6 +81,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "fixtures" / "pgo_64x16_jax_f64.npz"
@@ -158,6 +170,13 @@ GRAD_RTOL_F32 = 5e-2
 UNROLL = (64, 16, 10)
 GRAD_RTOL_F64 = 1e-7
 WHOLE_SHAPES = ((256, 128), (2048, 8))
+# the dense-tail path: a 16 x 16 grid PGO (256 poses) at batch 128; its
+# symbolic analysis folds the last 51 columns into one dense supernode
+GRID = (16, 16, 128)
+# device ms of the first designs of the rows this run's design replaced
+# (PERF.md, kernel table, run 18 of the previous design: NVIDIA H100 80GB
+# HBM3, 700 W), printed beside this run's
+FIRST_DESIGN_DEVICE_MS = {"between_se3": 0.0455, "whole_fwd_subst": 0.0749, "between_se3_aos": 0.0468}
 # the card's peaks for the bound: HBM3 bytes/s and float32 FLOP/s outside the
 # tensor cores (H100 SXM data sheet, at the 700 W limit)
 PEAK_BYTES = 3.35e12
@@ -221,6 +240,11 @@ def synthetic_problem(n, b, dtype, dev, seed=0):
     gt, edges, meas, init = synthetic_pose_graph(n, b, seed=seed, dtype=dtype, device=dev)
     obj, _ = build_pgo_objective(n, edges, meas, gt[0], dtype=dtype, device=dev)
     return Problem(obj, pose_values(init))
+
+
+def grid_prob(dtype, dev):
+    obj, inputs, _ = grid_problem(*GRID, dtype, dev)
+    return Problem(obj, inputs)
 
 
 def golden_problem(dtype, dev):
@@ -401,8 +425,13 @@ def phase_kernels(dev):
         prob = synthetic_problem(256, 128, dtype, dev)
         v1, v2, meas = between_operands(prob)
         note = f"K={v1.shape[0]} B={v1.shape[1]}"
-        e = _dev_report("between_se3", dn, between_linearize(v1, v2, meas),
-                        between_linearize_plain(v1, v2, meas), note)
+        got = _repeatable("between_se3", lambda: between_linearize(v1, v2, meas), f"{dn} PGO 256x128")
+        e = _dev_report("between_se3", dn, got, between_linearize_plain(v1, v2, meas), note)
+        # a K B that is a multiple of no block size (257 x 127 = 32,639)
+        r1, r2, rm = (t[:, :127] for t in (v1, v2, meas))
+        note = f"K={r1.shape[0]} B={r1.shape[1]} (ragged)"
+        got = _repeatable("between_se3", lambda: between_linearize(r1, r2, rm), f"{dn} ragged K B")
+        e = max(e, _dev_report("between_se3", dn, got, between_linearize_plain(r1, r2, rm), note))
         max_abs.setdefault("between_se3", {})[dn] = e
 
         _, ata, lflat, y, x, b_perm = plain_system(prob)
@@ -482,16 +511,20 @@ def phase_whole_kernels(dev, max_abs):
     the factor against its per-column twin and against the level kernels'
     factor slot for slot (slot 0 zero); each substitution against its twin
     on the twin's factor. At both shapes also the level forward substitution
-    sweep: two launches bitwise equal, and each level against its twin."""
+    sweep: two launches bitwise equal, and each level against its twin.
+    Returns max_abs and the ms of the float32 twin calls at 2048 x 8 (seconds
+    each: the timing phase reports these rather than run them again)."""
     import torch
 
     from theseus_tpu_torch import config
     from theseus_tpu_torch.ops.between_se3 import between_linearize_fused, between_linearize_plain
-    from theseus_tpu_torch.sparse.cholesky import factorize_levels
+    from theseus_tpu_torch.sparse.cholesky import factorize_levels, forward_sweep
     from theseus_tpu_torch.sparse.level_kernels import level_fwd_subst, level_fwd_subst_plain
     from theseus_tpu_torch.sparse.whole import (
-        whole_bwd_subst, whole_factor, whole_factor_smem_bytes, whole_factor_variant, whole_fwd_subst)
+        get_tables, whole_bwd_subst, whole_factor, whole_factor_smem_bytes, whole_factor_variant,
+        whole_fwd_subst)
 
+    twin_ms = {}
     for dtype in (torch.float32, torch.float64):
         dn = str(dtype).split(".")[-1]
         for n, b in WHOLE_SHAPES:
@@ -512,9 +545,11 @@ def phase_whole_kernels(dev, max_abs):
             lflat = whole_factor(sched, ata)
             lflat_l = factorize_levels(sched, ata)
             with config.plain_path():
-                lflat_p = whole_factor(sched, ata)
-                y_p = whole_fwd_subst(sched, lflat_p, atb)
+                lflat_p, f_ms = once_ms(lambda: whole_factor(sched, ata))
+                y_p, y_ms = once_ms(lambda: whole_fwd_subst(sched, lflat_p, atb))
                 x_p = whole_bwd_subst(sched, lflat_p, y_p)
+            if dtype == torch.float32 and (n, b) == WHOLE_SHAPES[1]:
+                twin_ms[f"whole_factor {n}x{b}"], twin_ms[f"whole_fwd_subst {n}x{b}"] = f_ms, y_ms
             y = whole_fwd_subst(sched, lflat_p, atb)
             x = whole_bwd_subst(sched, lflat_p, y_p)
             torch.cuda.synchronize()
@@ -532,13 +567,28 @@ def phase_whole_kernels(dev, max_abs):
             print(f"[kernel] level_factor    {dn} {note}: factorize_levels vs whole_factor "
                   f"max |diff| = {diff!r} (must be exactly 0.0)")
             check(diff == 0.0, f"level_factor {dn} {note}: factor differs from whole_factor's by {diff!r}")
+            # the whole forward sweep sums each output's list over the level's
+            # gu lanes in the level kernel's order and tree: the level forward
+            # sweep's bits, on the same factor
+            plan = get_tables(sched).fwd_plan(d, isz)
+            perm, _, _ = sched.on(atb.device)
+            y_w = _repeatable("whole_fwd_subst", lambda: [whole_fwd_subst(sched, lflat_l, atb)],
+                              f"{dn} PGO {n}x{b}")[0]
+            y_l = forward_sweep(sched, lflat_l, atb[perm])
+            torch.cuda.synchronize()
+            diff = float((y_w - y_l).abs().max())
+            print(f"[kernel] whole_fwd_subst {dn} {note}: {plan.n_stages} stages over {len(plan.gu)} levels, "
+                  f"y in {'shared' if plan.y_smem else 'device'} memory, "
+                  f"{plan.smem} bytes; vs the level forward sweep max |diff| = {diff!r} (must be exactly 0.0)")
+            check(bool(torch.isfinite(y_w).all()) and diff == 0.0,
+                  f"whole_fwd_subst {dn} {note}: differs from the level forward sweep by {diff!r}")
         prob = synthetic_problem(*TRAIN, dtype, dev)
         v1, v2, meas = between_operands(prob)
         e = _dev_report("between_se3_aos", dn, between_linearize_fused(v1, v2, meas),
                         between_linearize_plain(v1, v2, meas), f"K={v1.shape[0]} B={v1.shape[1]}")
         max_abs.setdefault("between_se3_aos", {})[dn] = e
     torch.cuda.synchronize()
-    return max_abs
+    return max_abs, twin_ms
 
 
 # ---------------------------------------------------------------------------
@@ -874,6 +924,129 @@ def phase_aos_entry(dev):
 
 
 # ---------------------------------------------------------------------------
+# the dense tail: a grid PGO, denser than a chain
+# ---------------------------------------------------------------------------
+def grid_problem(rows, cols, batch, dtype, dev, training=False, seed=0):
+    """A rows x cols grid of poses (a robot's back-and-forth sweep), numbered
+    along the chain that snakes through it: the chain's edges (odometry),
+    then every vertical edge the chain does not take (loop closures), and a
+    Local prior on pose 0. Ground truth, measurements (noise 0.05) and
+    initialization (noise 0.2) from a numpy seed. training: the odometry
+    and loop-closure weights of `training_weights`. Returns (objective, pose
+    inputs, ground truth (N, B, 3, 4))."""
+    import numpy as np
+    import torch
+
+    from theseus_tpu_torch.lie import se3
+    from theseus_tpu_torch.utils.examples.pose_graph import build_pgo_objective, pose_values, training_weights
+
+    at = lambda i, j: i * cols + (j if i % 2 == 0 else cols - 1 - j)  # noqa: E731
+    n = rows * cols
+    vertical = [(min(at(i, j), at(i + 1, j)), max(at(i, j), at(i + 1, j)))
+                for i in range(rows - 1) for j in range(cols)]
+    edges = [(k, k + 1) for k in range(n - 1)] + [e for e in vertical if e[1] - e[0] > 1]
+    rng = np.random.default_rng(seed)
+    normal = lambda *shape: torch.as_tensor(rng.standard_normal(shape))  # noqa: E731
+    gt = se3.exp(0.5 * normal(n, batch, 6))
+    e = torch.as_tensor(edges)
+    meas = se3.compose(se3.compose(se3.inverse(gt[e[:, 0]]), gt[e[:, 1]]), se3.exp(0.05 * normal(len(edges), batch, 6)))
+    init = se3.compose(gt, se3.exp(0.2 * normal(n, batch, 6)))
+    kw = dict(zip(("edge_weight", "loop_weight"), training_weights())) if training else {}
+    obj, _ = build_pgo_objective(n, edges, meas, gt[0], dtype=dtype, device=dev, **kw)
+    cast = lambda t: t.to(dtype=dtype, device=dev)  # noqa: E731
+    return obj, pose_values(cast(init)), cast(gt)
+
+
+def phase_tail(dev):
+    """The grid PGO at GRID (16 x 16 poses at batch 128: a 51-column dense
+    tail after 14 head levels) through TheseusLayer.forward, float32, the
+    counters reset just before and read just after: the head through the
+    level kernels, the tail through one cholesky_ex a factorization. The
+    final error against the float64 plain-twin solve on the card, then one
+    implicit training step against the float64 twins' gradient."""
+    import torch
+
+    import theseus_tpu_torch as tt
+    from theseus_tpu_torch import _cuda, config
+    from theseus_tpu_torch.utils.examples.pose_graph import mean_sq_local
+
+    rows, cols, batch = GRID
+    prob = grid_prob(torch.float32, dev)
+    layer, inputs, sched = prob.layer, prob.inputs, prob.builder.sched
+    n_levels = len(sched.level_tables)
+    check(sched.tail_k > 0 and sched.n_head > 0, "the grid has no dense tail")
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    # count the tail's dense POTRFs: every call goes to cholesky_ex itself
+    with mock.patch("torch.linalg.cholesky_ex", wraps=torch.linalg.cholesky_ex) as potrf:
+        t0 = time.perf_counter()
+        out, info = layer.forward(inputs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(_cuda.launches)
+    print(f"[tail] grid {rows}x{cols} ({rows * cols} poses, head {sched.n_head} columns in {n_levels} levels, "
+          f"tail {sched.tail_k} columns: ({batch}, {sched.tail_k * 6}, {sched.tail_k * 6}) a POTRF) x batch "
+          f"{batch} float32 forward, {ITERS} LM iterations: {wall:.3f} s wall, mean final err "
+          f"{float(info.last_err.mean()):.8e}, launches {launches}, cholesky_ex {potrf.call_count}")
+    expect = {"between_se3": 2 * ITERS + 1, "assemble_blocks": ITERS, "level_factor": ITERS * n_levels,
+              "level_fwd_subst": ITERS * n_levels, "level_bwd_subst": ITERS * n_levels, "whole_factor": 0}
+    for k, v in expect.items():
+        check(launches[k] == v, f"tail: {k} {launches[k]} launches, expected {v}")
+    check(potrf.call_count == ITERS, f"tail: {potrf.call_count} cholesky_ex calls for {ITERS} factorizations")
+    check(bool(torch.isfinite(info.last_err).all()), "tail: non-finite final error")
+    check(all(tuple(t.shape) == (batch, 3, 4) and bool(torch.isfinite(t).all())
+              for k, t in out.items() if k.startswith("pose_")), "tail: bad output poses")
+    # the LM iteration never waits for the card: one iteration enqueued
+    # behind a one-second sleep kernel returns to the host long before it
+    opt, opts = prob.opt, prob.opt.opts
+    with torch.no_grad():
+        carry = opt.run_scan(opt.init_carry(prob.state, prob.aux, opts), prob.aux, 1, opts)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(SLEEP_CYCLES_PER_S))
+        t0 = time.perf_counter()
+        carry = opt.run_scan(carry, prob.aux, 1, opts)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    print(f"[tail] one LM iteration enqueued behind a 1 s sleep kernel: the host returned after {host_ms:.2f} ms "
+          f"(a host sync would wait for the sleep)")
+    check(host_ms < 500.0, "tail: the LM iteration waited for the card")
+
+    ref = grid_prob(torch.float64, dev)
+    _cuda.reset_launches()
+    with config.plain_path():
+        _, ref_info = ref.layer.forward(ref.inputs)
+    check(sum(_cuda.launches.values()) == 0, "the plain path launched a kernel")
+    rel = _rel(info.last_err, ref_info.last_err)
+    print(f"[tail] float32 kernels vs float64 plain twins on the card: max rel dev of per-batch final error "
+          f"{float(rel.max()):.3e} (tol {PLATEAU_RTOL_F32:.0e}); float64 mean final err "
+          f"{float(ref_info.last_err.mean()):.8e}")
+    check(float(rel.max()) <= PLATEAU_RTOL_F32, "tail: float32 plateau off the float64 plateau")
+
+    def grad(dtype, plain):
+        g_obj, g_inputs, gt = grid_problem(rows, cols, batch, dtype, dev, training=True)
+        g_layer = tt.TheseusLayer(tt.LevenbergMarquardt(g_obj, max_iterations=ITERS, adaptive_damping=True))
+        theta = torch.tensor(THETA0, dtype=dtype, device=dev, requires_grad=True)
+        with config.plain_path() if plain else contextlib.nullcontext():
+            before = dict(_cuda.launches)
+            o, _ = g_layer.forward(dict(g_inputs, w_loop=theta.reshape(1, 1)),
+                                   optimizer_kwargs={"backward_mode": "implicit"})
+            loss = mean_sq_local(o, gt)
+            loss.backward()
+            torch.cuda.synchronize()
+        used = {k: v - before[k] for k, v in _cuda.launches.items() if v != before[k]}
+        return float(loss.detach()), float(theta.grad), used
+
+    loss, g32, used = grad(torch.float32, False)
+    _, g64, _ = grad(torch.float64, True)
+    rel = abs(g32 - g64) / abs(g64)
+    print(f"[tail] implicit training step: loss {loss:.8e}, d loss/d theta float32 kernels {g32:.6e} vs float64 "
+          f"plain twins {g64:.6e}, rel {rel:.3e} (tol {GRAD_RTOL_F32:.0e}); launches {used}")
+    check(all(used.get(k, 0) > 0 for k in LEVEL_KERNELS), "tail training step missed the level kernels")
+    check(g32 != 0.0 and rel <= GRAD_RTOL_F32, "tail: training gradient off the float64 twin gradient")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timing
 # ---------------------------------------------------------------------------
 def lm_iter_ms(prob, n_small=5, extra=20, reps=3):
@@ -912,6 +1085,19 @@ def cuda_ms(fn, reps=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def once_ms(fn):
+    """(fn(), ms of that one call by CUDA events, from an idle card)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def device_ms(fn, reps=20, warmup=3):
@@ -1036,7 +1222,7 @@ def train_step_ms(dev, whole):
         config.set_whole_sweep(False)
 
 
-def phase_timing(dev, card):
+def phase_timing(dev, card, twin_ms):
     import torch
 
     from theseus_tpu_torch import config
@@ -1047,28 +1233,32 @@ def phase_timing(dev, card):
     from theseus_tpu_torch.sparse.level_kernels import (
         level_bwd_subst, level_bwd_subst_plain, level_factor, level_factor_plain,
         level_fwd_subst, level_fwd_subst_plain)
+    from theseus_tpu_torch.sparse.cholesky import factorize_levels
     from theseus_tpu_torch.sparse.whole import whole_bwd_subst, whole_factor, whole_fwd_subst
 
     iters = {}
+    grid_label = "pgo grid {}x{}x{}".format(*GRID)
     for label, make, plain in (("pgo 64x16", lambda: golden_problem(torch.float32, dev), True),
                                ("pgo 256x128", lambda: synthetic_problem(256, 128, torch.float32, dev), True),
                                ("pgo 2048x8", lambda: synthetic_problem(2048, 8, torch.float32, dev), False),
+                               (grid_label, lambda: grid_prob(torch.float32, dev), False),
                                ("ba 16x200x16", lambda: ba_problem(*BA_SMALL, torch.float32, dev), True),
                                ("ba 128x4000x1", lambda: ba_problem(*BA_MAIN, torch.float32, dev), True)):
         prob = make()
         row = {"kernels": lm_iter_ms(prob)}
-        if label.startswith("pgo"):
+        if label.startswith("pgo") and label != grid_label:  # a tailed graph runs the level plan only
             config.set_whole_sweep(True)
             try:
                 row["whole"] = lm_iter_ms(prob)
             finally:
                 config.set_whole_sweep(False)
-        if plain:
+        if plain:  # the twins' iteration is 3-5x slower and a yardstick only: one window
             with config.plain_path():
-                row["plain"] = lm_iter_ms(prob)
+                row["plain"] = lm_iter_ms(prob, reps=1)
         iters[label] = row
         print(f"[timing] {label} float32 LM iteration: " + ", ".join(f"{k} {v:.4f} ms" for k, v in row.items())
-              + f" (kernels: level plan; marginal over 20 iterations, min of 3) on {card}")
+              + f" (kernels: level plan{' and the dense tail' if label == grid_label else ''}; marginal over "
+              f"20 iterations, min of 3; plain: one window) on {card}")
 
     steps = {"level": [], "whole": []}
     for whole in (False, True, True, False):
@@ -1095,8 +1285,10 @@ def phase_timing(dev, card):
     ba_padded, ba_pattern = padded_blocks(ba), ba.builder.pattern
     deep = synthetic_problem(*WHOLE_SHAPES[1], torch.float32, dev)
     lv_deep = level_inputs(deep, *plain_system(deep)[1:])
-    deep_w, dw_ata, _ = whole_system(*WHOLE_SHAPES[1], torch.float32, dev)
+    deep_w, dw_ata, dw_atb = whole_system(*WHOLE_SHAPES[1], torch.float32, dev)
     deep_sched = deep_w.builder.sched
+    dw_l = factorize_levels(deep_sched, dw_ata)
+    dw_y = whole_fwd_subst(deep_sched, dw_l, dw_atb)
 
     def plain(fn):
         def run():
@@ -1126,6 +1318,8 @@ def phase_timing(dev, card):
                                 plain(lambda: whole_factor(deep_sched, dw_ata))),
         "whole_fwd_subst": (lambda: whole_fwd_subst(sched, w_l, w_atb),
                             plain(lambda: whole_fwd_subst(sched, w_l, w_atb))),
+        "whole_fwd_subst 2048x8": (lambda: whole_fwd_subst(deep_sched, dw_l, dw_atb),
+                                   plain(lambda: whole_fwd_subst(deep_sched, dw_l, dw_atb))),
         "whole_bwd_subst": (lambda: whole_bwd_subst(sched, w_l, w_y),
                             plain(lambda: whole_bwd_subst(sched, w_l, w_y))),
         "between_se3_aos": (lambda: between_linearize_fused(v1, v2, meas),
@@ -1134,9 +1328,8 @@ def phase_timing(dev, card):
     times, dev_times = {}, {}
     for name, (k, p) in pairs.items():
         # the whole-sweep twins run a Python loop over the columns: seconds a
-        # call at 2048 x 8, so that one is timed once
-        p_ms = (cuda_ms(p, reps=1, warmup=0) if name == "whole_factor 2048x8"
-                else cuda_ms(p, reps=3 if name.startswith("whole") else 20))
+        # call at 2048 x 8, timed once in the whole-kernels phase
+        p_ms = twin_ms[name] if name in twin_ms else cuda_ms(p, reps=3 if name.startswith("whole") else 20)
         times[name] = (cuda_ms(k), p_ms)
         dev_times[name] = device_ms(k)
         what = "one sweep over all levels" if name.startswith("level") else "one call"
@@ -1201,6 +1394,34 @@ def phase_timing(dev, card):
     print(f"[timing] floor (C, rl, ul, B) = (1, 1, 1, 1): level_factor {floor_us:.2f} us, level_fwd_subst "
           f"{floor_fwd_us:.2f} us per launch (device, queue prefilled) on {card}")
 
+    # the redesigned rows 1, 7 and 9 beside their first designs' device times
+    # (PERF.md, run 18 of the previous design, same card model and limit)
+    for name, first in FIRST_DESIGN_DEVICE_MS.items():
+        print(f"[timing] {name:<19} PGO 256x128 float32: {dev_times[name]:.4f} ms device now, first design "
+              f"{first:.4f} ms device (PERF.md); back to back now {times[name][0]:.4f} ms on {card}")
+
+    # the dense tail of the grid: its POTRF alone, the tail's elimination
+    # (assembly of C, POTRF, scatter) and the whole factorization
+    from theseus_tpu_torch.sparse import cholesky as chol
+
+    g_prob = grid_prob(torch.float32, dev)
+    g_sched = g_prob.builder.sched
+    _, g_ata, g_l, _, _, _ = plain_system(g_prob)
+    tail_t = g_sched.tail_on(dev)
+    K = g_sched.tail_k
+    g_dense = chol._tail_blocks_to_mat(g_l[tail_t["col_slots"]], tail_t["valid"], K, d)
+    g_dense = g_dense @ g_dense.transpose(-1, -2)
+    # back to back (CUDA events): each call's device time (0.5 ms and more)
+    # exceeds its host time, so the queue stays full
+    tail_ms = {
+        "cholesky_ex": cuda_ms(lambda: torch.linalg.cholesky_ex(g_dense)),
+        "tail eliminate": cuda_ms(lambda: chol._tail_dense_eliminate(g_sched, g_ata, g_l)),
+        "factorize (head levels + tail)": cuda_ms(lambda: chol.factorize(g_sched, g_ata)),
+    }
+    print(f"[timing] grid {GRID[0]}x{GRID[1]}x{GRID[2]} float32 dense tail ({tuple(g_dense.shape)} a POTRF, "
+          f"{len(g_sched.level_tables)} head levels): " + ", ".join(f"{k} {v:.4f} ms" for k, v in tail_ms.items())
+          + f" (CUDA events, back to back) on {card}")
+
     # library yardsticks on the densified H: one PyTorch call each, timed
     # here only; the port never calls them
     h = dense_h(pattern, w_ata)
@@ -1239,6 +1460,7 @@ def phase_timing(dev, card):
         "whole_factor 2048x8": _bound(_nbytes(dw_ata) + (deep_sched.sym.nnz_l + 1) * dw_ata[0].numel() * 4,
                                       factor_flops(deep_sched, WHOLE_SHAPES[1][1], d)),
         "whole_fwd_subst": _bound(_nbytes(w_l, w_atb, w_y), subst_flops(sched, bsz, d, True)),
+        "whole_fwd_subst 2048x8": _bound(_nbytes(dw_l, dw_atb, dw_y), subst_flops(deep_sched, WHOLE_SHAPES[1][1], d, True)),
         "whole_bwd_subst": _bound(_nbytes(w_l, w_y, w_y), subst_flops(sched, bsz, d, False)),
     }
     lib = {"level_factor": library["cholesky_ex"], "whole_factor": library["cholesky_ex"],
@@ -1280,6 +1502,7 @@ def phase_profile(dev, card, n_iters=5):
 
     for label, prob in (("pgo 256x128", synthetic_problem(256, 128, torch.float32, dev)),
                         ("pgo 256x128 whole", synthetic_problem(256, 128, torch.float32, dev)),
+                        ("pgo grid {}x{}x{}".format(*GRID), grid_prob(torch.float32, dev)),
                         ("ba {}x{}x{}".format(*BA_SMALL), ba_problem(*BA_SMALL, torch.float32, dev)),
                         ("ba {}x{}x{}".format(*BA_MAIN), ba_problem(*BA_MAIN, torch.float32, dev))):
         opt, opts, co, bld = prob.opt, prob.opt.opts, prob.co, prob.builder
@@ -1340,12 +1563,23 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    phase_build()
-    max_abs = phase_whole_kernels(dev, phase_ba_kernels(dev, phase_kernels(dev)))
-    launches = {"pgo": phase_slice(dev), "ba": phase_ba_slice(dev), "train": phase_train(dev),
-                "aos_entry": phase_aos_entry(dev)}
-    iters, times, dev_times, train_ms, bounds, library = phase_timing(dev, card)
-    phase_profile(dev, card)
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = round(time.perf_counter() - t, 2)
+        return out
+
+    timed("build", phase_build)
+    max_abs = timed("kernels", phase_kernels, dev)
+    max_abs = timed("ba_kernels", phase_ba_kernels, dev, max_abs)
+    max_abs, twin_ms = timed("whole_kernels", phase_whole_kernels, dev, max_abs)
+    launches = {"pgo": timed("slice", phase_slice, dev), "ba": timed("ba_slice", phase_ba_slice, dev),
+                "train": timed("train", phase_train, dev), "aos_entry": timed("aos_entry", phase_aos_entry, dev),
+                "tail": timed("tail", phase_tail, dev)}
+    iters, times, dev_times, train_ms, bounds, library = timed("timing", phase_timing, dev, card, twin_ms)
+    timed("profile", phase_profile, dev, card)
     check("jax" not in sys.modules and "theseus_tpu" not in sys.modules, "jax was imported")
 
     kernels = []
@@ -1364,13 +1598,13 @@ def main() -> int:
             entry["ms_ba"], entry["plain_ms_ba"] = times["assemble_blocks ba"]
             entry["device_ms_ba"] = dev_times["assemble_blocks ba"]
             entry["bound_ms_ba"], entry["bound_by_ba"] = bounds["assemble_blocks ba"]
-        if name in ("level_factor", "whole_factor"):  # the deep and narrow shape, beside 256 x 128's
+        if name in ("level_factor", "whole_factor", "whole_fwd_subst"):  # the deep and narrow shape, beside 256 x 128's
             entry["ms_2048x8"], entry["plain_ms_2048x8"] = times[f"{name} 2048x8"]
             entry["device_ms_2048x8"] = dev_times[f"{name} 2048x8"]
             entry["bound_ms_2048x8"], _ = bounds[f"{name} 2048x8"]
         kernels.append(entry)
     print(json.dumps({"lm_iter_ms": iters, "train_step_ms": train_ms}))
-    print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
+    print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; seconds a phase: {json.dumps(phase_s)}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

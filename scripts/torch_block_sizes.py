@@ -1,0 +1,225 @@
+"""Time theseus_tpu_torch's kernels whose block size was chosen by timing, at each candidate size.
+
+Three kernels (PERF.md kernel table rows 1, 6 and 7):
+
+- `between_se3` (`csrc/between_se3.cu`): the block size is a launch
+  argument, which `ops/between_se3.py` `between_geometry` picks (64, 128
+  or 256 threads); here each size is launched through the package
+  library's own entry point;
+- `whole_factor` (`csrc/whole_factor.cu`): the constant `WF_THREADS`
+  (1024), which also sets the launch bounds and so the registers a thread
+  may use (64 at 1024 threads, 128 at 512, 255 at 256);
+- `whole_fwd_subst` (`csrc/whole_subst.cu`): the constant `WFS_THREADS`
+  (512), likewise.
+
+For the last two, a copy of the source is compiled per block size into
+`theseus_tpu_torch/_build/block_sizes/<kernel>/<threads>/` and loaded as a
+library of its own. On the PGO problems (Between at 256 x 128 and 64 x 16;
+the LM-damped systems at 256 x 128 and 2048 x 8 for the other two), in
+float32 and float64, each block size:
+
+- must give the package kernel's outputs bit for bit (the arithmetic does
+  not depend on the block size);
+- is timed as device ms per call (`chip_smoke.device_ms`: CUDA events, the
+  queue held by a sleep kernel while the host enqueues the calls).
+
+ptxas's registers and spill stores of the d = 6 kernels are printed for
+the rebuilt copies. Needs an NVIDIA Hopper GPU and nvcc. Run from the
+repository root:
+
+    python3 scripts/torch_block_sizes.py
+
+It prints the card's name and power limit, then one line per build and per
+measurement, and exits non-zero if a block size changed an output.
+"""
+
+import ctypes
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+BETWEEN_THREADS = (64, 128, 256)
+BETWEEN_SHAPES = ((256, 128), (64, 16))
+WHOLE_SHAPES = ((256, 128), (2048, 8))
+# kernel -> (source, the constant's line, its name in ptxas's report, block sizes)
+REBUILT = {
+    "whole_factor": ("whole_factor.cu", "constexpr int WF_THREADS = {};", "whole_factor_kernel", 1024,
+                     (256, 512, 1024)),
+    "whole_fwd_subst": ("whole_subst.cu", "constexpr int WFS_THREADS = {};", "whole_fwd_kernel", 512,
+                        (256, 512, 1024)),
+}
+
+
+def build(kernel, threads):
+    """Start nvcc on a copy of the kernel's source with its block constant
+    set to threads: (the build directory, the nvcc process)."""
+    from theseus_tpu_torch import _cuda
+
+    source, line, _, default, _ = REBUILT[kernel]
+    src = (_cuda.CSRC / source).read_text()
+    if line.format(default) not in src:
+        raise RuntimeError(f"{source} no longer holds {line.format(default)!r}")
+    out = _cuda.build_root() / "block_sizes" / kernel / str(threads)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / source).write_text(src.replace(line.format(default), line.format(threads)))
+    cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-I", str(_cuda.CSRC), str(out / source),
+           "-o", str(out / "lib.so")]
+    return out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+
+
+def ptxas_d6(report, entry):
+    """{dtype: (registers, spill store bytes)} of the d = 6 instances of the
+    entry function, the worst of its variants."""
+    res, name, spill = {}, None, 0
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        k = re.search(rf"{entry}I([fd])Li6E", name or "")
+        if m and k:
+            key = "float32" if k.group(1) == "f" else "float64"
+            regs, sp = res.get(key, (0, 0))
+            res[key] = (max(regs, int(m.group(1))), max(sp, spill))
+    return res
+
+
+def between_sizes(dev, card):
+    """Each Between block size against the package's launch, bit for bit,
+    and its device time."""
+    import torch
+
+    import chip_smoke as cs
+    from theseus_tpu_torch import _cuda
+    from theseus_tpu_torch.config import get_eps
+    from theseus_tpu_torch.ops.between_se3 import BETWEEN_TILE, _min_blocks, between_geometry, between_linearize
+
+    same = []
+    for dtype in (torch.float32, torch.float64):
+        dn = str(dtype).split(".")[-1]
+        fn = getattr(_cuda.lib(), f"th_between_se3_{_cuda.suffix(dtype)}")
+        eps = [get_eps("so3", e, dtype) for e in ("near_zero", "near_pi", "d_near_zero")]
+        for n, b in BETWEEN_SHAPES:
+            v1, v2, meas = cs.between_operands(cs.synthetic_problem(n, b, dtype, dev))
+            ref = between_linearize(v1, v2, meas)
+            v1, v2, meas = v1.contiguous(), v2.contiguous(), meas.expand(v1.shape)
+            if meas.stride(-1) != 1 or meas.stride(-2) != 4:
+                meas = meas.contiguous()
+            k = v1.shape[0]
+            pick = between_geometry(k * b, v1.element_size(), _min_blocks(dev.index))[0]
+            for t in BETWEEN_THREADS:
+                outs = [torch.empty_like(r) for r in ref]
+
+                def call():
+                    rc = fn(v1.data_ptr(), v2.data_ptr(), meas.data_ptr(), meas.stride(0), meas.stride(1), k, b,
+                            *eps, t, BETWEEN_TILE * t * v1.element_size(), *(o.data_ptr() for o in outs),
+                            _cuda.stream_of(v1))
+                    if rc != 0:
+                        raise RuntimeError(f"between_se3 at {t} threads: CUDA error {rc}")
+
+                call()
+                torch.cuda.synchronize()
+                same.append(all(torch.equal(o, r) for o, r in zip(outs, ref)))
+                ms = cs.device_ms(call)
+                print(f"[time] between_se3 {dn} PGO {n}x{b} (K B = {k * b}) {t} threads: {ms:.4f} ms device, "
+                      f"bitwise equal to the package's launch: {same[-1]} (the geometry picks {pick}) on {card}")
+    return same
+
+
+def rebuilt_sizes(dev, card, libs):
+    """Each rebuilt block size of whole_factor and whole_fwd_subst against
+    the package kernel, bit for bit, and its device time."""
+    import torch
+
+    import chip_smoke as cs
+    from theseus_tpu_torch import _cuda
+    from theseus_tpu_torch.sparse.cholesky import factorize_levels
+    from theseus_tpu_torch.sparse.whole import (
+        WHOLE_FACTOR_SMEM_MAX, get_tables, whole_factor, whole_factor_smem_bytes, whole_fwd_subst)
+
+    same = []
+    for dtype in (torch.float32, torch.float64):
+        dn = str(dtype).split(".")[-1]
+        for n, b in WHOLE_SHAPES:
+            prob, ata, atb = cs.whole_system(n, b, dtype, dev)
+            ata, atb, sched = ata.contiguous(), atb.contiguous(), prob.builder.sched
+            tb, d = get_tables(sched), ata.shape[-1]
+            t_dev = tb.on(dev)
+            smem_f = whole_factor_smem_bytes(sched, d, ata.element_size())
+            smem_f = smem_f if smem_f <= WHOLE_FACTOR_SMEM_MAX else 0
+            lflat = factorize_levels(sched, ata)
+            plan = tb.fwd_plan(d, ata.element_size())
+            p_dev = plan.on(dev)
+            refs = {"whole_factor": whole_factor(sched, ata), "whole_fwd_subst": whole_fwd_subst(sched, lflat, atb)}
+            args = {
+                "whole_factor": lambda out: (ata.data_ptr(), t_dev["fact_rec"].data_ptr(), t_dev["fact_lvl"].data_ptr(),
+                                             tb.n_levels, sched.sym.nnz_l + 1, tb.stage_ints, smem_f, b, d,
+                                             out.data_ptr(), _cuda.stream_of(ata)),
+                "whole_fwd_subst": lambda out: (lflat.data_ptr(), atb.data_ptr(), p_dev["rec"].data_ptr(),
+                                                p_dev["table"].data_ptr(), plan.n_stages, plan.stage_ints,
+                                                plan.buf_vals, tb.n, b, d, int(plan.y_smem), plan.smem,
+                                                out.data_ptr(), _cuda.stream_of(lflat)),
+            }
+            for kernel, (_, _, _, default, sizes) in REBUILT.items():
+                for t in sizes:
+                    fn = getattr(libs[kernel, t], f"th_{kernel}_{_cuda.suffix(dtype)}")
+                    fn.argtypes = _cuda._SIGNATURES[f"th_{kernel}"]
+                    out = torch.empty_like(refs[kernel])
+
+                    def call():
+                        rc = fn(*args[kernel](out))
+                        if rc != 0:
+                            raise RuntimeError(f"{kernel} at {t} threads: CUDA error {rc}")
+
+                    call()
+                    torch.cuda.synchronize()
+                    same.append(torch.equal(out, refs[kernel]))
+                    ms = cs.device_ms(call)
+                    print(f"[time] {kernel} {dn} PGO {n}x{b} {t} threads: {ms:.4f} ms device, bitwise equal to "
+                          f"the package kernel's ({default} threads): {same[-1]} on {card}")
+    return same
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from theseus_tpu_torch import _cuda
+
+    card = cs.card_line()
+    print(card)
+    t0 = time.perf_counter()
+    _cuda.lib()
+    builds = {(k, t): build(k, t) for k, spec in REBUILT.items() for t in spec[4]}
+    libs = {}
+    for (k, t), (out, proc) in builds.items():
+        report, _ = proc.communicate()
+        report = report.decode(errors="replace")
+        (out / "build.log").write_text(report)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {k} at {t} threads:\n{report}")
+        libs[k, t] = ctypes.CDLL(str(out / "lib.so"))
+        for key, (r, sp) in sorted(ptxas_d6(report, REBUILT[k][2]).items()):
+            print(f"[build] {k} {t} threads {key}: {r} registers, {sp} bytes spill stores (d = 6, worst variant)")
+    print(f"[build] {time.perf_counter() - t0:.2f} s")
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    same = between_sizes(dev, card) + rebuilt_sizes(dev, card, libs)
+    return 0 if all(same) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -576,3 +576,147 @@ def test_whole_sweep_run_scan_never_syncs_with_the_host(cuda_device):
     finally:
         config.set_whole_sweep(False)
     assert torch.isfinite(carry["err"]).all()
+
+
+# ---------------------------------------------------------------------------
+# the redesigned Between kernel and whole forward sweep, and the dense tail
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("threads", [64, 128, 256])
+def test_between_kernel_blocks_ragged_and_repeatable(cuda_device, dtype, threads):
+    """Every block size the geometry picks, each at a K B just above the
+    card's block floor times that size (so the geometry picks it) and a
+    multiple of no block size: against the twin and bitwise repeatable;
+    once with a measurement shared by all edges (stride 0)."""
+    from theseus_tpu_torch.ops import between_se3 as bmod
+
+    min_blocks = bmod._min_blocks(torch.cuda.current_device())
+    K, B = min_blocks * threads // 127 + 1, 127
+    assert bmod.between_geometry(K * B, torch.empty((), dtype=dtype).element_size(), min_blocks)[0] == threads
+    assert (K * B) % threads
+    rng = np.random.default_rng(threads)
+    v1 = _poses(rng, (K, B), 1.0, dtype, cuda_device)
+    v2 = _poses(rng, (K, B), 1.0, dtype, cuda_device)
+    for meas in (se3.compose(se3.compose(se3.inverse(v1), v2), _poses(rng, (K, B), 0.3, dtype, cuda_device)),
+                 _poses(rng, (B,), 1.0, dtype, cuda_device)):
+        _cuda.reset_launches()
+        got = between_linearize(v1, v2, meas)
+        again = between_linearize(v1, v2, meas)
+        assert _cuda.launches["between_se3"] == 2
+        want = between_linearize_plain(v1, v2, meas.expand(v1.shape))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        # up to 67,691 random edges: some sit where jlog's coefficients cancel
+        # (chip_smoke.py KERNEL_TOL: 2e-3 in float32, 1e-10 in float64)
+        for g, w_ in zip(got, want):
+            _close(g, w_, dtype, scale=50.0 if dtype == torch.float32 else 10.0)
+
+
+def _whole_fwd_pair(bld, ata, atb):
+    """(whole_fwd_subst, the level forward sweep) on the level kernels' factor."""
+    from theseus_tpu_torch.sparse.cholesky import factorize_levels, forward_sweep
+    from theseus_tpu_torch.sparse.whole import whole_fwd_subst
+
+    lflat = factorize_levels(bld.sched, ata)
+    perm, _, _ = bld.sched.on(atb.device)
+    _cuda.reset_launches()
+    y_w = whole_fwd_subst(bld.sched, lflat, atb)
+    y_w2 = whole_fwd_subst(bld.sched, lflat, atb)
+    y_l = forward_sweep(bld.sched, lflat, atb[perm])
+    torch.cuda.synchronize()
+    assert _cuda.launches["whole_fwd_subst"] == 2
+    assert torch.equal(y_w, y_w2)
+    return y_w, y_l
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_poses,batch,clique", [(64, 16, 0), (256, 128, 0), (2048, 8, 0), (48, 4, 9)])
+def test_whole_fwd_subst_bit_equal_to_level_sweep(cuda_device, dtype, n_poses, batch, clique):
+    """Both sum each output's update list over the level's gu lanes in one
+    order and add the lanes in one tree, then run the same solve: the same
+    bits, at the PGO shapes (2048 x 8 cut into stages) and on the 9-pose
+    clique."""
+    bld, ata, atb = _whole_system(n_poses, batch, dtype, cuda_device, clique=clique)
+    y_w, y_l = _whole_fwd_pair(bld, ata, atb)
+    assert bool(torch.isfinite(y_w).all())
+    assert float((y_w - y_l).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_whole_fwd_subst_pieces(cuda_device, dtype, monkeypatch):
+    """A 40-pose clique (dense tail off) has update lists of up to 39: with
+    a budget of 14 KiB (float32) or 26 KiB (float64) they are staged in
+    pieces of 32, with the full budget in whole columns. Each bit-equal to
+    the level sweep."""
+    from theseus_tpu_torch.sparse import whole
+
+    config.set_sparse_dense_tail(False)
+    try:
+        bld, ata, atb = _whole_system(64, 5, dtype, cuda_device, clique=40)
+    finally:
+        config.set_sparse_dense_tail(True)
+    small = (14 if dtype == torch.float32 else 26) * 1024
+    for budget in (small, whole.WHOLE_FWD_SMEM_MAX):
+        monkeypatch.setattr(whole, "WHOLE_FWD_SMEM_MAX", budget)
+        bld.sched._whole_tables = None
+        plan = whole.get_tables(bld.sched).fwd_plan(6, ata.element_size())
+        cut = any(not first or not last for _, first, last, _ in plan.stages)
+        assert cut == (budget < 32 * 1024)
+        y_w, y_l = _whole_fwd_pair(bld, ata, atb)
+        assert float((y_w - y_l).abs().max()) == 0.0
+
+
+def _grid_layer(device, dtype, rows=6, cols=6, batch=3, iters=15, seed=8):
+    """A rows x cols grid PGO (snake-numbered chain plus the vertical edges):
+    the symbolic analysis gives it a dense tail."""
+    import theseus_tpu_torch as tt
+
+    at = lambda i, j: i * cols + (j if i % 2 == 0 else cols - 1 - j)  # noqa: E731
+    n = rows * cols
+    vertical = [(min(at(i, j), at(i + 1, j)), max(at(i, j), at(i + 1, j)))
+                for i in range(rows - 1) for j in range(cols)]
+    edges = [(k, k + 1) for k in range(n - 1)] + [e for e in vertical if e[1] - e[0] > 1]
+    rng = np.random.default_rng(seed)
+    gt = se3.exp(torch.as_tensor(0.5 * rng.standard_normal((n, batch, 6))))
+    e = torch.as_tensor(edges)
+    meas = se3.compose(se3.compose(se3.inverse(gt[e[:, 0]]), gt[e[:, 1]]),
+                       se3.exp(torch.as_tensor(0.05 * rng.standard_normal((len(edges), batch, 6)))))
+    init = se3.compose(gt, se3.exp(torch.as_tensor(0.2 * rng.standard_normal((n, batch, 6)))))
+    obj, _ = build_pgo_objective(n, edges, meas.to(dtype), gt[0].to(dtype), dtype=dtype, device=device)
+    opt = tt.LevenbergMarquardt(obj, max_iterations=iters, adaptive_damping=True)
+    assert opt.normal_builder.sched.tail_k > 0 and opt.normal_builder.sched.n_head > 0
+    return opt, obj, pose_values(init.to(dtype).to(device))
+
+
+def test_tail_lm_solve_on_card_matches_cpu_twins(cuda_device):
+    """The 6 x 6 grid: the head through the level kernels, the tail through
+    cholesky_ex, float64, against the CPU twins."""
+    import theseus_tpu_torch as tt
+
+    results = {}
+    for dev in ("cpu", cuda_device):
+        opt, _, vals = _grid_layer(dev, torch.float64)
+        _cuda.reset_launches()
+        _, info = tt.TheseusLayer(opt).forward(vals)
+        results[str(dev)] = info.last_err.cpu()
+        if dev != "cpu":
+            n_levels = len(opt.normal_builder.sched.level_tables)
+            assert _cuda.launches["level_factor"] == 15 * n_levels
+            assert _cuda.launches["whole_factor"] == 0
+    torch.testing.assert_close(results["cuda"], results["cpu"], rtol=1e-9, atol=1e-12)
+
+
+def test_tail_run_scan_never_syncs_with_the_host(cuda_device):
+    opt, obj, vals = _grid_layer(cuda_device, torch.float32, iters=3)
+    co = obj.compile()
+    values = obj.default_values(vals)
+    state, aux = co.pack(values, 3), co.build_aux(values, 3)
+    with torch.no_grad():
+        carry = opt.run_scan(opt.init_carry(state, aux, opt.opts), aux, 1, opt.opts)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            carry = opt.run_scan(carry, aux, 3, opt.opts)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(carry["err"]).all()

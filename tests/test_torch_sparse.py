@@ -35,7 +35,6 @@ from theseus_tpu_torch.optim.normal import SparseNormalBuilder
 from theseus_tpu_torch.sparse import assemble as pasm
 from theseus_tpu_torch.sparse import cholesky as pchol
 from theseus_tpu_torch.sparse import refine as pref
-from theseus_tpu_torch.sparse.structure import symbolic_factor
 from theseus_tpu_torch.utils.convert import problem_from_arrays
 
 _CACHE = {}
@@ -112,18 +111,6 @@ def test_symbolic_tables_equal(n, ordering):
         assert set(jt) == set(pt)
         for k in jt:
             np.testing.assert_array_equal(jt[k], pt[k], err_msg=k)
-
-
-def test_dense_tail_and_levelless_schedules_raise():
-    # a 20-clique: the dense-tail rule amalgamates all of it
-    pairs = {(i, j) for i in range(20) for j in range(i + 1, 20)}
-    sym = symbolic_factor(20, pairs, 6, "amd")
-    assert sym.tail_start < sym.n
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pchol.NumericSchedule(sym, None)
-    sym.tail_start, sym.levels = sym.n, []
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pchol.NumericSchedule(sym, None)
 
 
 # ---------------------------------------------------------------------------

@@ -133,8 +133,10 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _D = ctypes.c_double
 _SIGNATURES = {
-    # v1, v2, meas, meas_k_stride, meas_b_stride, K, B, eps x3, j1, j2, err, stream
-    "th_between_se3": [_P, _P, _P, _L, _L, _I, _I, _D, _D, _D, _P, _P, _P, _P],
+    # v1, v2, meas, meas_k_stride, meas_b_stride, K, B, eps x3, threads,
+    # shared-memory bytes (ops/between_se3.py between_geometry), j1, j2,
+    # err, stream
+    "th_between_se3": [_P, _P, _P, _L, _L, _I, _I, _D, _D, _D, _I, _L, _P, _P, _P, _P],
     # jac ptrs, err ptrs, m (host arrays), n_src, ata rowptr, ata items,
     # atb rowptr, atb items, split rows, n_split, n_large, tile, threads,
     # short ata slots, n, short atb rows, n, B, d, vec (jacobians 16-byte
@@ -157,9 +159,11 @@ _SIGNATURES = {
     # record's ints, shared-memory bytes (0: the factor in device memory), B,
     # d, lflat, stream
     "th_whole_factor": [_P, _P, _P, _I, _I, _I, _L, _I, _I, _P, _P],
-    # lflat, b, perm, upd_jk, upd_k, ucount, diag_slot, order, lvl_ptr,
-    # n_levels, n, umax, B, d, y, stream
-    "th_whole_fwd_subst": [_P] * 9 + [_I] * 5 + [_P, _P],
+    # lflat, b, stage records, stage table (n_stages, 4), n_stages, the
+    # largest record's ints, values a stage buffer holds, n, B, d, y in
+    # shared memory (0 / 1), shared-memory bytes, y, stream (sparse/whole.py
+    # FwdPlan)
+    "th_whole_fwd_subst": [_P] * 4 + [_I] * 7 + [_L, _P, _P],
     # lflat, y, perm, col_start, col_len, row_ids, order, lvl_ptr, n_levels,
     # n, rmax, B, d, x, stream
     "th_whole_bwd_subst": [_P] * 8 + [_I] * 5 + [_P, _P],

@@ -115,10 +115,11 @@ def set_atb_high_precision(enabled: bool) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Dense-tail amalgamation thresholds. They feed the symbolic analysis
-# (sparse/structure.py) so that its tables equal the JAX package's; the
-# numeric dense tail itself is not ported yet (see ROADMAP.md), and a
-# schedule that has one raises.
+# Dense-tail amalgamation thresholds, as in the JAX package. The symbolic
+# analysis (sparse/structure.py) folds the trailing columns into one dense
+# supernode while they stay this dense; the numeric layer
+# (sparse/cholesky.py) factors that supernode with one batched dense POTRF
+# after the head's level plan.
 # ---------------------------------------------------------------------------
 SPARSE_DENSE_TAIL = True
 SPARSE_TAIL_DENSITY = 0.6

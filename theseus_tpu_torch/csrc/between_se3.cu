@@ -13,21 +13,43 @@
 // atan2 is the native one; the Pallas kernel's polynomial atan2 (about 1e-7)
 // existed only because Mosaic had no atan.
 //
-// Design: one thread per (k, b); the 3x4 poses and the 6x6 blocks live in
-// registers. Layout is the port's AoS (K, B, 3, 4) -> (K, B, 6, 6): the TPU
-// kernel's SoA transpose put the batch on the 128 lanes, a TPU tiling choice;
-// here consecutive threads already read consecutive 48-byte poses. The
+// Layout is the port's AoS (K, B, 3, 4) -> (K, B, 6, 6): the TPU kernel's SoA
+// transpose put the batch on the 128 lanes, a TPU tiling choice. The
 // measurement is read through explicit (k, b) strides so a shared
-// measurement is broadcast with stride 0, as measurements.py:74-75 does.
+// measurement is broadcast with stride 0, as measurements.py:74-75 does; it
+// goes through the read-only path.
 //
 // What bounds it on the H100: memory. A thread reads 36 values and writes
-// 78 for about 600 flops, far below the card's flop-per-byte balance, so the
-// kernel is bandwidth- and launch-bound; at the PGO shapes (K*B = 32896 at
-// 256 x 128) it is one short launch.
+// 78 for about 600 flops, far below the card's flop-per-byte balance: at
+// PGO 256 x 128 (K B = 32,896) 15.2 MB in float32, 4.5 us at 3.35 TB/s.
+//
+// What held the first design back (one thread per (k, b), the poses loaded
+// and the 78 outputs stored by each thread at its own 48- and 144-byte
+// stride): every warp-wide store touched 32 sectors for 128 useful bytes,
+// and at 8 warps an SM the kernel waited on L1/L2 wavefronts and store
+// latency, 10x its bound.
+//
+// Design. A block of `threads` (ops/between_se3.py between_geometry) owns a
+// contiguous range of idx = k B + b, so its v1 and v2 tiles are contiguous:
+// they are copied into shared memory by 16-byte cp.async. Each thread
+// computes its (k, b) with the first design's statements in their order
+// (the same bits), writes its outputs into a shared tile whose rows are
+// padded to an odd number of values (37 for a 6 x 6 block, 7 for err, so
+// neighbouring lanes hit other banks), and after one barrier the block
+// stores the J1, J2 and err tiles, each contiguous in device memory, with
+// coalesced 16-byte stores. The input tiles and the output tiles share the
+// buffer: BT_TILE values a thread.
+
+#include <cuda_pipeline.h>
 
 #include "common.cuh"
 
 namespace {
+
+constexpr int BT_THREADS_MAX = 256;
+constexpr int BT_JS = 37;  // a 6 x 6 block's row in the output tile
+constexpr int BT_ES = 7;   // err's row
+constexpr int BT_TILE = 2 * BT_JS + BT_ES;  // values a thread: J1, J2, err (>= the 24 of v1, v2)
 
 template <typename T>
 struct Pose {
@@ -42,6 +64,17 @@ __device__ __forceinline__ void load_pose(const T* __restrict__ p, Pose<T>& g) {
 #pragma unroll
     for (int j = 0; j < 3; ++j) g.r[i][j] = p[4 * i + j];
     g.t[i] = p[4 * i + 3];
+  }
+}
+
+// the measurement, through the read-only data path
+template <typename T>
+__device__ __forceinline__ void load_pose_ro(const T* __restrict__ p, Pose<T>& g) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) g.r[i][j] = __ldg(p + 4 * i + j);
+    g.t[i] = __ldg(p + 4 * i + 3);
   }
 }
 
@@ -71,22 +104,12 @@ __device__ __forceinline__ Pose<T> compose(const Pose<T>& a, const Pose<T>& b) {
   return out;
 }
 
+// One (k, b): the first design's statements, in their order. j1, j2 and er
+// point at the thread's rows of the output tile (row-major 6 x 6 and 6).
 template <typename T>
-__global__ void between_se3_kernel(const T* __restrict__ v1, const T* __restrict__ v2,
-                                   const T* __restrict__ meas, long long meas_k_stride,
-                                   long long meas_b_stride, int K, int B, T eps_near_zero,
-                                   T eps_near_pi, T eps_d_near_zero, T* __restrict__ j1_out,
-                                   T* __restrict__ j2_out, T* __restrict__ err_out) {
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<long long>(K) * B) return;
-  const long long k = idx / B;
-  const long long b = idx % B;
-
-  Pose<T> g1, g2, gm;
-  load_pose(v1 + idx * 12, g1);
-  load_pose(v2 + idx * 12, g2);
-  load_pose(meas + k * meas_k_stride + b * meas_b_stride, gm);
-
+__device__ __forceinline__ void linearize(const Pose<T>& g1, const Pose<T>& g2, const Pose<T>& gm,
+                                          T eps_near_zero, T eps_near_pi, T eps_d_near_zero, T* j1,
+                                          T* j2, T* er) {
   const Pose<T> d = compose(inverse(g1), g2);  // v1^{-1} v2
   const Pose<T> c = compose(inverse(gm), d);   // m^{-1} d
 
@@ -170,9 +193,6 @@ __global__ void between_se3_kernel(const T* __restrict__ v1, const T* __restrict
     for (int j = 0; j < 3; ++j)
       htr[i][j] = ht[i][0] * di.r[0][j] + ht[i][1] * di.r[1][j] + ht[i][2] * di.r[2][j];
 
-  T* j1 = j1_out + idx * 36;
-  T* j2 = j2_out + idx * 36;
-  T* er = err_out + idx * 6;
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     er[i] = lin[i];
@@ -196,15 +216,110 @@ __global__ void between_se3_kernel(const T* __restrict__ v1, const T* __restrict
   }
 }
 
+// a tile of `rows` rows of W values, row stride S in shared memory, stored
+// to device memory where it is contiguous: 16 bytes a store when vec
+template <typename T, int W, int S>
+__device__ __forceinline__ void store_tile(const T* sh, T* out, int rows, bool vec) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  const int count = rows * W;
+  int done = 0;
+  if (vec) {
+    const int nv = count / V;
+    for (int v = threadIdx.x; v < nv; v += blockDim.x) {
+      union {
+        uint4 u;
+        T x[V];
+      } w;
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int g = v * V + e;
+        w.x[e] = sh[(g / W) * S + g % W];
+      }
+      reinterpret_cast<uint4*>(out)[v] = w.u;
+    }
+    done = nv * V;
+  }
+  for (int g = done + threadIdx.x; g < count; g += blockDim.x) out[g] = sh[(g / W) * S + g % W];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BT_THREADS_MAX)
+    between_se3_kernel(const T* __restrict__ v1, const T* __restrict__ v2, const T* __restrict__ meas,
+                       long long meas_k_stride, long long meas_b_stride, int K, int B, T eps_near_zero,
+                       T eps_near_pi, T eps_d_near_zero, bool vec, T* __restrict__ j1_out,
+                       T* __restrict__ j2_out, T* __restrict__ err_out) {
+  extern __shared__ __align__(16) unsigned char bt_smem[];
+  T* sh = reinterpret_cast<T*>(bt_smem);
+  const int nt = blockDim.x;
+  const long long base = static_cast<long long>(blockIdx.x) * nt;
+  const long long left = static_cast<long long>(K) * B - base;
+  const int cnt = left < nt ? static_cast<int>(left) : nt;
+
+  // the block's v1 and v2 tiles (cnt poses of 12 values each)
+  T* s1 = sh;
+  T* s2 = sh + nt * 12;
+  if (vec) {
+    constexpr int V = 16 / static_cast<int>(sizeof(T));
+    for (int p = threadIdx.x; p < cnt * 12 / V; p += nt) {
+      __pipeline_memcpy_async(s1 + p * V, v1 + base * 12 + p * V, 16);
+      __pipeline_memcpy_async(s2 + p * V, v2 + base * 12 + p * V, 16);
+    }
+  } else {
+    for (int p = threadIdx.x; p < cnt * 12; p += nt) {
+      __pipeline_memcpy_async(s1 + p, v1 + base * 12 + p, sizeof(T));
+      __pipeline_memcpy_async(s2 + p, v2 + base * 12 + p, sizeof(T));
+    }
+  }
+  __pipeline_commit();
+  const int t = threadIdx.x;
+  const bool mine = t < cnt;
+  const long long idx = base + t;
+  Pose<T> g1, g2, gm;
+  if (mine) {
+    const long long k = idx / B;
+    const long long b = idx % B;
+    load_pose_ro(meas + k * meas_k_stride + b * meas_b_stride, gm);
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  if (mine) {
+    load_pose(s1 + t * 12, g1);
+    load_pose(s2 + t * 12, g2);
+  }
+  __syncthreads();  // the input tiles are read before the outputs overwrite them
+  if (mine)
+    linearize(g1, g2, gm, eps_near_zero, eps_near_pi, eps_d_near_zero, sh + t * BT_JS,
+              sh + (nt + t) * BT_JS, sh + 2 * nt * BT_JS + t * BT_ES);
+  __syncthreads();
+  store_tile<T, 36, BT_JS>(sh, j1_out + base * 36, cnt, vec);
+  store_tile<T, 36, BT_JS>(sh + nt * BT_JS, j2_out + base * 36, cnt, vec);
+  store_tile<T, 6, BT_ES>(sh + 2 * nt * BT_JS, err_out + base * 6, cnt, vec);
+}
+
+// threads and smem from ops/between_se3.py between_geometry; the launcher
+// rejects a block size it was not built for and fewer bytes than its tile.
 template <typename T>
 int launch(const void* v1, const void* v2, const void* meas, long long mks, long long mbs, int K,
-           int B, double eps_nz, double eps_np, double eps_dnz, void* j1, void* j2, void* err,
-           void* stream) {
+           int B, double eps_nz, double eps_np, double eps_dnz, int threads, long long smem, void* j1,
+           void* j2, void* err, void* stream) {
   const long long n = static_cast<long long>(K) * B;
   if (n <= 0) return 0;
-  between_se3_kernel<T><<<th_blocks(n), TH_BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (threads < 32 || threads % 32 || threads > BT_THREADS_MAX ||
+      smem < static_cast<long long>(BT_TILE) * threads * static_cast<long long>(sizeof(T)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (n + threads - 1) / threads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const bool vec = ((reinterpret_cast<size_t>(v1) | reinterpret_cast<size_t>(v2) |
+                     reinterpret_cast<size_t>(j1) | reinterpret_cast<size_t>(j2) |
+                     reinterpret_cast<size_t>(err)) % 16) == 0;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(between_se3_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  between_se3_kernel<T><<<static_cast<unsigned>(blocks), threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(v1), static_cast<const T*>(v2), static_cast<const T*>(meas), mks, mbs,
-      K, B, static_cast<T>(eps_nz), static_cast<T>(eps_np), static_cast<T>(eps_dnz),
+      K, B, static_cast<T>(eps_nz), static_cast<T>(eps_np), static_cast<T>(eps_dnz), vec,
       static_cast<T*>(j1), static_cast<T*>(j2), static_cast<T*>(err));
   return static_cast<int>(cudaGetLastError());
 }
@@ -213,14 +328,18 @@ int launch(const void* v1, const void* v2, const void* meas, long long mks, long
 
 TH_EXPORT int th_between_se3_f32(const void* v1, const void* v2, const void* meas, long long mks,
                                  long long mbs, int K, int B, double eps_nz, double eps_np,
-                                 double eps_dnz, void* j1, void* j2, void* err, void* stream) {
-  return launch<float>(v1, v2, meas, mks, mbs, K, B, eps_nz, eps_np, eps_dnz, j1, j2, err, stream);
+                                 double eps_dnz, int threads, long long smem, void* j1, void* j2,
+                                 void* err, void* stream) {
+  return launch<float>(v1, v2, meas, mks, mbs, K, B, eps_nz, eps_np, eps_dnz, threads, smem, j1, j2,
+                       err, stream);
 }
 
 TH_EXPORT int th_between_se3_f64(const void* v1, const void* v2, const void* meas, long long mks,
                                  long long mbs, int K, int B, double eps_nz, double eps_np,
-                                 double eps_dnz, void* j1, void* j2, void* err, void* stream) {
-  return launch<double>(v1, v2, meas, mks, mbs, K, B, eps_nz, eps_np, eps_dnz, j1, j2, err, stream);
+                                 double eps_dnz, int threads, long long smem, void* j1, void* j2,
+                                 void* err, void* stream) {
+  return launch<double>(v1, v2, meas, mks, mbs, K, B, eps_nz, eps_np, eps_dnz, threads, smem, j1, j2,
+                        err, stream);
 }
 
 TH_EXPORT const char* th_error_string(int code) {

@@ -11,15 +11,49 @@ autograd Function whose backward differentiates that twin.
 `between_linearize_fused` is the AoS entry point of the JAX package's
 `ops/pallas_between.py`, which computes the same function on the same
 (K, B, 3, 4) layout: it launches the same kernel.
+
+The kernel's launch (block size, shared memory) is worked out here, in
+`between_geometry`, where the CPU tests reach it.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from .. import _cuda
 from ..config import get_eps, needs_grad, use_kernel
 from ..lie import se3
+
+# between_geometry: block sizes the kernel takes (BT_THREADS_MAX in
+# csrc/between_se3.cu) and the shared-memory values a thread's outputs
+# occupy there (BT_TILE: J1 and J2 rows padded from 36 to 37 values, err
+# from 6 to 7)
+BETWEEN_THREADS_MIN = 64
+BETWEEN_THREADS_MAX = 256
+BETWEEN_TILE = 2 * 37 + 7
+BETWEEN_BLOCKS_PER_SM = 2  # the block shrinks until the launch has this many blocks per SM
+
+
+@functools.lru_cache(maxsize=1024)
+def between_geometry(n: int, itemsize: int, min_blocks: int):
+    """(threads, blocks, shared-memory bytes) of one `between_se3` launch
+    over n = K B items: a block per contiguous range of `threads` items.
+    threads starts at BETWEEN_THREADS_MAX and halves, down to
+    BETWEEN_THREADS_MIN, while the launch would have fewer than min_blocks
+    blocks (BETWEEN_BLOCKS_PER_SM times the card's SMs). Cached: the LM loop
+    asks again for the same shapes every iteration."""
+    threads = BETWEEN_THREADS_MAX
+    while threads > BETWEEN_THREADS_MIN and -(-n // threads) < min_blocks:
+        threads //= 2
+    return threads, -(-n // threads), BETWEEN_TILE * threads * itemsize
+
+
+@functools.lru_cache(maxsize=None)
+def _min_blocks(device_index: int) -> int:
+    """BETWEEN_BLOCKS_PER_SM times the SMs of the card, read once a card."""
+    return BETWEEN_BLOCKS_PER_SM * torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def between_linearize_plain(v1, v2, meas):
@@ -94,6 +128,7 @@ def _launch(v1, v2, meas, counter):
     if meas.stride(-1) != 1 or meas.stride(-2) != 4:
         meas = meas.contiguous()
     k, b = v1.shape[0], v1.shape[1]
+    threads, _, smem = between_geometry(k * b, v1.element_size(), _min_blocks(v1.device.index))
     j1 = torch.empty((k, b, 6, 6), dtype=v1.dtype, device=v1.device)
     j2 = torch.empty_like(j1)
     err = torch.empty((k, b, 6), dtype=v1.dtype, device=v1.device)
@@ -103,7 +138,7 @@ def _launch(v1, v2, meas, counter):
             v1.data_ptr(), v2.data_ptr(), meas.data_ptr(), meas.stride(0), meas.stride(1),
             k, b,
             get_eps("so3", "near_zero", dt), get_eps("so3", "near_pi", dt),
-            get_eps("so3", "d_near_zero", dt),
+            get_eps("so3", "d_near_zero", dt), threads, smem,
             j1.data_ptr(), j2.data_ptr(), err.data_ptr(), _cuda.stream_of(v1),
         )
     _cuda.check(rc, counter)

@@ -15,13 +15,20 @@ slot 0 zero:
   `_solve_scan`, `_bwd_scan`), built on the per-column tables
   `NumericSchedule.a_src ... upd_valid`.
 
+Both plans cover the head columns. When the symbolic analysis amalgamates a
+dense trailing supernode (`config.SPARSE_DENSE_TAIL`, any graph denser than
+a chain), its K columns are factored after the head by one batched dense
+POTRF (`torch.linalg.cholesky_ex`) and solved by two dense triangular
+solves, as the JAX package's `_tail_*` functions do; the head's level
+kernels write the head's L blocks whose rows lie in the tail, and the
+backward sweep solves the tail before the head levels read its x. A clique
+of 16 or more poses is the tail alone. The whole-sweep plan takes only
+schedules without a tail (the JAX gate's rule); a tailed schedule runs the
+level plan.
+
 `sparse_block_solve` is differentiable (the JAX package's custom VJP): the
 backward reuses the forward's factor for one more solve and launches no
 factorization.
-
-Not ported yet (ROADMAP.md, queue 1): the dense trailing supernode and the
-per-column scan plan as the route for schedules without etree levels; a
-schedule that would need either raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -48,30 +55,98 @@ class NumericSchedule:
         self.sym = sym
         self.pattern = pattern
         n = sym.n
+        # columns n_head..n-1: the dense trailing supernode (tail_k of them);
+        # the level tables cover the head only (sym.levels excludes the tail)
         self.n_head = sym.tail_start if sym.tail_start >= 0 else n
         self.tail_k = n - self.n_head
         # The JAX package caps the level plan (<= 100 levels, <= max(8, n/4))
         # to bound XLA program size and falls back to a per-column scan past
         # the caps. Eager launches have no program size, so here the level
-        # plan runs whenever levels exist; it eliminates the same columns in
-        # the same dependency order.
-        self.use_levels = bool(sym.levels)
-        if self.tail_k:
-            raise NotImplementedError(
-                f"the dense trailing supernode ({self.tail_k} columns) is not ported yet "
-                "(ROADMAP.md, queue 1); config.set_sparse_dense_tail(False) avoids it"
-            )
-        if not self.use_levels:
-            raise NotImplementedError(
-                "a schedule without etree levels needs the per-column scan plan, which is "
-                "not ported yet (ROADMAP.md, queue 1)"
-            )
+        # plan eliminates every head column; it eliminates the same columns
+        # in the same dependency order.
         self.diag_slots = np.asarray([sym.block_of[(j, j)] for j in range(n)], dtype=np.int32)
         self.perm = np.asarray(sym.perm, dtype=np.int32)
         self.iperm = np.asarray(sym.iperm, dtype=np.int32)
         self.level_tables = [self._build_level_table(cols) for cols in sym.levels]
+        self._build_tail_tables()
         self._rect = None
         self._device: Dict[str, tuple] = {}
+
+    def _build_tail_tables(self):
+        """Tables of the dense trailing supernode (the JAX package's
+        `_build_tail_tables`), numpy. For tail column j (absolute
+        cj = n_head + j):
+        - tail_col_slots (K, K): factor slot of block (n_head + r, cj), 0
+          where r < j (the strict upper part of the supernode);
+        - tail_a_src / tail_a_tr (K, K): AtA slot and transpose flag;
+        - tail_upd_* (K, ue, ...): the external left-looking updates, head
+          columns k < n_head with L[cj, k] in the pattern (the updates inside
+          the tail are the dense POTRF's own)."""
+        if self.tail_k == 0:
+            self.tail_ue = 0
+            return
+        sym, pattern = self.sym, self.pattern
+        nh, K = self.n_head, self.tail_k
+        block_of = sym.block_of
+        ext = [[int(k) for k in sym.tail_ext_upd[j]] for j in range(K)]
+        ue = max(1, max((len(e) for e in ext), default=1))
+        self.tail_ue = ue
+
+        col_slots = np.zeros((K, K), dtype=np.int32)
+        a_src = np.zeros((K, K), dtype=np.int32)
+        a_tr = np.zeros((K, K), dtype=bool)
+        valid = np.zeros((K, K), dtype=bool)
+        upd_slots = np.zeros((K, ue, K), dtype=np.int32)
+        upd_jk = np.zeros((K, ue), dtype=np.int32)
+        upd_k = np.zeros((K, ue), dtype=np.int32)
+        upd_valid = np.zeros((K, ue), dtype=bool)
+        for j in range(K):
+            cj = nh + j
+            pj = int(sym.perm[cj])
+            for r in range(j, K):
+                cr = nh + r
+                col_slots[j, r] = block_of[(cr, cj)]
+                valid[j, r] = True
+                pr = int(sym.perm[cr])
+                lo, hi = (pr, pj) if pr <= pj else (pj, pr)
+                s = pattern.pair_slot.get((lo, hi), 0)
+                a_src[j, r] = s
+                a_tr[j, r] = pr > pj and s != 0
+            for u, k in enumerate(ext[j]):
+                upd_jk[j, u] = block_of[(cj, k)]
+                upd_k[j, u] = k
+                upd_valid[j, u] = True
+                for r in range(j, K):
+                    upd_slots[j, u, r] = block_of.get((nh + r, k), 0)
+
+        self.tail_col_slots = col_slots
+        self.tail_a_src = a_src
+        self.tail_a_tr = a_tr
+        self.tail_valid = valid
+        self.tail_upd_slots = upd_slots
+        self.tail_upd_jk = upd_jk
+        self.tail_upd_k = upd_k
+        self.tail_upd_valid = upd_valid
+
+    def tail_on(self, device: torch.device) -> Dict[str, torch.Tensor]:
+        """The tail tables as index tensors (bool tables as masks) on
+        `device`, built once per device, with the supernode's strict-lower
+        mask `strict` and the diagonal's indices `diag`, so that no solve
+        copies an index from the host."""
+        key = ("tail", str(device))
+        if key not in self._device:
+            K = self.tail_k
+            host = {
+                "col_slots": self.tail_col_slots, "a_src": self.tail_a_src, "a_tr": self.tail_a_tr,
+                "valid": self.tail_valid, "upd_slots": self.tail_upd_slots, "upd_jk": self.tail_upd_jk,
+                "upd_k": self.tail_upd_k, "upd_valid": self.tail_upd_valid,
+                "strict": self.tail_valid & ~np.eye(K, dtype=bool), "diag": np.arange(K),
+            }
+            self._device[key] = {
+                k: torch.as_tensor(v, dtype=torch.bool if v.dtype == bool else torch.long, device=device)
+                for k, v in host.items()
+            }
+        return self._device[key]
 
     def _build_level_table(self, cols):
         """Per-level tables built directly from the symbolic lists, padded to
@@ -218,7 +293,8 @@ def bwd_operands(t, lflat, x, y):
 
 
 def factorize_levels(sched: NumericSchedule, ata_flat: torch.Tensor) -> torch.Tensor:
-    """Level plan: ata_flat (n_slots, B, d, d) -> Lflat (nnz_l+1, B, d, d)."""
+    """Level plan: ata_flat (n_slots, B, d, d) -> Lflat (nnz_l+1, B, d, d):
+    the head level by level, then the dense tail."""
     _, _, levels = sched.on(ata_flat.device)
     bsz, d = ata_flat.shape[1], ata_flat.shape[-1]
     lflat = torch.zeros(
@@ -229,22 +305,30 @@ def factorize_levels(sched: NumericSchedule, ata_flat: torch.Tensor) -> torch.Te
         newcol = torch.where(t["valid"][:, :, None, None, None], newcol, 0.0)
         # invalid rows all write zeros into the slot-0 sentinel
         lflat[t["col_slots"]] = newcol
+    if sched.tail_k:
+        _tail_dense_eliminate(sched, ata_flat, lflat)
     return lflat
 
 
 def forward_sweep(sched: NumericSchedule, lflat, b_perm):
-    """L y = b_perm in elimination order, level by level."""
+    """L y = b_perm in elimination order: the head level by level, then the
+    dense tail."""
     _, _, levels = sched.on(b_perm.device)
     y = torch.zeros_like(b_perm)
     for t in levels:
         y[t["cols"]] = level_fwd_subst(*fwd_operands(t, lflat, y, b_perm))
+    if sched.tail_k:
+        y[sched.n_head:] = _tail_fwd_solve(sched, lflat, y, b_perm)
     return y
 
 
 def backward_sweep(sched: NumericSchedule, lflat, y):
-    """L^T x = y in elimination order, levels in reverse."""
+    """L^T x = y in elimination order: the dense tail first (the head's
+    columns read its x), then the head levels in reverse."""
     _, _, levels = sched.on(y.device)
     x = torch.zeros_like(y)
+    if sched.tail_k:
+        x[sched.n_head:] = _tail_bwd_solve(sched, lflat, y)
     for t in reversed(levels):
         x[t["cols"]] = level_bwd_subst(*bwd_operands(t, lflat, x, y))
     return x
@@ -256,6 +340,91 @@ def solve_levels(sched: NumericSchedule, lflat: torch.Tensor, atb: torch.Tensor)
     perm, iperm, _ = sched.on(atb.device)
     y = forward_sweep(sched, lflat, atb[perm])
     return backward_sweep(sched, lflat, y)[iperm]
+
+
+# ---------------------------------------------------------------------------
+# the dense trailing supernode (JAX sparse/cholesky.py `_tail_*`): plain
+# torch on (B, K d, K d). The JAX package computes it with
+# jnp.linalg.cholesky and jsl.solve_triangular outside any Pallas kernel.
+# ---------------------------------------------------------------------------
+def _tail_blocks_to_mat(c, valid, K, d):
+    """c (K_col, K_row, B, d, d) masked lower blocks -> dense (B, K d, K d),
+    lower triangular by blocks (the strict upper part zero)."""
+    bsz = c.shape[2]
+    c = torch.where(valid[:, :, None, None, None], c, 0.0)
+    # (col j, row r, B, i, m) -> (B, r, i, j, m)
+    return c.permute(2, 1, 3, 0, 4).reshape(bsz, K * d, K * d)
+
+
+def _tail_mat_to_blocks(m, K, d):
+    """dense (B, K d, K d) -> blocks (K_col, K_row, B, d, d)."""
+    bsz = m.shape[0]
+    # [b, r, i, j, m] -> [j, r, b, i, m]
+    return m.reshape(bsz, K, d, K, d).permute(3, 1, 0, 2, 4)
+
+
+def _tail_assemble_c(sched: NumericSchedule, ata_flat, lflat):
+    """Per tail column, the blocks C = A - external updates, (K, K, B, d, d)."""
+    t = sched.tail_on(ata_flat.device)
+    col_a = ata_flat[t["a_src"]]
+    col_a = torch.where(t["a_tr"][:, :, None, None, None], col_a.transpose(-1, -2), col_a)
+    ks = lflat[t["upd_slots"]]  # (K, ue, K, B, d, d)
+    kj = torch.where(t["upd_valid"][:, :, None, None, None], lflat[t["upd_jk"]], 0.0)
+    return col_a - torch.einsum("curbik,cubjk->crbij", ks, kj)
+
+
+def _tail_dense_eliminate(sched: NumericSchedule, ata_flat, lflat):
+    """Factor the trailing supernode with one batched dense POTRF and write
+    its blocks into lflat (in place), so that every substitution reads one
+    layout. `cholesky_ex` reports a matrix that is not positive definite in
+    `info` without a host sync; such a batch element's tail becomes NaN, as
+    jnp.linalg.cholesky gives, so that LM rejects its step."""
+    t = sched.tail_on(ata_flat.device)
+    K, d = sched.tail_k, ata_flat.shape[-1]
+    c = _tail_assemble_c(sched, ata_flat, lflat)
+    # the symmetric matrix: strict lower, its transpose, the symmetrised diagonal
+    lower = _tail_blocks_to_mat(c, t["strict"], K, d)
+    cd = c[t["diag"], t["diag"]]  # (K, B, d, d)
+    bsz = c.shape[2]
+    dmat = torch.zeros((bsz, K, d, K, d), dtype=c.dtype, device=c.device)
+    # advanced indices split by a slice land in front: values (K, B, d, d)
+    dmat[:, t["diag"], :, t["diag"], :] = 0.5 * (cd + cd.transpose(-1, -2))
+    dense = lower + lower.transpose(-1, -2) + dmat.reshape(bsz, K * d, K * d)
+    ld, info = torch.linalg.cholesky_ex(dense)
+    ld = torch.where((info != 0)[:, None, None], torch.nan, ld)
+    blocks = torch.where(t["valid"][:, :, None, None, None], _tail_mat_to_blocks(ld, K, d), 0.0)
+    # the strict upper entries all write zeros into the slot-0 sentinel
+    lflat[t["col_slots"]] = blocks
+
+
+def _tail_dense_l(sched: NumericSchedule, lflat):
+    """The dense (B, K d, K d) tail factor from the factor's blocks."""
+    t = sched.tail_on(lflat.device)
+    return _tail_blocks_to_mat(lflat[t["col_slots"]], t["valid"], sched.tail_k, lflat.shape[-1])
+
+
+def _tail_fwd_solve(sched: NumericSchedule, lflat, y, b_perm):
+    """y of the tail columns (K, B, d): the dense lower solve of the
+    supernode after subtracting the head's contributions (y holds the
+    head's y)."""
+    t = sched.tail_on(lflat.device)
+    K, d, nh = sched.tail_k, b_perm.shape[-1], sched.n_head
+    yk = torch.where(t["upd_valid"][:, :, None, None], y[t["upd_k"]], 0.0)
+    acc = b_perm[nh:] - torch.einsum("kubij,kubj->kbi", lflat[t["upd_jk"]], yk)
+    bsz = acc.shape[1]
+    rhs = acc.movedim(0, 1).reshape(bsz, K * d, 1)
+    yt = torch.linalg.solve_triangular(_tail_dense_l(sched, lflat), rhs, upper=False)
+    return yt.reshape(bsz, K, d).movedim(1, 0)
+
+
+def _tail_bwd_solve(sched: NumericSchedule, lflat, y):
+    """x of the tail columns (K, B, d): the dense upper solve L^T x = y_tail
+    (the tail is eliminated last, so no rows below it contribute)."""
+    K, d, nh = sched.tail_k, y.shape[-1], sched.n_head
+    bsz = y.shape[1]
+    rhs = y[nh:].movedim(0, 1).reshape(bsz, K * d, 1)
+    xt = torch.linalg.solve_triangular(_tail_dense_l(sched, lflat).transpose(-1, -2), rhs, upper=True)
+    return xt.reshape(bsz, K, d).movedim(1, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -314,7 +483,8 @@ def _solve_scan(sched: NumericSchedule, lflat, atb):
 # plan selection, refinement and the differentiable solve
 # ---------------------------------------------------------------------------
 def _use_whole(sched: NumericSchedule) -> bool:
-    """The whole-sweep plan: config.WHOLE_SWEEP on and no dense tail. The
+    """The whole-sweep plan: config.WHOLE_SWEEP on, no dense tail and a
+    head, the JAX gate's rule (a tailed schedule runs the level plan). The
     JAX gate's column minimum (a TPU v5e A/B) and its VMEM/SMEM budgets are
     TPU facts and have no counterpart here."""
     return config.WHOLE_SWEEP and sched.tail_k == 0 and sched.n_head > 0

@@ -96,20 +96,28 @@ def level_factor(col_a, ks, kj):
     return out
 
 
+def update_lanes(ul: int) -> int:
+    """Lanes that share one output's update list of ul updates: the power
+    of two at or above ul, up to a warp. The whole forward sweep
+    (sparse/whole.py) takes the same per level, so both sum in one order."""
+    gu = 1
+    while gu < min(ul, WARP):
+        gu *= 2
+    return gu
+
+
 def fwd_subst_geometry(C: int, ul: int, B: int, d: int, itemsize: int, min_blocks: int):
     """(bt, gu, uc) of one `level_fwd_subst` launch (csrc/level_subst.cu):
     a block per (column, tile of bt batch elements), gu lanes per output
     (batch element, row) sharing its update list, the list staged uc
     updates at a time (uc = ul, or a multiple of gu).
 
-    gu is the power of two at or above ul, up to 32. bt starts at
+    gu is `update_lanes(ul)`. bt starts at
     FWD_TILE_MAX and halves while a block would exceed FWD_THREADS_MAX
     threads or the launch would have fewer than min_blocks blocks
     (FWD_BLOCKS_PER_SM times the card's SMs: 264 on the H100), or
     one staged chunk of gu updates would exceed FWD_SMEM_MAX; then bt <= B."""
-    gu = 1
-    while gu < min(ul, WARP):
-        gu *= 2
+    gu = update_lanes(ul)
     per_u = (d * d + d) * itemsize  # one (ljk, yk) block pair, or (ldiag, b)
 
     def smem(bt, uc):

@@ -40,6 +40,7 @@ import torch
 from .. import _cuda
 from ..config import use_kernel
 from ..ops.batched_linalg import SMALL_DIM_MAX
+from .level_kernels import update_lanes
 
 # Shared-memory budget of one whole_factor block, under the 232,448 bytes a
 # block may opt into on the H100: a factor that fits is built there.
@@ -48,6 +49,11 @@ WHOLE_FACTOR_SMEM_MAX = 224 * 1024
 # launcher rejects fewer bytes than its layout): level lv in use, lv + 1
 # landed, lv + 2 in flight.
 WHOLE_FACTOR_STAGES = 3
+# whole_fwd_subst (FwdPlan): its shared-memory budget and the record buffers
+# it stages (csrc/whole_subst.cu WFS_RECORD_BUFS: stage s in use, s + 1
+# landed, s + 2 in flight)
+WHOLE_FWD_SMEM_MAX = 224 * 1024
+WHOLE_FWD_RECORD_BUFS = 3
 
 
 def factor_records(tables: Dict[str, np.ndarray], levels):
@@ -76,6 +82,152 @@ def factor_records(tables: Dict[str, np.ndarray], levels):
     rec = np.concatenate(runs) if runs else np.zeros(0, np.int32)
     lvl = np.asarray(lvl, np.int32).reshape(-1, 4)
     return rec, lvl, max((len(r) for r in runs), default=0)
+
+
+def _round16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def _balanced_runs(cols, needs, data_bytes):
+    """Cut columns (each needing at most data_bytes) into the fewest
+    contiguous runs of near-equal length that each fit data_bytes."""
+    k = -(-sum(needs) // data_bytes)
+    while True:
+        cuts = np.array_split(np.arange(len(cols)), k)
+        if all(sum(needs[i] for i in c) <= data_bytes for c in cuts):
+            return [[cols[i] for i in c] for c in cuts if len(c)]
+        k += 1
+
+
+def level_lanes(tables: Dict[str, np.ndarray], cols) -> int:
+    """gu of one etree level: `update_lanes` of its longest update list."""
+    return update_lanes(max(1, int(tables["ucount"][cols].max())))
+
+
+def fwd_stages(tables: Dict[str, np.ndarray], levels, d: int, itemsize: int, data_bytes: int):
+    """Split the forward sweep's levels into stages, each staged whole into
+    one shared-memory buffer of data_bytes (csrc/whole_subst.cu).
+
+    Per level, gu = `level_lanes` (the level plan's rule, so that both sum
+    in one order). A stage is either a
+    run of whole columns of one level (each column's update blocks, its
+    diagonal block and its b row; a level too large for one buffer is cut
+    into runs of near-equal length) or, for a column too long for the
+    buffer, one piece of its update list: pieces of a multiple of gu
+    updates, so that each lane keeps its order; the last piece adds the
+    diagonal block and the b row. Returns [(gu, first, last, [(j, u0, u1)])],
+    first / last marking a column's first and last piece (both set for
+    whole columns)."""
+    blk, row = d * d * itemsize, d * itemsize
+    stages = []
+    for cols in levels:
+        gu = level_lanes(tables, cols)
+        run, needs = [], []
+
+        def flush():
+            for r in _balanced_runs(run, needs, data_bytes) if run else []:
+                stages.append((gu, True, True, r))
+            run.clear()
+            needs.clear()
+
+        for j, nu in zip(cols, tables["ucount"][cols]):
+            j, nu = int(j), int(nu)
+            need = (nu + 1) * blk + row
+            if need <= data_bytes:
+                run.append((j, 0, nu))
+                needs.append(need)
+                continue
+            flush()
+            step = max(gu, (data_bytes - blk - row) // blk // gu * gu)
+            for u0 in range(0, nu, step):
+                u1 = min(nu, u0 + step)
+                stages.append((gu, u0 == 0, u1 == nu, [(j, u0, u1)]))
+        flush()
+    return stages
+
+
+def fwd_records(tables: Dict[str, np.ndarray], stages):
+    """The forward sweep's per-stage index records (csrc/whole_subst.cu):
+    for a stage of nc columns and nb staged blocks, one int32 run
+    col[nc] brow[nc] nu[nc] boff[nc] slot[nb] kk[nb]: the column, its b row
+    (its original variable index), its updates in this stage, its first
+    block in the buffer; the factor slot of each staged block (a column's
+    updates, then its diagonal block where the stage holds its last piece)
+    and the y row each update block multiplies. Returns (records, stage
+    table (n_stages, 4) = (offset, nc, nb, gu | first << 6 | last << 7),
+    the largest record's ints)."""
+    runs, table, off = [], [], 0
+    for gu, first, last, cols in stages:
+        col, brow, nu, boff, slot, kk = [], [], [], [], [], []
+        for j, u0, u1 in cols:
+            col.append(j)
+            brow.append(int(tables["perm"][j]))
+            nu.append(u1 - u0)
+            boff.append(len(slot))
+            slot.extend(tables["upd_jk"][j, u0:u1])
+            kk.extend(tables["upd_k"][j, u0:u1])
+            if last:
+                slot.append(int(tables["diag"][j]))
+                kk.append(0)
+        run = np.asarray(col + brow + nu + boff + [int(s) for s in slot] + [int(k) for k in kk], np.int32)
+        table.append((off, len(col), len(slot), gu | int(first) << 6 | int(last) << 7))
+        runs.append(run)
+        off += len(run)
+    rec = np.concatenate(runs) if runs else np.zeros(0, np.int32)
+    table = np.asarray(table, np.int32).reshape(-1, 4)
+    return rec, table, max((len(r) for r in runs), default=0)
+
+
+class FwdPlan:
+    """Launch plan of `whole_fwd_subst` for one (d, dtype): the stages and
+    records (`fwd_stages`, `fwd_records`), whether the block keeps y in
+    shared memory and the shared-memory bytes.
+
+    The shared memory holds y (n d values, 16-byte rounded) when it fits,
+    two stage buffers (buf_vals values each: a stage's blocks, then its b
+    rows) and WHOLE_FWD_RECORD_BUFS record buffers, within
+    WHOLE_FWD_SMEM_MAX (`_fit`); if no stage fits beside y, y stays in
+    device memory."""
+
+    def __init__(self, tb: "WholeTables", d: int, itemsize: int):
+        self.gu = [level_lanes(tb.host, c) for c in tb.levels]
+        gu_max = max(self.gu, default=1)
+        fit = self._fit(tb, d, itemsize, _round16(tb.n * d * itemsize), gu_max)
+        self.y_smem = fit is not None
+        fit = fit or self._fit(tb, d, itemsize, 0, gu_max)
+        if fit is None:
+            raise ValueError("whole_fwd_subst: no stage fits the shared-memory budget")
+        self.stages, (self.rec, self.table, self.stage_ints), self.buf_vals, self.smem = fit
+        self.n_stages = len(self.stages)
+        self._device: Dict[str, Dict[str, torch.Tensor]] = {}
+
+    @staticmethod
+    def _fit(tb, d, itemsize, y_bytes, gu_max):
+        """(stages, records, buffer values, smem bytes) with y_bytes of y beside the
+        buffers, or None when not even a piece of gu_max updates fits. A
+        record costs at most r bytes per staged byte (16 per column, which
+        stages a block and a b row at least, and 8 per further block), so a
+        stage buffer of (budget - y - 32) / (2 + RECORD_BUFS r) bytes fits
+        with its records (32: the buffers' rounding to 16 bytes)."""
+        blk, row = d * d * itemsize, d * itemsize
+        r = max(24 / (blk + row), 8 / blk)
+        data = int((WHOLE_FWD_SMEM_MAX - y_bytes - 32) / (2 + WHOLE_FWD_RECORD_BUFS * r))
+        if data < (gu_max + 1) * blk + row:
+            return None
+        stages = fwd_stages(tb.host, tb.levels, d, itemsize, data)
+        records = fwd_records(tb.host, stages)
+        table, stage_ints = records[1], records[2]
+        buf_vals = int((table[:, 2] * d * d + table[:, 1] * d).max(initial=0))
+        smem = y_bytes + 2 * _round16(buf_vals * itemsize) + WHOLE_FWD_RECORD_BUFS * 4 * stage_ints
+        assert smem <= WHOLE_FWD_SMEM_MAX, (smem, WHOLE_FWD_SMEM_MAX)
+        return stages, records, buf_vals, smem
+
+    def on(self, device: torch.device) -> Dict[str, torch.Tensor]:
+        key = str(device)
+        if key not in self._device:
+            self._device[key] = {"rec": torch.as_tensor(self.rec, device=device),
+                                 "table": torch.as_tensor(self.table, device=device)}
+        return self._device[key]
 
 
 def whole_factor_smem_bytes(sched, d: int, itemsize: int) -> int:
@@ -116,7 +268,7 @@ class WholeTables:
             raise ValueError("whole-sweep tables: column rows are not packed at the front")
         if not all(sched.upd_valid[j, : ucount[j]].all() for j in range(nh)):
             raise ValueError("whole-sweep tables: column updates are not packed at the front")
-        levels = [np.asarray(c, np.int64) for c in sched.sym.levels]
+        self.levels = levels = [np.asarray(c, np.int64) for c in sched.sym.levels]
         order = np.concatenate(levels) if levels else np.zeros(0, np.int64)
         if sorted(order.tolist()) != list(range(nh)):
             raise ValueError("whole-sweep tables: the etree levels do not cover the columns once")
@@ -138,7 +290,15 @@ class WholeTables:
             levels)
         self.host["fact_rec"], self.host["fact_lvl"] = rec, lvl
         self.n_levels = len(levels)
+        self._fwd_plans: Dict[tuple, FwdPlan] = {}
         self._device: Dict[str, Dict[str, torch.Tensor]] = {}
+
+    def fwd_plan(self, d: int, itemsize: int) -> FwdPlan:
+        """The forward sweep's plan for blocks of d x d values of itemsize bytes."""
+        key = (d, itemsize)
+        if key not in self._fwd_plans:
+            self._fwd_plans[key] = FwdPlan(self, *key)
+        return self._fwd_plans[key]
 
     def on(self, device: torch.device) -> Dict[str, torch.Tensor]:
         key = str(device)
@@ -210,14 +370,14 @@ def whole_fwd_subst(sched, lflat: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     bsz, d = lflat.shape[1], lflat.shape[-1]
     _check("whole_fwd_subst", (lflat, (sched.sym.nnz_l + 1, bsz, d, d)), (b, (tb.n, bsz, d)))
     fn = _fn("whole_fwd_subst", lflat, d)
-    t = tb.on(lflat.device)
+    plan = tb.fwd_plan(d, lflat.element_size())
+    t = plan.on(lflat.device)
     lflat, b = lflat.contiguous(), b.contiguous()
     y = torch.empty_like(b)
     with torch.cuda.device(lflat.device):
-        rc = fn(lflat.data_ptr(), b.data_ptr(), t["perm"].data_ptr(), t["upd_jk"].data_ptr(),
-                t["upd_k"].data_ptr(), t["ucount"].data_ptr(), t["diag"].data_ptr(),
-                t["order"].data_ptr(), t["lvl_ptr"].data_ptr(),
-                tb.n_levels, tb.n, tb.umax, bsz, d, y.data_ptr(), _cuda.stream_of(lflat))
+        rc = fn(lflat.data_ptr(), b.data_ptr(), t["rec"].data_ptr(), t["table"].data_ptr(), plan.n_stages,
+                plan.stage_ints, plan.buf_vals, tb.n, bsz, d, int(plan.y_smem),
+                plan.smem, y.data_ptr(), _cuda.stream_of(lflat))
     _cuda.check(rc, "whole_fwd_subst")
     _cuda.launches["whole_fwd_subst"] += 1
     return y
