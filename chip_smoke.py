@@ -33,10 +33,12 @@ driven alone. In order:
    B=128), in float32 and float64, each line with its deviation and
    tolerance; the assembly is launched twice at PGO 256 x 128, BA
    128 x 4000 x 1 and BA 16 x 200 x 16, the level forward substitution
-   sweep and the whole forward sweep at PGO 256 x 128 and 2048 x 8, and the
-   Between kernel at 257 x 128 and at a K B that is a multiple of no block
-   (257 x 127), and each must give the same bits; the whole forward sweep
-   must equal the level forward sweep on the same factor, exactly;
+   sweep and both whole sweeps at PGO 256 x 128 and 2048 x 8, the Between
+   kernel at 257 x 128 and at a K B that is a multiple of no block
+   (257 x 127), and the Reprojection kernel at BA 128 x 4000 x 1 and at a
+   K B that is a multiple of no block (204,799), and each must give the
+   same bits; the whole forward and backward sweeps must equal the level
+   forward and backward sweeps on the same factor, exactly;
 4. slice phases, one per path: the float32 forward with the launch counters
    reset just before and read just after; the converged plateau against the
    plain-twin float64 solve of the same problem on the card; the problem of
@@ -56,11 +58,12 @@ driven alone. In order:
    and its library yardstick at the main-path shapes (CUDA events: calls
    back to back, and the device time alone with the queue prefilled by a
    sleep kernel), beside its bound (bytes over 3.35 TB/s or operations over
-   67 TFLOP/s, the larger); the whole factor and forward sweep also at
+   67 TFLOP/s, the larger); the whole factor and both whole sweeps also at
    2048 x 8; the redesigned rows with the first designs' device times
    beside; the level factor and forward substitution per launch at
    their widest and deepest level and at the smallest shape (the launch
-   floor); the grid's tail POTRF, tail elimination and factorization;
+   floor); the grid's tail POTRF, tail elimination and factorization, and
+   the level backward substitution sweep over its head levels;
 6. profile phase: per path, synced stage times of one LM iteration and a
    torch.profiler window (device busy and idle share, launches, top
    kernels);
@@ -174,9 +177,10 @@ WHOLE_SHAPES = ((256, 128), (2048, 8))
 # symbolic analysis folds the last 51 columns into one dense supernode
 GRID = (16, 16, 128)
 # device ms of the first designs of the rows this run's design replaced
-# (PERF.md, kernel table, run 18 of the previous design: NVIDIA H100 80GB
-# HBM3, 700 W), printed beside this run's
-FIRST_DESIGN_DEVICE_MS = {"between_se3": 0.0455, "whole_fwd_subst": 0.0749, "between_se3_aos": 0.0468}
+# (PERF.md, kernel table, the previous design's last measurement: NVIDIA
+# H100 80GB HBM3, 700 W; reprojection at BA 128 x 4000 x 1, whole_bwd_subst
+# at PGO 256 x 128), printed beside this run's
+FIRST_DESIGN_DEVICE_MS = {"reprojection": 0.0416, "whole_bwd_subst": 0.0528}
 # the card's peaks for the bound: HBM3 bytes/s and float32 FLOP/s outside the
 # tensor cores (H100 SXM data sheet, at the 700 W limit)
 PEAK_BYTES = 3.35e12
@@ -477,8 +481,18 @@ def phase_ba_kernels(dev, max_abs):
             prob = ba_problem(*shape, dtype, dev)
             ops = reprojection_operands(prob)
             note = f"K={ops[0].shape[0]} B={ops[0].shape[1]}"
-            worst = max(worst, _dev_report("reprojection", dn, reprojection_linearize(*ops),
-                                           reprojection_linearize_plain(*ops), note))
+            if shape == BA_MAIN:
+                got = _repeatable("reprojection", lambda: reprojection_linearize(*ops), f"{dn} BA {note}")
+                # one item fewer: a K B that is a multiple of no block size
+                # (stacked aux lose the item too, shared aux keep their shape)
+                cut = [t[:-1] if t.dim() >= 3 else t for t in ops]
+                cut_note = f"K={cut[0].shape[0]} B={cut[0].shape[1]} (ragged)"
+                ragged = _repeatable("reprojection", lambda: reprojection_linearize(*cut), f"{dn} BA {cut_note}")
+                worst = max(worst, _dev_report("reprojection", dn, ragged, reprojection_linearize_plain(*cut),
+                                               cut_note))
+            else:
+                got = reprojection_linearize(*ops)
+            worst = max(worst, _dev_report("reprojection", dn, got, reprojection_linearize_plain(*ops), note))
             padded = padded_blocks(prob)
             pattern = prob.builder.pattern
             label = "BA {}x{}x{}".format(*shape)
@@ -518,7 +532,7 @@ def phase_whole_kernels(dev, max_abs):
 
     from theseus_tpu_torch import config
     from theseus_tpu_torch.ops.between_se3 import between_linearize_fused, between_linearize_plain
-    from theseus_tpu_torch.sparse.cholesky import factorize_levels, forward_sweep
+    from theseus_tpu_torch.sparse.cholesky import backward_sweep, factorize_levels, forward_sweep
     from theseus_tpu_torch.sparse.level_kernels import level_fwd_subst, level_fwd_subst_plain
     from theseus_tpu_torch.sparse.whole import (
         get_tables, whole_bwd_subst, whole_factor, whole_factor_smem_bytes, whole_factor_variant,
@@ -547,9 +561,10 @@ def phase_whole_kernels(dev, max_abs):
             with config.plain_path():
                 lflat_p, f_ms = once_ms(lambda: whole_factor(sched, ata))
                 y_p, y_ms = once_ms(lambda: whole_fwd_subst(sched, lflat_p, atb))
-                x_p = whole_bwd_subst(sched, lflat_p, y_p)
+                x_p, x_ms = once_ms(lambda: whole_bwd_subst(sched, lflat_p, y_p))
             if dtype == torch.float32 and (n, b) == WHOLE_SHAPES[1]:
-                twin_ms[f"whole_factor {n}x{b}"], twin_ms[f"whole_fwd_subst {n}x{b}"] = f_ms, y_ms
+                for name, ms in (("whole_factor", f_ms), ("whole_fwd_subst", y_ms), ("whole_bwd_subst", x_ms)):
+                    twin_ms[f"{name} {n}x{b}"] = ms
             y = whole_fwd_subst(sched, lflat_p, atb)
             x = whole_bwd_subst(sched, lflat_p, y_p)
             torch.cuda.synchronize()
@@ -578,10 +593,25 @@ def phase_whole_kernels(dev, max_abs):
             torch.cuda.synchronize()
             diff = float((y_w - y_l).abs().max())
             print(f"[kernel] whole_fwd_subst {dn} {note}: {plan.n_stages} stages over {len(plan.gu)} levels, "
-                  f"y in {'shared' if plan.y_smem else 'device'} memory, "
+                  f"y in {'shared' if plan.vec_smem else 'device'} memory, "
                   f"{plan.smem} bytes; vs the level forward sweep max |diff| = {diff!r} (must be exactly 0.0)")
             check(bool(torch.isfinite(y_w).all()) and diff == 0.0,
                   f"whole_fwd_subst {dn} {note}: differs from the level forward sweep by {diff!r}")
+            # the whole backward sweep runs each output's chain over the
+            # column's rows in the level kernel's order, then its solve: the
+            # level backward sweep's bits, on the same factor and y
+            plan = get_tables(sched).bwd_plan(d, isz)
+            _, iperm, _ = sched.on(atb.device)
+            x_w = _repeatable("whole_bwd_subst", lambda: [whole_bwd_subst(sched, lflat_l, y_l)],
+                              f"{dn} PGO {n}x{b}")[0]
+            x_l = backward_sweep(sched, lflat_l, y_l)[iperm]
+            torch.cuda.synchronize()
+            diff = float((x_w - x_l).abs().max())
+            print(f"[kernel] whole_bwd_subst {dn} {note}: {plan.n_stages} stages over {get_tables(sched).n_levels} "
+                  f"levels, x in {'shared' if plan.vec_smem else 'device'} memory, {plan.smem} bytes; vs the "
+                  f"level backward sweep max |diff| = {diff!r} (must be exactly 0.0)")
+            check(bool(torch.isfinite(x_w).all()) and diff == 0.0,
+                  f"whole_bwd_subst {dn} {note}: differs from the level backward sweep by {diff!r}")
         prob = synthetic_problem(*TRAIN, dtype, dev)
         v1, v2, meas = between_operands(prob)
         e = _dev_report("between_se3_aos", dn, between_linearize_fused(v1, v2, meas),
@@ -1322,6 +1352,8 @@ def phase_timing(dev, card, twin_ms):
                                    plain(lambda: whole_fwd_subst(deep_sched, dw_l, dw_atb))),
         "whole_bwd_subst": (lambda: whole_bwd_subst(sched, w_l, w_y),
                             plain(lambda: whole_bwd_subst(sched, w_l, w_y))),
+        "whole_bwd_subst 2048x8": (lambda: whole_bwd_subst(deep_sched, dw_l, dw_y),
+                                   plain(lambda: whole_bwd_subst(deep_sched, dw_l, dw_y))),
         "between_se3_aos": (lambda: between_linearize_fused(v1, v2, meas),
                             lambda: between_linearize_plain(v1, v2, meas)),
     }
@@ -1394,10 +1426,11 @@ def phase_timing(dev, card, twin_ms):
     print(f"[timing] floor (C, rl, ul, B) = (1, 1, 1, 1): level_factor {floor_us:.2f} us, level_fwd_subst "
           f"{floor_fwd_us:.2f} us per launch (device, queue prefilled) on {card}")
 
-    # the redesigned rows 1, 7 and 9 beside their first designs' device times
-    # (PERF.md, run 18 of the previous design, same card model and limit)
+    # the redesigned rows 5 and 8 beside their first designs' device times
+    # (PERF.md, the previous design's last measurement, same card model and limit)
     for name, first in FIRST_DESIGN_DEVICE_MS.items():
-        print(f"[timing] {name:<19} PGO 256x128 float32: {dev_times[name]:.4f} ms device now, first design "
+        shape = "BA 128x4000x1" if name == "reprojection" else "PGO 256x128"
+        print(f"[timing] {name:<19} {shape} float32: {dev_times[name]:.4f} ms device now, first design "
               f"{first:.4f} ms device (PERF.md); back to back now {times[name][0]:.4f} ms on {card}")
 
     # the dense tail of the grid: its POTRF alone, the tail's elimination
@@ -1406,7 +1439,7 @@ def phase_timing(dev, card, twin_ms):
 
     g_prob = grid_prob(torch.float32, dev)
     g_sched = g_prob.builder.sched
-    _, g_ata, g_l, _, _, _ = plain_system(g_prob)
+    _, g_ata, g_l, g_y, g_x, g_bp = plain_system(g_prob)
     tail_t = g_sched.tail_on(dev)
     K = g_sched.tail_k
     g_dense = chol._tail_blocks_to_mat(g_l[tail_t["col_slots"]], tail_t["valid"], K, d)
@@ -1421,6 +1454,14 @@ def phase_timing(dev, card, twin_ms):
     print(f"[timing] grid {GRID[0]}x{GRID[1]}x{GRID[2]} float32 dense tail ({tuple(g_dense.shape)} a POTRF, "
           f"{len(g_sched.level_tables)} head levels): " + ", ".join(f"{k} {v:.4f} ms" for k, v in tail_ms.items())
           + f" (CUDA events, back to back) on {card}")
+    # row 4b over the grid's head levels, whose columns have long row lists
+    # (the chains' have at most 3 rows)
+    g_bwd = [bw for _, _, bw in level_inputs(g_prob, g_ata, g_l, g_y, g_x, g_bp)]
+    times["level_bwd_subst grid"] = (cuda_ms(lambda: [level_bwd_subst(*bw) for bw in g_bwd]), None)
+    dev_times["level_bwd_subst grid"] = device_ms(lambda: [level_bwd_subst(*bw) for bw in g_bwd])
+    print(f"[timing] level_bwd_subst grid {GRID[0]}x{GRID[1]}x{GRID[2]} float32, one sweep of the {len(g_bwd)} head "
+          f"levels (rl {[bw[0].shape[1] for bw in g_bwd]}): kernel {times['level_bwd_subst grid'][0]:.4f} ms back "
+          f"to back, {dev_times['level_bwd_subst grid']:.4f} ms device (queue prefilled) on {card}")
 
     # library yardsticks on the densified H: one PyTorch call each, timed
     # here only; the port never calls them
@@ -1462,6 +1503,9 @@ def phase_timing(dev, card, twin_ms):
         "whole_fwd_subst": _bound(_nbytes(w_l, w_atb, w_y), subst_flops(sched, bsz, d, True)),
         "whole_fwd_subst 2048x8": _bound(_nbytes(dw_l, dw_atb, dw_y), subst_flops(deep_sched, WHOLE_SHAPES[1][1], d, True)),
         "whole_bwd_subst": _bound(_nbytes(w_l, w_y, w_y), subst_flops(sched, bsz, d, False)),
+        "whole_bwd_subst 2048x8": _bound(_nbytes(dw_l, dw_y, dw_y), subst_flops(deep_sched, WHOLE_SHAPES[1][1], d, False)),
+        "level_bwd_subst grid": _bound(sum(_nbytes(*bw) + _nbytes(bw[2]) for bw in g_bwd),
+                                       subst_flops(g_sched, GRID[2], d, False)),
     }
     lib = {"level_factor": library["cholesky_ex"], "whole_factor": library["cholesky_ex"],
            "level_fwd_subst": library["solve_triangular lower"],
@@ -1594,11 +1638,14 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library.get(name),
             "device_ms": dev_times[name],
         }
+        if name == "level_bwd_subst":  # the grid's head levels, beside 256 x 128's
+            entry["ms_grid"], entry["device_ms_grid"] = times["level_bwd_subst grid"][0], dev_times["level_bwd_subst grid"]
+            entry["bound_ms_grid"], _ = bounds["level_bwd_subst grid"]
         if name == "assemble_blocks":  # the BA main path's shape, beside PGO's
             entry["ms_ba"], entry["plain_ms_ba"] = times["assemble_blocks ba"]
             entry["device_ms_ba"] = dev_times["assemble_blocks ba"]
             entry["bound_ms_ba"], entry["bound_by_ba"] = bounds["assemble_blocks ba"]
-        if name in ("level_factor", "whole_factor", "whole_fwd_subst"):  # the deep and narrow shape, beside 256 x 128's
+        if name in ("level_factor", "whole_factor", "whole_fwd_subst", "whole_bwd_subst"):  # the deep and narrow shape
             entry["ms_2048x8"], entry["plain_ms_2048x8"] = times[f"{name} 2048x8"]
             entry["device_ms_2048x8"] = dev_times[f"{name} 2048x8"]
             entry["bound_ms_2048x8"], _ = bounds[f"{name} 2048x8"]

@@ -20,10 +20,14 @@ Per tree, float32 unless stated:
   by a sleep kernel while the host enqueues the calls), float32 and
   float64, of `between_se3` (kernel table row 1, through
   `between_linearize`) on the PGO Between operands at 256 x 128 (K = 257)
-  and 64 x 16, and of `whole_fwd_subst` (row 7) on the LM-damped PGO
-  system at 256 x 128 and 2048 x 8 with the level kernels' factor, each
-  with a sha256 of its outputs, so that two trees that should give the
-  same bits can be compared.
+  and 64 x 16; of `reprojection` (row 5, through `reprojection_linearize`)
+  on the BA Reprojection operands at 128 x 4000 x 1 and 16 x 200 x 16; and
+  of `whole_fwd_subst` (row 7) and `whole_bwd_subst` (row 8) on the
+  LM-damped PGO system at 256 x 128 and 2048 x 8 with the level kernels'
+  factor (row 8 on the level forward sweep's y), each with a sha256 of its
+  outputs, so that two trees that should give the same bits can be
+  compared; and whether each tree's `whole_bwd_subst` equals the level
+  backward sweep bit for bit.
 
 Needs an NVIDIA GPU and nvcc. Prints the card's name and power limit and
 one JSON line per tree; with --ab, then each measurement in run order and,
@@ -48,8 +52,9 @@ def measure(tree: Path) -> dict:
     import chip_smoke as cs
     from theseus_tpu_torch import config
     from theseus_tpu_torch.ops.between_se3 import between_linearize
-    from theseus_tpu_torch.sparse.cholesky import factorize_levels
-    from theseus_tpu_torch.sparse.whole import whole_fwd_subst
+    from theseus_tpu_torch.ops.reprojection import reprojection_linearize
+    from theseus_tpu_torch.sparse.cholesky import backward_sweep, factorize_levels, forward_sweep
+    from theseus_tpu_torch.sparse.whole import whole_bwd_subst, whole_fwd_subst
 
     if not Path(cs.__file__).resolve().is_relative_to(tree.resolve()):
         raise RuntimeError(f"imported {cs.__file__}, not the tree {tree}")
@@ -69,7 +74,7 @@ def measure(tree: Path) -> dict:
             lm["LM iteration PGO {}x{} {} plan".format(*LM_SHAPE, plan)] = cs.lm_iter_ms(prob)
         finally:
             config.set_whole_sweep(False)
-    ms, sha = {}, {}
+    ms, sha, bwd_equal = {}, {}, {}
     for dtype in (torch.float32, torch.float64):
         dn = str(dtype).split(".")[-1]
         for n, b in ((256, 128), (64, 16)):
@@ -77,6 +82,11 @@ def measure(tree: Path) -> dict:
             key = f"between_se3 {n}x{b} {dn}"
             sha[key] = digest(between_linearize(*ops))
             ms[key] = cs.device_ms(lambda: between_linearize(*ops))
+        for shape in (cs.BA_MAIN, cs.BA_SMALL):
+            rops = cs.reprojection_operands(cs.ba_problem(*shape, dtype, dev))
+            key = "reprojection BA {}x{}x{} {}".format(*shape, dn)
+            sha[key] = digest(reprojection_linearize(*rops))
+            ms[key] = cs.device_ms(lambda: reprojection_linearize(*rops))
         for n, b in ((256, 128), (2048, 8)):
             prob, ata, atb = cs.whole_system(n, b, dtype, dev)
             sched = prob.builder.sched
@@ -84,8 +94,16 @@ def measure(tree: Path) -> dict:
             key = f"whole_fwd_subst {n}x{b} {dn}"
             sha[key] = digest([whole_fwd_subst(sched, lflat, atb)])
             ms[key] = cs.device_ms(lambda: whole_fwd_subst(sched, lflat, atb))
+            perm, iperm, _ = sched.on(dev)
+            y = forward_sweep(sched, lflat, atb[perm])
+            key = f"whole_bwd_subst {n}x{b} {dn}"
+            x = whole_bwd_subst(sched, lflat, y)
+            sha[key] = digest([x])
+            bwd_equal[key] = bool(torch.equal(x, backward_sweep(sched, lflat, y)[iperm]))
+            ms[key] = cs.device_ms(lambda: whole_bwd_subst(sched, lflat, y))
     torch.cuda.synchronize()
-    return {"tree": str(tree), "card": cs.card_line(), "lm_iter_ms": lm, "device_ms": ms, "sha256": sha}
+    return {"tree": str(tree), "card": cs.card_line(), "lm_iter_ms": lm, "device_ms": ms, "sha256": sha,
+            "whole_bwd_equals_level_sweep": bwd_equal}
 
 
 def main() -> int:
@@ -113,6 +131,9 @@ def main() -> int:
         cells = ", ".join(f"{nm} {r['device_ms'][key]:.4f}" for nm, r in zip(names, runs))
         same = runs[0]["sha256"][key] == runs[1]["sha256"][key]
         print(f"{key:<36} device ms in run order: {cells}; outputs bit-equal across trees: {same}")
+    for key, this in runs[1]["whole_bwd_equals_level_sweep"].items():
+        print(f"{key:<36} equal to the level backward sweep bit for bit: other "
+              f"{runs[0]['whole_bwd_equals_level_sweep'][key]}, this {this}")
     return 0
 
 

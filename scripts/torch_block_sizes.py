@@ -1,22 +1,24 @@
 """Time theseus_tpu_torch's kernels whose block size was chosen by timing, at each candidate size.
 
-Three kernels (PERF.md kernel table rows 1, 6 and 7):
+Five kernels (PERF.md kernel table rows 1, 5, 6, 7 and 8):
 
-- `between_se3` (`csrc/between_se3.cu`): the block size is a launch
-  argument, which `ops/between_se3.py` `between_geometry` picks (64, 128
-  or 256 threads); here each size is launched through the package
-  library's own entry point;
+- `between_se3` (`csrc/between_se3.cu`) and `reprojection`
+  (`csrc/reprojection.cu`): the block size is a launch argument, which
+  `_cuda.tile_geometry` picks (64, 128 or 256 threads); here each size is
+  launched through the package library's own entry point;
 - `whole_factor` (`csrc/whole_factor.cu`): the constant `WF_THREADS`
   (1024), which also sets the launch bounds and so the registers a thread
   may use (64 at 1024 threads, 128 at 512, 255 at 256);
-- `whole_fwd_subst` (`csrc/whole_subst.cu`): the constant `WFS_THREADS`
-  (512), likewise.
+- `whole_fwd_subst` and `whole_bwd_subst` (`csrc/whole_subst.cu`): the
+  constants `WFS_THREADS` (512) and `WBS_THREADS` (256), likewise.
 
-For the last two, a copy of the source is compiled per block size into
+For the last three, a copy of the source is compiled per block size into
 `theseus_tpu_torch/_build/block_sizes/<kernel>/<threads>/` and loaded as a
 library of its own. On the PGO problems (Between at 256 x 128 and 64 x 16;
-the LM-damped systems at 256 x 128 and 2048 x 8 for the other two), in
-float32 and float64, each block size:
+the LM-damped systems at 256 x 128 and 2048 x 8 for the whole-sweep
+kernels, the backward sweep on the level forward sweep's y) and the BA
+problems (Reprojection at 128 x 4000 x 1 and 16 x 200 x 16), in float32
+and float64, each block size:
 
 - must give the package kernel's outputs bit for bit (the arithmetic does
   not depend on the block size);
@@ -25,9 +27,9 @@ float32 and float64, each block size:
 
 ptxas's registers and spill stores of the d = 6 kernels are printed for
 the rebuilt copies. Needs an NVIDIA Hopper GPU and nvcc. Run from the
-repository root:
+repository root, for every kernel or the ones named:
 
-    python3 scripts/torch_block_sizes.py
+    python3 scripts/torch_block_sizes.py [between_se3 reprojection whole_factor whole_fwd_subst whole_bwd_subst]
 
 It prints the card's name and power limit, then one line per build and per
 measurement, and exits non-zero if a block size changed an output.
@@ -43,7 +45,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-BETWEEN_THREADS = (64, 128, 256)
+TILE_THREADS = (64, 128, 256)
 BETWEEN_SHAPES = ((256, 128), (64, 16))
 WHOLE_SHAPES = ((256, 128), (2048, 8))
 # kernel -> (source, the constant's line, its name in ptxas's report, block sizes)
@@ -52,7 +54,10 @@ REBUILT = {
                      (256, 512, 1024)),
     "whole_fwd_subst": ("whole_subst.cu", "constexpr int WFS_THREADS = {};", "whole_fwd_kernel", 512,
                         (256, 512, 1024)),
+    "whole_bwd_subst": ("whole_subst.cu", "constexpr int WBS_THREADS = {};", "whole_bwd_kernel", 256,
+                        (128, 256, 512)),
 }
+KERNELS = ("between_se3", "reprojection") + tuple(REBUILT)
 
 
 def build(kernel, threads):
@@ -102,7 +107,7 @@ def between_sizes(dev, card):
     import chip_smoke as cs
     from theseus_tpu_torch import _cuda
     from theseus_tpu_torch.config import get_eps
-    from theseus_tpu_torch.ops.between_se3 import BETWEEN_TILE, _min_blocks, between_geometry, between_linearize
+    from theseus_tpu_torch.ops.between_se3 import BETWEEN_TILE, between_geometry, between_linearize
 
     same = []
     for dtype in (torch.float32, torch.float64):
@@ -116,8 +121,8 @@ def between_sizes(dev, card):
             if meas.stride(-1) != 1 or meas.stride(-2) != 4:
                 meas = meas.contiguous()
             k = v1.shape[0]
-            pick = between_geometry(k * b, v1.element_size(), _min_blocks(dev.index))[0]
-            for t in BETWEEN_THREADS:
+            pick = between_geometry(k * b, v1.element_size(), _cuda.tile_min_blocks(dev.index))[0]
+            for t in TILE_THREADS:
                 outs = [torch.empty_like(r) for r in ref]
 
                 def call():
@@ -136,16 +141,58 @@ def between_sizes(dev, card):
     return same
 
 
-def rebuilt_sizes(dev, card, libs):
-    """Each rebuilt block size of whole_factor and whole_fwd_subst against
-    the package kernel, bit for bit, and its device time."""
+def reprojection_sizes(dev, card):
+    """Each Reprojection block size against the package's launch, bit for
+    bit, and its device time."""
     import torch
 
     import chip_smoke as cs
     from theseus_tpu_torch import _cuda
-    from theseus_tpu_torch.sparse.cholesky import factorize_levels
+    from theseus_tpu_torch.ops.reprojection import (
+        REPROJECTION_TILE, broadcast_aux, reprojection_geometry, reprojection_linearize)
+
+    same = []
+    for dtype in (torch.float32, torch.float64):
+        dn = str(dtype).split(".")[-1]
+        fn = getattr(_cuda.lib(), f"th_reprojection_{_cuda.suffix(dtype)}")
+        for shape in (cs.BA_MAIN, cs.BA_SMALL):
+            ops = cs.reprojection_operands(cs.ba_problem(*shape, dtype, dev))
+            ref = reprojection_linearize(*ops)
+            pose, point = ops[0].contiguous(), ops[1].contiguous()
+            aux = [a if a.stride(-1) == 1 else a.contiguous() for a in broadcast_aux(pose, ops[2:])]
+            strides = [s for a in aux for s in (a.stride(0), a.stride(1))]
+            k, b, isz = pose.shape[0], pose.shape[1], pose.element_size()
+            pick = reprojection_geometry(k * b, isz, _cuda.tile_min_blocks(dev.index))[0]
+            for t in TILE_THREADS:
+                outs = [torch.empty_like(r) for r in ref]
+
+                def call():
+                    rc = fn(pose.data_ptr(), point.data_ptr(), *(a.data_ptr() for a in aux), *strides, k, b, t,
+                            REPROJECTION_TILE * t * isz, *(o.data_ptr() for o in outs), _cuda.stream_of(pose))
+                    if rc != 0:
+                        raise RuntimeError(f"reprojection at {t} threads: CUDA error {rc}")
+
+                call()
+                torch.cuda.synchronize()
+                same.append(all(torch.equal(o, r) for o, r in zip(outs, ref)))
+                ms = cs.device_ms(call)
+                print(f"[time] reprojection {dn} BA {shape[0]}x{shape[1]}x{shape[2]} (K B = {k * b}) {t} threads: "
+                      f"{ms:.4f} ms device, bitwise equal to the package's launch: {same[-1]} (the geometry "
+                      f"picks {pick}) on {card}")
+    return same
+
+
+def rebuilt_sizes(dev, card, libs):
+    """Each rebuilt block size of the whole-sweep kernels against the
+    package kernel, bit for bit, and its device time."""
+    import torch
+
+    import chip_smoke as cs
+    from theseus_tpu_torch import _cuda
+    from theseus_tpu_torch.sparse.cholesky import factorize_levels, forward_sweep
     from theseus_tpu_torch.sparse.whole import (
-        WHOLE_FACTOR_SMEM_MAX, get_tables, whole_factor, whole_factor_smem_bytes, whole_fwd_subst)
+        WHOLE_FACTOR_SMEM_MAX, get_tables, whole_bwd_subst, whole_factor, whole_factor_smem_bytes,
+        whole_fwd_subst)
 
     same = []
     for dtype in (torch.float32, torch.float64):
@@ -158,19 +205,29 @@ def rebuilt_sizes(dev, card, libs):
             smem_f = whole_factor_smem_bytes(sched, d, ata.element_size())
             smem_f = smem_f if smem_f <= WHOLE_FACTOR_SMEM_MAX else 0
             lflat = factorize_levels(sched, ata)
-            plan = tb.fwd_plan(d, ata.element_size())
-            p_dev = plan.on(dev)
-            refs = {"whole_factor": whole_factor(sched, ata), "whole_fwd_subst": whole_fwd_subst(sched, lflat, atb)}
+            y = forward_sweep(sched, lflat, atb[sched.on(dev)[0]])
+            plans = {"whole_fwd_subst": (tb.fwd_plan(d, ata.element_size()), atb),
+                     "whole_bwd_subst": (tb.bwd_plan(d, ata.element_size()), y)}
+            p_dev = {k: plan.on(dev) for k, (plan, _) in plans.items()}
+            refs = {"whole_factor": whole_factor(sched, ata), "whole_fwd_subst": whole_fwd_subst(sched, lflat, atb),
+                    "whole_bwd_subst": whole_bwd_subst(sched, lflat, y)}
+
+            def sweep_args(kernel, out):
+                plan, v = plans[kernel]
+                return (lflat.data_ptr(), v.data_ptr(), p_dev[kernel]["rec"].data_ptr(),
+                        p_dev[kernel]["table"].data_ptr(), plan.n_stages, plan.stage_ints, plan.buf_vals, tb.n, b,
+                        d, int(plan.vec_smem), plan.smem, out.data_ptr(), _cuda.stream_of(lflat))
+
             args = {
                 "whole_factor": lambda out: (ata.data_ptr(), t_dev["fact_rec"].data_ptr(), t_dev["fact_lvl"].data_ptr(),
                                              tb.n_levels, sched.sym.nnz_l + 1, tb.stage_ints, smem_f, b, d,
                                              out.data_ptr(), _cuda.stream_of(ata)),
-                "whole_fwd_subst": lambda out: (lflat.data_ptr(), atb.data_ptr(), p_dev["rec"].data_ptr(),
-                                                p_dev["table"].data_ptr(), plan.n_stages, plan.stage_ints,
-                                                plan.buf_vals, tb.n, b, d, int(plan.y_smem), plan.smem,
-                                                out.data_ptr(), _cuda.stream_of(lflat)),
+                "whole_fwd_subst": lambda out: sweep_args("whole_fwd_subst", out),
+                "whole_bwd_subst": lambda out: sweep_args("whole_bwd_subst", out),
             }
             for kernel, (_, _, _, default, sizes) in REBUILT.items():
+                if (kernel, sizes[0]) not in libs:
+                    continue
                 for t in sizes:
                     fn = getattr(libs[kernel, t], f"th_{kernel}_{_cuda.suffix(dtype)}")
                     fn.argtypes = _cuda._SIGNATURES[f"th_{kernel}"]
@@ -199,11 +256,16 @@ def main():
     import chip_smoke as cs
     from theseus_tpu_torch import _cuda
 
+    wanted = sys.argv[1:] or KERNELS
+    unknown = set(wanted) - set(KERNELS)
+    if unknown:
+        print(f"unknown kernels {sorted(unknown)}; these have block sizes: {', '.join(KERNELS)}", file=sys.stderr)
+        return 2
     card = cs.card_line()
     print(card)
     t0 = time.perf_counter()
     _cuda.lib()
-    builds = {(k, t): build(k, t) for k, spec in REBUILT.items() for t in spec[4]}
+    builds = {(k, t): build(k, t) for k, spec in REBUILT.items() if k in wanted for t in spec[4]}
     libs = {}
     for (k, t), (out, proc) in builds.items():
         report, _ = proc.communicate()
@@ -217,7 +279,9 @@ def main():
     print(f"[build] {time.perf_counter() - t0:.2f} s")
 
     dev = torch.device("cuda", torch.cuda.current_device())
-    same = between_sizes(dev, card) + rebuilt_sizes(dev, card, libs)
+    same = ((between_sizes(dev, card) if "between_se3" in wanted else [])
+            + (reprojection_sizes(dev, card) if "reprojection" in wanted else [])
+            + rebuilt_sizes(dev, card, libs))
     return 0 if all(same) else 1
 
 

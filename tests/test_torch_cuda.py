@@ -590,7 +590,7 @@ def test_between_kernel_blocks_ragged_and_repeatable(cuda_device, dtype, threads
     once with a measurement shared by all edges (stride 0)."""
     from theseus_tpu_torch.ops import between_se3 as bmod
 
-    min_blocks = bmod._min_blocks(torch.cuda.current_device())
+    min_blocks = _cuda.tile_min_blocks(torch.cuda.current_device())
     K, B = min_blocks * threads // 127 + 1, 127
     assert bmod.between_geometry(K * B, torch.empty((), dtype=dtype).element_size(), min_blocks)[0] == threads
     assert (K * B) % threads
@@ -656,8 +656,8 @@ def test_whole_fwd_subst_pieces(cuda_device, dtype, monkeypatch):
     finally:
         config.set_sparse_dense_tail(True)
     small = (14 if dtype == torch.float32 else 26) * 1024
-    for budget in (small, whole.WHOLE_FWD_SMEM_MAX):
-        monkeypatch.setattr(whole, "WHOLE_FWD_SMEM_MAX", budget)
+    for budget in (small, whole.WHOLE_SUBST_SMEM_MAX):
+        monkeypatch.setattr(whole, "WHOLE_SUBST_SMEM_MAX", budget)
         bld.sched._whole_tables = None
         plan = whole.get_tables(bld.sched).fwd_plan(6, ata.element_size())
         cut = any(not first or not last for _, first, last, _ in plan.stages)
@@ -720,3 +720,93 @@ def test_tail_run_scan_never_syncs_with_the_host(cuda_device):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(carry["err"]).all()
+
+
+# ---------------------------------------------------------------------------
+# the redesigned Reprojection kernel and whole backward sweep
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("threads", [64, 128, 256])
+def test_reprojection_kernel_blocks_ragged_and_repeatable(cuda_device, dtype, threads):
+    """Every block size the geometry picks, each at a K B just above the
+    card's block floor times that size and a multiple of no block size:
+    against the twin (relative to max(1, |twin|): outputs carry the focal
+    length) and bitwise repeatable, with stacked and with shared aux."""
+    from theseus_tpu_torch.ops.reprojection import reprojection_geometry
+
+    min_blocks = _cuda.tile_min_blocks(torch.cuda.current_device())
+    K, B = min_blocks * threads // 127 + 1, 127
+    assert reprojection_geometry(K * B, torch.empty((), dtype=dtype).element_size(), min_blocks)[0] == threads
+    assert (K * B) % threads
+    for shared in (False, True):
+        args = _reprojection_inputs(np.random.default_rng(threads), K, B, dtype, cuda_device, shared)
+        _cuda.reset_launches()
+        got = reprojection_linearize(*args)
+        again = reprojection_linearize(*args)
+        assert _cuda.launches["reprojection"] == 2
+        with config.plain_path():
+            want = reprojection_linearize(*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        for g, w in zip(got, want):
+            _close(g, w, dtype, max(1.0, float(w.abs().max())))
+
+
+def _whole_bwd_pair(bld, ata, atb):
+    """(whole_bwd_subst, the level backward sweep in the original order) on
+    the level kernels' factor and forward sweep."""
+    from theseus_tpu_torch.sparse.cholesky import backward_sweep, factorize_levels, forward_sweep
+    from theseus_tpu_torch.sparse.whole import whole_bwd_subst
+
+    lflat = factorize_levels(bld.sched, ata)
+    perm, iperm, _ = bld.sched.on(atb.device)
+    y = forward_sweep(bld.sched, lflat, atb[perm])
+    _cuda.reset_launches()
+    x_w = whole_bwd_subst(bld.sched, lflat, y)
+    x_w2 = whole_bwd_subst(bld.sched, lflat, y)
+    x_l = backward_sweep(bld.sched, lflat, y)[iperm]
+    torch.cuda.synchronize()
+    assert _cuda.launches["whole_bwd_subst"] == 2
+    assert torch.equal(x_w, x_w2)
+    return x_w, x_l
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_poses,batch,clique", [(64, 16, 0), (256, 128, 0), (2048, 8, 0), (48, 4, 9)])
+def test_whole_bwd_subst_bit_equal_to_level_sweep(cuda_device, dtype, n_poses, batch, clique):
+    """Both run each output's chain over the column's rows in one order and
+    the same transposed solve: the same bits, at the PGO shapes (2048 x 8
+    cut into stages) and on the 9-pose clique (columns of up to 10 rows)."""
+    bld, ata, atb = _whole_system(n_poses, batch, dtype, cuda_device, clique=clique)
+    x_w, x_l = _whole_bwd_pair(bld, ata, atb)
+    assert bool(torch.isfinite(x_w).all())
+    assert float((x_w - x_l).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_whole_bwd_subst_pieces_and_device_x(cuda_device, dtype, monkeypatch):
+    """A 40-pose clique (dense tail off) has columns of up to 41 rows: with
+    a budget of 14 KiB (float32) or 26 KiB (float64) they are staged in
+    pieces, with the full budget whole; and 2048 x 8 under a budget below
+    its x keeps x in device memory. Each bit-equal to the level sweep."""
+    from theseus_tpu_torch.sparse import whole
+
+    config.set_sparse_dense_tail(False)
+    try:
+        bld, ata, atb = _whole_system(64, 5, dtype, cuda_device, clique=40)
+    finally:
+        config.set_sparse_dense_tail(True)
+    small = (14 if dtype == torch.float32 else 26) * 1024
+    for budget in (small, whole.WHOLE_SUBST_SMEM_MAX):
+        monkeypatch.setattr(whole, "WHOLE_SUBST_SMEM_MAX", budget)
+        bld.sched._whole_tables = None
+        plan = whole.get_tables(bld.sched).bwd_plan(6, ata.element_size())
+        cut = any(not first or not last for _, first, last, _ in plan.stages)
+        assert cut == (budget < 32 * 1024)
+        x_w, x_l = _whole_bwd_pair(bld, ata, atb)
+        assert float((x_w - x_l).abs().max()) == 0.0
+    bld, ata, atb = _whole_system(2048, 8, dtype, cuda_device)
+    monkeypatch.setattr(whole, "WHOLE_SUBST_SMEM_MAX", (32 if dtype == torch.float32 else 64) * 1024)
+    assert not whole.get_tables(bld.sched).bwd_plan(6, ata.element_size()).vec_smem
+    x_w, x_l = _whole_bwd_pair(bld, ata, atb)
+    assert float((x_w - x_l).abs().max()) == 0.0

@@ -123,14 +123,14 @@ def test_whole_wrappers_orders_and_level_plan():
 def test_whole_tables_cover_every_column_once():
     _, _, _, pb = _system(48, 8)
     t = whole.get_tables(pb.sched)
-    order, ptr = t.host["order"], t.host["lvl_ptr"]
+    order = np.concatenate(t.levels)
     assert sorted(order.tolist()) == list(range(pb.sched.n_head))
-    assert ptr[0] == 0 and ptr[-1] == len(order) and t.n_levels == len(pb.sched.level_tables)
+    assert t.n_levels == len(t.levels) == len(pb.sched.level_tables)
     assert all(a.dtype == np.int32 for a in t.host.values())
     # a column's update sources lie in earlier levels
     level_of = np.empty(len(order), np.int64)
-    for lv in range(t.n_levels):
-        level_of[order[ptr[lv] : ptr[lv + 1]]] = lv
+    for lv, cols in enumerate(t.levels):
+        level_of[cols] = lv
     for j in range(pb.sched.n_head):
         ks = t.host["upd_k"][j, : t.host["ucount"][j]]
         assert (level_of[ks] < level_of[j]).all()

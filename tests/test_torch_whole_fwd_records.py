@@ -34,8 +34,8 @@ from theseus_tpu_torch.sparse.assemble import apply_block_damping, assemble
 from theseus_tpu_torch.sparse.cholesky import _fwd_scan, factorize_levels, fwd_operands
 from theseus_tpu_torch.sparse.level_kernels import fwd_subst_geometry, update_lanes
 from theseus_tpu_torch.sparse.whole import (
-    WHOLE_FWD_RECORD_BUFS,
-    WHOLE_FWD_SMEM_MAX,
+    WHOLE_SUBST_RECORD_BUFS,
+    WHOLE_SUBST_SMEM_MAX,
     fwd_records,
     fwd_stages,
     get_tables,
@@ -130,11 +130,11 @@ def test_records_hold_each_update_once(n, clique, data):
 def test_plan_fits_the_budget(n, itemsize, y_smem):
     tb = get_tables(_pgo(n)[0].sched)
     plan = tb.fwd_plan(6, itemsize)
-    assert plan.y_smem == y_smem
+    assert plan.vec_smem == y_smem
     y = -(-tb.n * 6 * itemsize // 16) * 16 if y_smem else 0
     assert plan.buf_vals == max(nb * 36 + nc * 6 for _, nc, nb, _ in plan.table)
     buf = -(-plan.buf_vals * itemsize // 16) * 16
-    assert plan.smem == y + 2 * buf + WHOLE_FWD_RECORD_BUFS * 4 * plan.stage_ints <= WHOLE_FWD_SMEM_MAX
+    assert plan.smem == y + 2 * buf + WHOLE_SUBST_RECORD_BUFS * 4 * plan.stage_ints <= WHOLE_SUBST_SMEM_MAX
     threads = int(re.search(r"constexpr int WFS_THREADS = (\d+);", (_cuda.CSRC / "whole_subst.cu").read_text())[1])
     assert threads % 32 == 0 and threads >= 6 * max(plan.gu)
     assert plan.n_stages >= tb.n_levels

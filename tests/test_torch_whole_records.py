@@ -73,7 +73,6 @@ def _records(sched):
 def test_records_hold_the_column_tables(n, clique):
     sched = _pgo(n, clique=clique)[0].sched
     t = get_tables(sched)
-    order, ptr = t.host["order"], t.host["lvl_ptr"]
     recs = _records(sched)
     assert len(recs) == t.n_levels
     lvl = t.host["fact_lvl"]
@@ -81,7 +80,7 @@ def test_records_hold_the_column_tables(n, clique):
     assert lvl[0, 0] == 0 and (np.diff(lvl[:, 0]) == sizes[:-1]).all()
     assert len(t.host["fact_rec"]) == sum(sizes) and t.stage_ints == max(sizes)
     for lv, (nc, rl, ul, r) in enumerate(recs):
-        cols = order[ptr[lv]: ptr[lv + 1]]
+        cols = t.levels[lv]
         assert nc == len(cols)
         np.testing.assert_array_equal(r["len"], sched.row_valid[cols].sum(axis=1))
         np.testing.assert_array_equal(r["uc"], sched.upd_valid[cols].sum(axis=1))

@@ -14,6 +14,7 @@ Nothing here falls back: a missing `nvcc` or a failed compile raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -153,20 +154,19 @@ _SIGNATURES = {
     # lcol, xr, y, C, rl, B, d, x, stream
     "th_level_bwd_subst": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     # pose, point, focal, feat, k1, k2, (k, b) strides of the four aux,
-    # K, B, jpose, jpt, err, stream
-    "th_reprojection": [_P] * 6 + [_L] * 8 + [_I, _I, _P, _P, _P, _P],
+    # K, B, threads, shared-memory bytes (ops/reprojection.py
+    # reprojection_geometry), jpose, jpt, err, stream
+    "th_reprojection": [_P] * 6 + [_L] * 8 + [_I, _I, _I, _L, _P, _P, _P, _P],
     # ata, level records, lvl (n_levels, 4), n_levels, factor slots, largest
     # record's ints, shared-memory bytes (0: the factor in device memory), B,
     # d, lflat, stream
     "th_whole_factor": [_P, _P, _P, _I, _I, _I, _L, _I, _I, _P, _P],
-    # lflat, b, stage records, stage table (n_stages, 4), n_stages, the
-    # largest record's ints, values a stage buffer holds, n, B, d, y in
-    # shared memory (0 / 1), shared-memory bytes, y, stream (sparse/whole.py
-    # FwdPlan)
+    # lflat, b (y), stage records, stage table (n_stages, 4), n_stages, the
+    # largest record's ints, values a stage buffer holds, n, B, d, y (x) in
+    # shared memory (0 / 1), shared-memory bytes, y (x), stream
+    # (sparse/whole.py FwdPlan, BwdPlan)
     "th_whole_fwd_subst": [_P] * 4 + [_I] * 7 + [_L, _P, _P],
-    # lflat, y, perm, col_start, col_len, row_ids, order, lvl_ptr, n_levels,
-    # n, rmax, B, d, x, stream
-    "th_whole_bwd_subst": [_P] * 8 + [_I] * 5 + [_P, _P],
+    "th_whole_bwd_subst": [_P] * 4 + [_I] * 7 + [_L, _P, _P],
 }
 
 
@@ -208,3 +208,39 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The streaming multiprocessors of a card, read once a card (a launch's
+    geometry asks on every call of a host-bound loop)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+# tile_geometry: the block sizes of the kernels that give a block a
+# contiguous range of items (csrc/between_se3.cu, csrc/reprojection.cu)
+TILE_THREADS_MIN = 64
+TILE_THREADS_MAX = 256
+TILE_BLOCKS_PER_SM = 2  # the block shrinks until the launch has this many blocks per SM
+
+
+@functools.lru_cache(maxsize=1024)
+def tile_geometry(n: int, itemsize: int, min_blocks: int, tile: int):
+    """(threads, blocks, shared-memory bytes) of a launch over n items, a
+    block per contiguous range of `threads` items and `tile` values of
+    itemsize bytes a thread in shared memory. threads starts at
+    TILE_THREADS_MAX and halves, down to TILE_THREADS_MIN, while the launch
+    would have fewer than min_blocks blocks (TILE_BLOCKS_PER_SM times the
+    card's SMs). Cached: the LM loop asks again for the same shapes every
+    iteration."""
+    threads = TILE_THREADS_MAX
+    while threads > TILE_THREADS_MIN and -(-n // threads) < min_blocks:
+        threads //= 2
+    return threads, -(-n // threads), tile * threads * itemsize
+
+
+def tile_min_blocks(device_index: int) -> int:
+    """tile_geometry's min_blocks on a card: TILE_BLOCKS_PER_SM times its SMs."""
+    return TILE_BLOCKS_PER_SM * sm_count(device_index)

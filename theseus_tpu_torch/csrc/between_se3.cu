@@ -40,8 +40,6 @@
 // coalesced 16-byte stores. The input tiles and the output tiles share the
 // buffer: BT_TILE values a thread.
 
-#include <cuda_pipeline.h>
-
 #include "common.cuh"
 
 namespace {
@@ -216,32 +214,6 @@ __device__ __forceinline__ void linearize(const Pose<T>& g1, const Pose<T>& g2, 
   }
 }
 
-// a tile of `rows` rows of W values, row stride S in shared memory, stored
-// to device memory where it is contiguous: 16 bytes a store when vec
-template <typename T, int W, int S>
-__device__ __forceinline__ void store_tile(const T* sh, T* out, int rows, bool vec) {
-  constexpr int V = 16 / static_cast<int>(sizeof(T));
-  const int count = rows * W;
-  int done = 0;
-  if (vec) {
-    const int nv = count / V;
-    for (int v = threadIdx.x; v < nv; v += blockDim.x) {
-      union {
-        uint4 u;
-        T x[V];
-      } w;
-#pragma unroll
-      for (int e = 0; e < V; ++e) {
-        const int g = v * V + e;
-        w.x[e] = sh[(g / W) * S + g % W];
-      }
-      reinterpret_cast<uint4*>(out)[v] = w.u;
-    }
-    done = nv * V;
-  }
-  for (int g = done + threadIdx.x; g < count; g += blockDim.x) out[g] = sh[(g / W) * S + g % W];
-}
-
 template <typename T>
 __global__ void __launch_bounds__(BT_THREADS_MAX)
     between_se3_kernel(const T* __restrict__ v1, const T* __restrict__ v2, const T* __restrict__ meas,
@@ -258,18 +230,8 @@ __global__ void __launch_bounds__(BT_THREADS_MAX)
   // the block's v1 and v2 tiles (cnt poses of 12 values each)
   T* s1 = sh;
   T* s2 = sh + nt * 12;
-  if (vec) {
-    constexpr int V = 16 / static_cast<int>(sizeof(T));
-    for (int p = threadIdx.x; p < cnt * 12 / V; p += nt) {
-      __pipeline_memcpy_async(s1 + p * V, v1 + base * 12 + p * V, 16);
-      __pipeline_memcpy_async(s2 + p * V, v2 + base * 12 + p * V, 16);
-    }
-  } else {
-    for (int p = threadIdx.x; p < cnt * 12; p += nt) {
-      __pipeline_memcpy_async(s1 + p, v1 + base * 12 + p, sizeof(T));
-      __pipeline_memcpy_async(s2 + p, v2 + base * 12 + p, sizeof(T));
-    }
-  }
+  th_stage_tile(s1, v1 + base * 12, cnt * 12, vec);
+  th_stage_tile(s2, v2 + base * 12, cnt * 12, vec);
   __pipeline_commit();
   const int t = threadIdx.x;
   const bool mine = t < cnt;
@@ -291,9 +253,9 @@ __global__ void __launch_bounds__(BT_THREADS_MAX)
     linearize(g1, g2, gm, eps_near_zero, eps_near_pi, eps_d_near_zero, sh + t * BT_JS,
               sh + (nt + t) * BT_JS, sh + 2 * nt * BT_JS + t * BT_ES);
   __syncthreads();
-  store_tile<T, 36, BT_JS>(sh, j1_out + base * 36, cnt, vec);
-  store_tile<T, 36, BT_JS>(sh + nt * BT_JS, j2_out + base * 36, cnt, vec);
-  store_tile<T, 6, BT_ES>(sh + 2 * nt * BT_JS, err_out + base * 6, cnt, vec);
+  th_store_tile<T, 36, BT_JS>(sh, j1_out + base * 36, cnt, vec);
+  th_store_tile<T, 36, BT_JS>(sh + nt * BT_JS, j2_out + base * 36, cnt, vec);
+  th_store_tile<T, 6, BT_ES>(sh + 2 * nt * BT_JS, err_out + base * 6, cnt, vec);
 }
 
 // threads and smem from ops/between_se3.py between_geometry; the launcher

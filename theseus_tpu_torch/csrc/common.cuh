@@ -5,6 +5,7 @@
 // launches on the stream it is given and returns cudaGetLastError().
 #pragma once
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #define TH_EXPORT extern "C" __attribute__((visibility("default")))
@@ -14,4 +15,48 @@ constexpr int TH_BLOCK = 128;
 
 inline unsigned th_blocks(long long n) {
   return static_cast<unsigned>((n + TH_BLOCK - 1) / TH_BLOCK);
+}
+
+// The tile kernels (between_se3.cu, reprojection.cu): a block owns a
+// contiguous range of items, stages its input tiles in shared memory and
+// stores its output tiles from there.
+
+// count values from device memory into shared memory by cp.async: 16 bytes
+// a copy when vec (both ends 16-byte aligned), single values for the rest
+template <typename T>
+__device__ __forceinline__ void th_stage_tile(T* dst, const T* src, int count, bool vec) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  int done = 0;
+  if (vec) {
+    const int nv = count / V;
+    for (int v = threadIdx.x; v < nv; v += blockDim.x) __pipeline_memcpy_async(dst + v * V, src + v * V, 16);
+    done = nv * V;
+  }
+  for (int e = done + threadIdx.x; e < count; e += blockDim.x) __pipeline_memcpy_async(dst + e, src + e, sizeof(T));
+}
+
+// a tile of `rows` rows of W values, row stride S in shared memory, stored
+// to device memory where it is contiguous: 16 bytes a store when vec
+template <typename T, int W, int S>
+__device__ __forceinline__ void th_store_tile(const T* sh, T* out, int rows, bool vec) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  const int count = rows * W;
+  int done = 0;
+  if (vec) {
+    const int nv = count / V;
+    for (int v = threadIdx.x; v < nv; v += blockDim.x) {
+      union {
+        uint4 u;
+        T x[V];
+      } w;
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int g = v * V + e;
+        w.x[e] = sh[(g / W) * S + g % W];
+      }
+      reinterpret_cast<uint4*>(out)[v] = w.u;
+    }
+    done = nv * V;
+  }
+  for (int g = done + threadIdx.x; g < count; g += blockDim.x) out[g] = sh[(g / W) * S + g % W];
 }

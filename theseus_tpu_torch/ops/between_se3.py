@@ -18,42 +18,21 @@ The kernel's launch (block size, shared memory) is worked out here, in
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from .. import _cuda
 from ..config import get_eps, needs_grad, use_kernel
 from ..lie import se3
 
-# between_geometry: block sizes the kernel takes (BT_THREADS_MAX in
-# csrc/between_se3.cu) and the shared-memory values a thread's outputs
-# occupy there (BT_TILE: J1 and J2 rows padded from 36 to 37 values, err
-# from 6 to 7)
-BETWEEN_THREADS_MIN = 64
-BETWEEN_THREADS_MAX = 256
+# the shared-memory values a thread's outputs occupy in csrc/between_se3.cu
+# (BT_TILE: J1 and J2 rows padded from 36 to 37 values, err from 6 to 7)
 BETWEEN_TILE = 2 * 37 + 7
-BETWEEN_BLOCKS_PER_SM = 2  # the block shrinks until the launch has this many blocks per SM
 
 
-@functools.lru_cache(maxsize=1024)
 def between_geometry(n: int, itemsize: int, min_blocks: int):
     """(threads, blocks, shared-memory bytes) of one `between_se3` launch
-    over n = K B items: a block per contiguous range of `threads` items.
-    threads starts at BETWEEN_THREADS_MAX and halves, down to
-    BETWEEN_THREADS_MIN, while the launch would have fewer than min_blocks
-    blocks (BETWEEN_BLOCKS_PER_SM times the card's SMs). Cached: the LM loop
-    asks again for the same shapes every iteration."""
-    threads = BETWEEN_THREADS_MAX
-    while threads > BETWEEN_THREADS_MIN and -(-n // threads) < min_blocks:
-        threads //= 2
-    return threads, -(-n // threads), BETWEEN_TILE * threads * itemsize
-
-
-@functools.lru_cache(maxsize=None)
-def _min_blocks(device_index: int) -> int:
-    """BETWEEN_BLOCKS_PER_SM times the SMs of the card, read once a card."""
-    return BETWEEN_BLOCKS_PER_SM * torch.cuda.get_device_properties(device_index).multi_processor_count
+    over n = K B items: `_cuda.tile_geometry` with the Between tile."""
+    return _cuda.tile_geometry(n, itemsize, min_blocks, BETWEEN_TILE)
 
 
 def between_linearize_plain(v1, v2, meas):
@@ -128,7 +107,7 @@ def _launch(v1, v2, meas, counter):
     if meas.stride(-1) != 1 or meas.stride(-2) != 4:
         meas = meas.contiguous()
     k, b = v1.shape[0], v1.shape[1]
-    threads, _, smem = between_geometry(k * b, v1.element_size(), _min_blocks(v1.device.index))
+    threads, _, smem = between_geometry(k * b, v1.element_size(), _cuda.tile_min_blocks(v1.device.index))
     j1 = torch.empty((k, b, 6, 6), dtype=v1.dtype, device=v1.device)
     j2 = torch.empty_like(j1)
     err = torch.empty((k, b, 6), dtype=v1.dtype, device=v1.device)

@@ -9,7 +9,9 @@ with closed-form jacobians jpt = de/dP R (2x3) and
 jpose = [jpt | -jpt hat(p)] (2x6, right tangent [lin; ang]).
 `reprojection_linearize` launches `csrc/reprojection.cu` on a CUDA tensor
 and runs `reprojection_linearize_plain` (the port of the JAX package's
-`_reference_linearize`) on a CPU tensor.
+`_reference_linearize`) on a CPU tensor. The kernel's launch (block size,
+shared memory) is worked out here, in `reprojection_geometry`, where the
+CPU tests reach it.
 """
 
 from __future__ import annotations
@@ -19,6 +21,17 @@ import torch
 from .. import _cuda
 from ..config import check_no_grad, use_kernel
 from ..lie.utils import so3_hat
+
+# the shared-memory values a thread's outputs occupy in csrc/reprojection.cu
+# (RP_TILE: jpose's row padded from 12 to 13 values, jpt's from 6 to 7,
+# err's from 2 to 3)
+REPROJECTION_TILE = 13 + 7 + 3
+
+
+def reprojection_geometry(n: int, itemsize: int, min_blocks: int):
+    """(threads, blocks, shared-memory bytes) of one `reprojection` launch
+    over n = K B items: `_cuda.tile_geometry` with the Reprojection tile."""
+    return _cuda.tile_geometry(n, itemsize, min_blocks, REPROJECTION_TILE)
 
 
 def reprojection_linearize_plain(pose, point, focal, feat, k1, k2):
@@ -83,11 +96,12 @@ def _launch(pose, point, focal, feat, k1, k2):
     ops = (pose, point) + aux
     if any(t.device != pose.device or t.dtype != pose.dtype for t in ops):
         raise ValueError("reprojection_linearize operands must share device and dtype")
-    # one thread per (k, b): the kernel indexes in 64 bits, but a grid over
-    # 2^31 or more items is far beyond any problem that fits on the card
+    # the kernel indexes in 64 bits, but 2^31 or more items is far beyond
+    # any problem that fits on the card
     if k * b >= 2**31:
         raise ValueError(f"reprojection_linearize: K*B = {k * b} items exceed the kernel's grid")
     fn = getattr(_cuda.lib(), f"th_reprojection_{_cuda.suffix(pose.dtype)}")
+    threads, _, smem = reprojection_geometry(k * b, pose.element_size(), _cuda.tile_min_blocks(pose.device.index))
     pose = pose.contiguous()
     point = point.contiguous()
     # aux is read through (k, b) element strides: a shared slot keeps its
@@ -100,7 +114,7 @@ def _launch(pose, point, focal, feat, k1, k2):
     with torch.cuda.device(pose.device):
         rc = fn(
             pose.data_ptr(), point.data_ptr(), *(a.data_ptr() for a in aux), *strides,
-            k, b, jpose.data_ptr(), jpt.data_ptr(), err.data_ptr(), _cuda.stream_of(pose),
+            k, b, threads, smem, jpose.data_ptr(), jpt.data_ptr(), err.data_ptr(), _cuda.stream_of(pose),
         )
     _cuda.check(rc, "reprojection")
     _cuda.launches["reprojection"] += 1

@@ -141,7 +141,7 @@ def level_fwd_subst(ljk, yk, b, ldiag):
     if yk.shape != (C, ul, B, d) or b.shape != (C, B, d) or ldiag.shape != (C, B, d, d):
         raise ValueError(f"level_fwd_subst: shapes {ljk.shape}, {yk.shape}, {b.shape}, {ldiag.shape} do not agree")
     fn, (ljk, yk, b, ldiag) = _prepare("level_fwd_subst", [ljk, yk, b, ldiag], d)
-    sms = torch.cuda.get_device_properties(ljk.device).multi_processor_count
+    sms = _cuda.sm_count(ljk.device.index)
     bt, gu, uc = fwd_subst_geometry(C, ul, B, d, ljk.element_size(), FWD_BLOCKS_PER_SM * sms)
     y = torch.empty_like(b)
     with torch.cuda.device(ljk.device):

@@ -15,16 +15,18 @@ The factor keeps the level plan's AoS layout (nnz_l+1, B, d, d) with slot 0
 zero, so either plan's solve, the refinement and the solve's backward take
 one layout. `b` comes in the original variable order and `y` leaves in the
 elimination order; `x` leaves in the original order: the permutations are
-read inside the kernels, so a solve is three launches.
+folded into the kernels' index records, so a solve is two launches.
 
 None of the TPU layout carries over: no 128-lane batch padding (and no
 identity diagonals in pad lanes), no 8-sublane block padding, no zero
-scratch slots, no byte-packed SMEM tables. The tables are int32 arrays in
-device memory, built once per device by `WholeTables.on`.
+scratch slots, no byte-packed SMEM tables. The index records are int32
+arrays in device memory, copied once per device (`WholeTables.on` for the
+factor's, `FwdPlan.on` and `BwdPlan.on` for the substitutions').
 
 On the card each kernel gives every batch element its own block and walks
-the etree levels inside the kernel, one barrier per phase of a level: the
-columns of a level are independent, so the block's threads share them. The
+the etree levels inside the kernel (the substitutions in stages of a
+level's columns), one barrier per phase: the columns of a level are
+independent, so the block's threads share them. The
 factor kernel keeps the block's factor in shared memory while it builds it
 when the factor and its staged index records fit WHOLE_FACTOR_SMEM_MAX
 (`whole_factor_smem_bytes`), and in device memory otherwise.
@@ -49,11 +51,11 @@ WHOLE_FACTOR_SMEM_MAX = 224 * 1024
 # launcher rejects fewer bytes than its layout): level lv in use, lv + 1
 # landed, lv + 2 in flight.
 WHOLE_FACTOR_STAGES = 3
-# whole_fwd_subst (FwdPlan): its shared-memory budget and the record buffers
-# it stages (csrc/whole_subst.cu WFS_RECORD_BUFS: stage s in use, s + 1
-# landed, s + 2 in flight)
-WHOLE_FWD_SMEM_MAX = 224 * 1024
-WHOLE_FWD_RECORD_BUFS = 3
+# whole_fwd_subst and whole_bwd_subst (FwdPlan, BwdPlan): their shared-memory
+# budget and the record buffers they stage (csrc/whole_subst.cu
+# WS_RECORD_BUFS: stage s in use, s + 1 landed, s + 2 in flight)
+WHOLE_SUBST_SMEM_MAX = 224 * 1024
+WHOLE_SUBST_RECORD_BUFS = 3
 
 
 def factor_records(tables: Dict[str, np.ndarray], levels):
@@ -104,24 +106,23 @@ def level_lanes(tables: Dict[str, np.ndarray], cols) -> int:
     return update_lanes(max(1, int(tables["ucount"][cols].max())))
 
 
-def fwd_stages(tables: Dict[str, np.ndarray], levels, d: int, itemsize: int, data_bytes: int):
-    """Split the forward sweep's levels into stages, each staged whole into
-    one shared-memory buffer of data_bytes (csrc/whole_subst.cu).
+def _sweep_stages(levels, counts, lanes, d: int, itemsize: int, data_bytes: int):
+    """Split a substitution sweep's levels, in the order given, into stages,
+    each staged whole into one shared-memory buffer of data_bytes
+    (csrc/whole_subst.cu).
 
-    Per level, gu = `level_lanes` (the level plan's rule, so that both sum
-    in one order). A stage is either a
-    run of whole columns of one level (each column's update blocks, its
-    diagonal block and its b row; a level too large for one buffer is cut
-    into runs of near-equal length) or, for a column too long for the
-    buffer, one piece of its update list: pieces of a multiple of gu
-    updates, so that each lane keeps its order; the last piece adds the
-    diagonal block and the b row. Returns [(gu, first, last, [(j, u0, u1)])],
-    first / last marking a column's first and last piece (both set for
-    whole columns)."""
+    counts[j] is column j's list length (its update blocks, or its rows
+    below the diagonal), lanes[lv] the lanes that share one output's list
+    on level lv. A stage is either a run of whole columns of one level
+    (each column's list blocks, its diagonal block and its vector row; a
+    level too large for one buffer is cut into runs of near-equal length)
+    or, for a column too long for the buffer, one piece of its list: pieces
+    of a multiple of the level's lanes, so that each lane keeps its order.
+    Returns [(lanes, first, last, [(j, u0, u1)])], first / last marking a
+    column's first and last piece (both set for whole columns)."""
     blk, row = d * d * itemsize, d * itemsize
     stages = []
-    for cols in levels:
-        gu = level_lanes(tables, cols)
+    for cols, gu in zip(levels, lanes):
         run, needs = [], []
 
         def flush():
@@ -130,7 +131,7 @@ def fwd_stages(tables: Dict[str, np.ndarray], levels, d: int, itemsize: int, dat
             run.clear()
             needs.clear()
 
-        for j, nu in zip(cols, tables["ucount"][cols]):
+        for j, nu in zip(cols, counts[cols]):
             j, nu = int(j), int(nu)
             need = (nu + 1) * blk + row
             if need <= data_bytes:
@@ -146,31 +147,49 @@ def fwd_stages(tables: Dict[str, np.ndarray], levels, d: int, itemsize: int, dat
     return stages
 
 
-def fwd_records(tables: Dict[str, np.ndarray], stages):
-    """The forward sweep's per-stage index records (csrc/whole_subst.cu):
-    for a stage of nc columns and nb staged blocks, one int32 run
-    col[nc] brow[nc] nu[nc] boff[nc] slot[nb] kk[nb]: the column, its b row
-    (its original variable index), its updates in this stage, its first
-    block in the buffer; the factor slot of each staged block (a column's
-    updates, then its diagonal block where the stage holds its last piece)
-    and the y row each update block multiplies. Returns (records, stage
-    table (n_stages, 4) = (offset, nc, nb, gu | first << 6 | last << 7),
-    the largest record's ints)."""
+def fwd_stages(tables: Dict[str, np.ndarray], levels, d: int, itemsize: int, data_bytes: int):
+    """The forward sweep's stages (`_sweep_stages`): the levels in order,
+    each column's list its update blocks, gu = `level_lanes` lanes per
+    output (the level plan's rule, so that both sum in one order). A
+    column's last piece adds its diagonal block and its b row."""
+    lanes = [level_lanes(tables, cols) for cols in levels]
+    return _sweep_stages(levels, tables["ucount"], lanes, d, itemsize, data_bytes)
+
+
+def bwd_stages(tables: Dict[str, np.ndarray], levels, d: int, itemsize: int, data_bytes: int):
+    """The backward sweep's stages (`_sweep_stages`): the levels last to
+    first, each column's list its rows below the diagonal, in order, one
+    lane per output. A column's first piece adds its y row, its last piece
+    its diagonal block."""
+    return _sweep_stages(levels[::-1], tables["col_len"] - 1, [1] * len(levels), d, itemsize, data_bytes)
+
+
+def _sweep_records(stages, lists, rows, diag, out_row, vec_row):
+    """A sweep's per-stage index records (csrc/whole_subst.cu): for a stage
+    of nc columns and nb staged blocks, one int32 run
+    out[nc] vrow[nc] nu[nc] boff[nc] slot[nb] kk[nb]: the row each column's
+    result goes to (out_row[j]), the vector row it starts from
+    (vec_row[j]), its blocks in this stage, its first block in the buffer;
+    the factor slot of each staged block (the stage's part of the column's
+    list lists[j], then its diagonal block diag[j] where the stage holds
+    its last piece) and the result row each block multiplies (rows[j]).
+    Returns (records, stage table (n_stages, 4) = (offset, nc,
+    nb, lanes | first << 6 | last << 7), the largest record's ints)."""
     runs, table, off = [], [], 0
     for gu, first, last, cols in stages:
-        col, brow, nu, boff, slot, kk = [], [], [], [], [], []
+        out, vrow, nu, boff, slot, kk = [], [], [], [], [], []
         for j, u0, u1 in cols:
-            col.append(j)
-            brow.append(int(tables["perm"][j]))
+            out.append(int(out_row[j]))
+            vrow.append(int(vec_row[j]))
             nu.append(u1 - u0)
             boff.append(len(slot))
-            slot.extend(tables["upd_jk"][j, u0:u1])
-            kk.extend(tables["upd_k"][j, u0:u1])
+            slot.extend(lists[j, u0:u1])
+            kk.extend(rows[j, u0:u1])
             if last:
-                slot.append(int(tables["diag"][j]))
+                slot.append(int(diag[j]))
                 kk.append(0)
-        run = np.asarray(col + brow + nu + boff + [int(s) for s in slot] + [int(k) for k in kk], np.int32)
-        table.append((off, len(col), len(slot), gu | int(first) << 6 | int(last) << 7))
+        run = np.asarray(out + vrow + nu + boff + [int(s) for s in slot] + [int(k) for k in kk], np.int32)
+        table.append((off, len(out), len(slot), gu | int(first) << 6 | int(last) << 7))
         runs.append(run)
         off += len(run)
     rec = np.concatenate(runs) if runs else np.zeros(0, np.int32)
@@ -178,48 +197,69 @@ def fwd_records(tables: Dict[str, np.ndarray], stages):
     return rec, table, max((len(r) for r in runs), default=0)
 
 
-class FwdPlan:
-    """Launch plan of `whole_fwd_subst` for one (d, dtype): the stages and
-    records (`fwd_stages`, `fwd_records`), whether the block keeps y in
-    shared memory and the shared-memory bytes.
+def fwd_records(tables: Dict[str, np.ndarray], stages):
+    """The forward sweep's records (`_sweep_records`): y_j is written at
+    row j (elimination order) from b row perm[j] (original order); the list
+    is the update blocks upd_jk[j] and the y rows upd_k[j] they multiply;
+    the b rows arrive with a column's last piece."""
+    ident = np.arange(len(tables["perm"]))
+    return _sweep_records(stages, tables["upd_jk"], tables["upd_k"], tables["diag"], ident, tables["perm"])
 
-    The shared memory holds y (n d values, 16-byte rounded) when it fits,
-    two stage buffers (buf_vals values each: a stage's blocks, then its b
-    rows) and WHOLE_FWD_RECORD_BUFS record buffers, within
-    WHOLE_FWD_SMEM_MAX (`_fit`); if no stage fits beside y, y stays in
-    device memory."""
 
-    def __init__(self, tb: "WholeTables", d: int, itemsize: int):
-        self.gu = [level_lanes(tb.host, c) for c in tb.levels]
-        gu_max = max(self.gu, default=1)
-        fit = self._fit(tb, d, itemsize, _round16(tb.n * d * itemsize), gu_max)
-        self.y_smem = fit is not None
-        fit = fit or self._fit(tb, d, itemsize, 0, gu_max)
+def bwd_records(tables: Dict[str, np.ndarray], stages):
+    """The backward sweep's records (`_sweep_records`): x_j is written at
+    row perm[j] (the original order, where the kernel keeps x) from y row j
+    (elimination order); the list is the column's blocks below the
+    diagonal, col_slots[j, 1:], and the x rows perm[row_ids[j, 1:]] they
+    multiply; the diagonal block is col_slots[j, 0]; the y rows arrive with
+    a column's first piece."""
+    perm = tables["perm"]
+    ident = np.arange(len(perm))
+    return _sweep_records(stages, tables["col_slots"][:, 1:], perm[tables["row_ids"][:, 1:]],
+                          tables["col_slots"][:, 0], perm, ident)
+
+
+class _SweepPlan:
+    """Launch plan of one whole substitution sweep for one (d, dtype): the
+    stages and records, whether the block keeps the vector it solves for
+    in shared memory (`vec_smem`) and the shared-memory bytes.
+
+    The shared memory holds that vector (n d values, 16-byte rounded) when
+    it fits, two stage buffers (buf_vals values each: a stage's blocks, then
+    its vector rows) and WHOLE_SUBST_RECORD_BUFS record buffers, within
+    WHOLE_SUBST_SMEM_MAX (`_fit`); if no stage fits beside the vector, it
+    stays in device memory."""
+
+    def __init__(self, tb: "WholeTables", d: int, itemsize: int, stages_fn, records_fn, gu_max: int):
+        fit = self._fit(tb, d, itemsize, _round16(tb.n * d * itemsize), gu_max, stages_fn, records_fn)
+        self.vec_smem = fit is not None
+        fit = fit or self._fit(tb, d, itemsize, 0, gu_max, stages_fn, records_fn)
         if fit is None:
-            raise ValueError("whole_fwd_subst: no stage fits the shared-memory budget")
+            raise ValueError(f"{type(self).__name__}: no stage fits the shared-memory budget")
         self.stages, (self.rec, self.table, self.stage_ints), self.buf_vals, self.smem = fit
         self.n_stages = len(self.stages)
         self._device: Dict[str, Dict[str, torch.Tensor]] = {}
 
     @staticmethod
-    def _fit(tb, d, itemsize, y_bytes, gu_max):
-        """(stages, records, buffer values, smem bytes) with y_bytes of y beside the
-        buffers, or None when not even a piece of gu_max updates fits. A
-        record costs at most r bytes per staged byte (16 per column, which
-        stages a block and a b row at least, and 8 per further block), so a
-        stage buffer of (budget - y - 32) / (2 + RECORD_BUFS r) bytes fits
-        with its records (32: the buffers' rounding to 16 bytes)."""
+    def _fit(tb, d, itemsize, v_bytes, gu_max, stages_fn, records_fn):
+        """(stages, records, buffer values, smem bytes) with v_bytes of the
+        vector beside the buffers, or None when not even a piece of gu_max
+        blocks fits. A record costs at most r bytes per staged byte (16 per
+        column, which stages a block and a vector row at least, and 8 per
+        further block), so a stage buffer of
+        (budget - v_bytes - 32) / (2 + RECORD_BUFS r) bytes fits with its
+        records (32: the buffers' rounding to 16 bytes)."""
         blk, row = d * d * itemsize, d * itemsize
         r = max(24 / (blk + row), 8 / blk)
-        data = int((WHOLE_FWD_SMEM_MAX - y_bytes - 32) / (2 + WHOLE_FWD_RECORD_BUFS * r))
+        data = int((WHOLE_SUBST_SMEM_MAX - v_bytes - 32) / (2 + WHOLE_SUBST_RECORD_BUFS * r))
         if data < (gu_max + 1) * blk + row:
             return None
-        stages = fwd_stages(tb.host, tb.levels, d, itemsize, data)
-        records = fwd_records(tb.host, stages)
+        stages = stages_fn(tb.host, tb.levels, d, itemsize, data)
+        records = records_fn(tb.host, stages)
         table, stage_ints = records[1], records[2]
         buf_vals = int((table[:, 2] * d * d + table[:, 1] * d).max(initial=0))
-        smem = y_bytes + 2 * _round16(buf_vals * itemsize) + WHOLE_FWD_RECORD_BUFS * 4 * stage_ints
-        assert smem <= WHOLE_FWD_SMEM_MAX, (smem, WHOLE_FWD_SMEM_MAX)
+        smem = v_bytes + 2 * _round16(buf_vals * itemsize) + WHOLE_SUBST_RECORD_BUFS * 4 * stage_ints
+        assert smem <= WHOLE_SUBST_SMEM_MAX, (smem, WHOLE_SUBST_SMEM_MAX)
         return stages, records, buf_vals, smem
 
     def on(self, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -228,6 +268,23 @@ class FwdPlan:
             self._device[key] = {"rec": torch.as_tensor(self.rec, device=device),
                                  "table": torch.as_tensor(self.table, device=device)}
         return self._device[key]
+
+
+class FwdPlan(_SweepPlan):
+    """`whole_fwd_subst`'s plan (`fwd_stages`, `fwd_records`); gu: the
+    lanes per output of each level. vec_smem: y in shared memory."""
+
+    def __init__(self, tb: "WholeTables", d: int, itemsize: int):
+        self.gu = [level_lanes(tb.host, c) for c in tb.levels]
+        super().__init__(tb, d, itemsize, fwd_stages, fwd_records, max(self.gu, default=1))
+
+
+class BwdPlan(_SweepPlan):
+    """`whole_bwd_subst`'s plan (`bwd_stages`, `bwd_records`). vec_smem: x
+    in shared memory."""
+
+    def __init__(self, tb: "WholeTables", d: int, itemsize: int):
+        super().__init__(tb, d, itemsize, bwd_stages, bwd_records, 1)
 
 
 def whole_factor_smem_bytes(sched, d: int, itemsize: int) -> int:
@@ -253,15 +310,14 @@ class WholeTables:
     block); col_len (n) valid rows, packed at the front; row_ids (n, rmax)
     the rows' indices; ucount (n) valid updates, packed at the front; upd_jk
     (n, umax) slot of L[j, k]; upd_k (n, umax) the source column k; diag (n)
-    the diagonal slot; perm (n). The level walk: `order`, the columns
-    grouped by etree level, and `lvl_ptr` (levels + 1) into it. The factor
-    kernel's per-level records: `fact_rec`, `fact_lvl` (`factor_records`)."""
+    the diagonal slot; perm (n); `levels`, the columns of each etree level.
+    The substitutions' records come from these (`fwd_plan`, `bwd_plan`); the
+    factor kernel's per-level records are `fact_rec`, `fact_lvl`
+    (`factor_records`)."""
 
     def __init__(self, sched):
         nh = sched.n_head
         self.n = nh
-        self.rmax = int(sched.a_src.shape[1])
-        self.umax = int(sched.upd_slots.shape[1])
         col_len = sched.row_valid.sum(axis=1)
         ucount = sched.upd_valid.sum(axis=1)
         if not all(sched.row_valid[j, : col_len[j]].all() for j in range(nh)):
@@ -282,30 +338,35 @@ class WholeTables:
             "upd_k": i32(sched.upd_k),
             "diag": i32(sched.diag_slots),
             "perm": i32(sched.perm),
-            "order": i32(order),
-            "lvl_ptr": i32(np.concatenate([[0], np.cumsum([len(c) for c in levels])])),
         }
         rec, lvl, self.stage_ints = factor_records(
             dict(self.host, a_src=i32(sched.a_src), a_tr=i32(sched.a_tr), upd_slots=i32(sched.upd_slots)),
             levels)
         self.host["fact_rec"], self.host["fact_lvl"] = rec, lvl
         self.n_levels = len(levels)
-        self._fwd_plans: Dict[tuple, FwdPlan] = {}
+        self._plans: Dict[tuple, _SweepPlan] = {}
         self._device: Dict[str, Dict[str, torch.Tensor]] = {}
+
+    def _plan(self, cls, d: int, itemsize: int):
+        key = (cls, d, itemsize)
+        if key not in self._plans:
+            self._plans[key] = cls(self, d, itemsize)
+        return self._plans[key]
 
     def fwd_plan(self, d: int, itemsize: int) -> FwdPlan:
         """The forward sweep's plan for blocks of d x d values of itemsize bytes."""
-        key = (d, itemsize)
-        if key not in self._fwd_plans:
-            self._fwd_plans[key] = FwdPlan(self, *key)
-        return self._fwd_plans[key]
+        return self._plan(FwdPlan, d, itemsize)
+
+    def bwd_plan(self, d: int, itemsize: int) -> BwdPlan:
+        """The backward sweep's plan for blocks of d x d values of itemsize bytes."""
+        return self._plan(BwdPlan, d, itemsize)
 
     def on(self, device: torch.device) -> Dict[str, torch.Tensor]:
+        """The factor kernel's records (`fact_rec`, `fact_lvl`) on `device`,
+        copied once a device."""
         key = str(device)
         if key not in self._device:
-            self._device[key] = {
-                k: torch.as_tensor(v, device=device) for k, v in self.host.items()
-            }
+            self._device[key] = {k: torch.as_tensor(self.host[k], device=device) for k in ("fact_rec", "fact_lvl")}
         return self._device[key]
 
 
@@ -376,7 +437,7 @@ def whole_fwd_subst(sched, lflat: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     y = torch.empty_like(b)
     with torch.cuda.device(lflat.device):
         rc = fn(lflat.data_ptr(), b.data_ptr(), t["rec"].data_ptr(), t["table"].data_ptr(), plan.n_stages,
-                plan.stage_ints, plan.buf_vals, tb.n, bsz, d, int(plan.y_smem),
+                plan.stage_ints, plan.buf_vals, tb.n, bsz, d, int(plan.vec_smem),
                 plan.smem, y.data_ptr(), _cuda.stream_of(lflat))
     _cuda.check(rc, "whole_fwd_subst")
     _cuda.launches["whole_fwd_subst"] += 1
@@ -395,14 +456,14 @@ def whole_bwd_subst(sched, lflat: torch.Tensor, y: torch.Tensor) -> torch.Tensor
     bsz, d = lflat.shape[1], lflat.shape[-1]
     _check("whole_bwd_subst", (lflat, (sched.sym.nnz_l + 1, bsz, d, d)), (y, (tb.n, bsz, d)))
     fn = _fn("whole_bwd_subst", lflat, d)
-    t = tb.on(lflat.device)
+    plan = tb.bwd_plan(d, lflat.element_size())
+    t = plan.on(lflat.device)
     lflat, y = lflat.contiguous(), y.contiguous()
     x = torch.empty_like(y)
     with torch.cuda.device(lflat.device):
-        rc = fn(lflat.data_ptr(), y.data_ptr(), t["perm"].data_ptr(), t["col_slots"].data_ptr(),
-                t["col_len"].data_ptr(), t["row_ids"].data_ptr(), t["order"].data_ptr(),
-                t["lvl_ptr"].data_ptr(), tb.n_levels, tb.n, tb.rmax, bsz, d, x.data_ptr(),
-                _cuda.stream_of(lflat))
+        rc = fn(lflat.data_ptr(), y.data_ptr(), t["rec"].data_ptr(), t["table"].data_ptr(), plan.n_stages,
+                plan.stage_ints, plan.buf_vals, tb.n, bsz, d, int(plan.vec_smem),
+                plan.smem, x.data_ptr(), _cuda.stream_of(lflat))
     _cuda.check(rc, "whole_bwd_subst")
     _cuda.launches["whole_bwd_subst"] += 1
     return x
