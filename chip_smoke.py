@@ -24,7 +24,9 @@ driven alone. In order:
    kernel's registers and spills;
 3. kernel phase: every kernel against its plain PyTorch twin on the card, at
    the shapes the main paths give it (PGO: Between at K=257, B=128, the
-   assembly of both buckets, every etree level's (C, rl, ul); BA:
+   assembly of both buckets, every etree level's (C, rl, ul), and the
+   level backward substitution on each of the grid's 14 head levels,
+   launched twice for the same bits; BA:
    Reprojection at K=204,800, B=1 and at 16 x 200 x batch 16, the mixed-dof
    assembly; the whole-sweep factor (against its per-column twin and the
    level kernels' factor, slot for slot, which must be equal bit for bit)
@@ -60,10 +62,13 @@ driven alone. In order:
    sleep kernel), beside its bound (bytes over 3.35 TB/s or operations over
    67 TFLOP/s, the larger); the whole factor and both whole sweeps also at
    2048 x 8; the redesigned rows with the first designs' device times
-   beside; the level factor and forward substitution per launch at
+   beside (rows 5, 8 and 4b, the last also over the grid); the level
+   backward substitution also at 2048 x 8; the level factor and forward
+   substitution per launch at
    their widest and deepest level and at the smallest shape (the launch
    floor); the grid's tail POTRF, tail elimination and factorization, and
-   the level backward substitution sweep over its head levels;
+   the level backward substitution sweep over its head levels beside its
+   twin and the library's transposed solve with the grid's dense L;
 6. profile phase: per path, synced stage times of one LM iteration and a
    torch.profiler window (device busy and idle share, launches, top
    kernels);
@@ -176,11 +181,14 @@ WHOLE_SHAPES = ((256, 128), (2048, 8))
 # the dense-tail path: a 16 x 16 grid PGO (256 poses) at batch 128; its
 # symbolic analysis folds the last 51 columns into one dense supernode
 GRID = (16, 16, 128)
-# device ms of the first designs of the rows this run's design replaced
+# device ms of the first designs of the redesigned rows 5, 8 and 4b
 # (PERF.md, kernel table, the previous design's last measurement: NVIDIA
-# H100 80GB HBM3, 700 W; reprojection at BA 128 x 4000 x 1, whole_bwd_subst
-# at PGO 256 x 128), printed beside this run's
-FIRST_DESIGN_DEVICE_MS = {"reprojection": 0.0416, "whole_bwd_subst": 0.0528}
+# H100 80GB HBM3, 700 W; reprojection at BA 128 x 4000 x 1, the others at
+# PGO 256 x 128, level_bwd_subst also at 2048 x 8 (the parent tree in
+# scripts/torch_ab.py's A/B) and over the grid's head levels, one sweep),
+# printed beside this run's
+FIRST_DESIGN_DEVICE_MS = {"reprojection": 0.0416, "whole_bwd_subst": 0.0528, "level_bwd_subst": 0.0649,
+                          "level_bwd_subst 2048x8": 0.0777, "level_bwd_subst grid": 0.2731}
 # the card's peaks for the bound: HBM3 bytes/s and float32 FLOP/s outside the
 # tensor cores (H100 SXM data sheet, at the 700 W limit)
 PEAK_BYTES = 3.35e12
@@ -458,6 +466,13 @@ def phase_kernels(dev):
                 "level_fwd_subst", dn, level_fwd_subst(*fwd), level_fwd_subst_plain(*fwd), note))
             worst["level_bwd_subst"] = max(worst["level_bwd_subst"], _dev_report(
                 "level_bwd_subst", dn, level_bwd_subst(*bwd), level_bwd_subst_plain(*bwd), note))
+        # the grid's head levels: columns of 5 to 15 rows, batch tiles of 1 to 32
+        g_prob = grid_prob(dtype, dev)
+        for li, (_, _, bwd) in enumerate(level_inputs(g_prob, *plain_system(g_prob)[1:])):
+            note = "grid level {:2d} C={} rl={}".format(li, *bwd[0].shape[:2])
+            got = _repeatable("level_bwd_subst", lambda: [level_bwd_subst(*bwd)], f"{dn} {note}")
+            worst["level_bwd_subst"] = max(worst["level_bwd_subst"], _dev_report(
+                "level_bwd_subst", dn, got, [level_bwd_subst_plain(*bwd)], note))
         for k, v in worst.items():
             max_abs.setdefault(k, {})[dn] = v
     torch.cuda.synchronize()
@@ -1058,19 +1073,28 @@ def phase_tail(dev):
         theta = torch.tensor(THETA0, dtype=dtype, device=dev, requires_grad=True)
         with config.plain_path() if plain else contextlib.nullcontext():
             before = dict(_cuda.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             o, _ = g_layer.forward(dict(g_inputs, w_loop=theta.reshape(1, 1)),
                                    optimizer_kwargs={"backward_mode": "implicit"})
             loss = mean_sq_local(o, gt)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
             loss.backward()
             torch.cuda.synchronize()
+            t2 = time.perf_counter()
         used = {k: v - before[k] for k, v in _cuda.launches.items() if v != before[k]}
-        return float(loss.detach()), float(theta.grad), used
+        return float(loss.detach()), float(theta.grad), used, ((t1 - t0) * 1e3, (t2 - t1) * 1e3)
 
-    loss, g32, used = grad(torch.float32, False)
-    _, g64, _ = grad(torch.float64, True)
+    loss, g32, used, first_ms = grad(torch.float32, False)
+    _, g64, _, _ = grad(torch.float64, True)
     rel = abs(g32 - g64) / abs(g64)
     print(f"[tail] implicit training step: loss {loss:.8e}, d loss/d theta float32 kernels {g32:.6e} vs float64 "
           f"plain twins {g64:.6e}, rel {rel:.3e} (tol {GRAD_RTOL_F32:.0e}); launches {used}")
+    again_ms = grad(torch.float32, False)[3]
+    print(f"[tail] implicit training step {rows}x{cols}x{batch} float32 kernels, (forward, backward()) ms, each "
+          f"ended by a sync: first ({first_ms[0]:.3f}, {first_ms[1]:.3f}), again on a fresh layer "
+          f"({again_ms[0]:.3f}, {again_ms[1]:.3f})")
     check(all(used.get(k, 0) > 0 for k in LEVEL_KERNELS), "tail training step missed the level kernels")
     check(g32 != 0.0 and rel <= GRAD_RTOL_F32, "tail: training gradient off the float64 twin gradient")
     return launches
@@ -1343,6 +1367,8 @@ def phase_timing(dev, card, twin_ms):
                                lambda: assemble_blocks_plain(ba_pattern, ba_padded)),
         "level_factor 2048x8": (lambda: [level_factor(*f) for f, _, _ in lv_deep],
                                 lambda: [level_factor_plain(*f) for f, _, _ in lv_deep]),
+        "level_bwd_subst 2048x8": (lambda: [level_bwd_subst(*f) for _, _, f in lv_deep],
+                                   lambda: [level_bwd_subst_plain(*f) for _, _, f in lv_deep]),
         "whole_factor": (lambda: whole_factor(sched, w_ata), plain(lambda: whole_factor(sched, w_ata))),
         "whole_factor 2048x8": (lambda: whole_factor(deep_sched, dw_ata),
                                 plain(lambda: whole_factor(deep_sched, dw_ata))),
@@ -1426,13 +1452,6 @@ def phase_timing(dev, card, twin_ms):
     print(f"[timing] floor (C, rl, ul, B) = (1, 1, 1, 1): level_factor {floor_us:.2f} us, level_fwd_subst "
           f"{floor_fwd_us:.2f} us per launch (device, queue prefilled) on {card}")
 
-    # the redesigned rows 5 and 8 beside their first designs' device times
-    # (PERF.md, the previous design's last measurement, same card model and limit)
-    for name, first in FIRST_DESIGN_DEVICE_MS.items():
-        shape = "BA 128x4000x1" if name == "reprojection" else "PGO 256x128"
-        print(f"[timing] {name:<19} {shape} float32: {dev_times[name]:.4f} ms device now, first design "
-              f"{first:.4f} ms device (PERF.md); back to back now {times[name][0]:.4f} ms on {card}")
-
     # the dense tail of the grid: its POTRF alone, the tail's elimination
     # (assembly of C, POTRF, scatter) and the whole factorization
     from theseus_tpu_torch.sparse import cholesky as chol
@@ -1457,11 +1476,21 @@ def phase_timing(dev, card, twin_ms):
     # row 4b over the grid's head levels, whose columns have long row lists
     # (the chains' have at most 3 rows)
     g_bwd = [bw for _, _, bw in level_inputs(g_prob, g_ata, g_l, g_y, g_x, g_bp)]
-    times["level_bwd_subst grid"] = (cuda_ms(lambda: [level_bwd_subst(*bw) for bw in g_bwd]), None)
+    times["level_bwd_subst grid"] = (cuda_ms(lambda: [level_bwd_subst(*bw) for bw in g_bwd]),
+                                     cuda_ms(lambda: [level_bwd_subst_plain(*bw) for bw in g_bwd]))
     dev_times["level_bwd_subst grid"] = device_ms(lambda: [level_bwd_subst(*bw) for bw in g_bwd])
     print(f"[timing] level_bwd_subst grid {GRID[0]}x{GRID[1]}x{GRID[2]} float32, one sweep of the {len(g_bwd)} head "
           f"levels (rl {[bw[0].shape[1] for bw in g_bwd]}): kernel {times['level_bwd_subst grid'][0]:.4f} ms back "
-          f"to back, {dev_times['level_bwd_subst grid']:.4f} ms device (queue prefilled) on {card}")
+          f"to back, {dev_times['level_bwd_subst grid']:.4f} ms device (queue prefilled), plain twin "
+          f"{times['level_bwd_subst grid'][1]:.4f} ms (CUDA events) on {card}")
+
+    # the redesigned rows 5, 8 and 4b beside their first designs' device times
+    # (PERF.md, the previous design's last measurement, same card model and limit)
+    for name, first in FIRST_DESIGN_DEVICE_MS.items():
+        shape = ("BA 128x4000x1" if name == "reprojection" else "grid {}x{}x{}".format(*GRID)
+                 if name.endswith("grid") else "PGO 2048x8" if name.endswith("2048x8") else "PGO 256x128")
+        print(f"[timing] {name:<20} {shape} float32: {dev_times[name]:.4f} ms device now, first design "
+              f"{first:.4f} ms device (PERF.md); back to back now {times[name][0]:.4f} ms on {card}")
 
     # library yardsticks on the densified H: one PyTorch call each, timed
     # here only; the port never calls them
@@ -1477,6 +1506,15 @@ def phase_timing(dev, card, twin_ms):
     print(f"[timing] library yardsticks on the dense H {tuple(h.shape)} float32: "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in library.items()) + f" on {card}")
     del h, l_dense
+    # the grid's: the transposed solve with its dense L, the right-hand side
+    # its Atb (the head and the tail in one call)
+    l_dense = torch.linalg.cholesky_ex(dense_h(g_prob.builder.pattern, g_ata))[0]
+    rhs = g_prob.builder.flatten(g_bp[g_sched.on(dev)[1]])[..., None]
+    library["solve_triangular upper grid"] = cuda_ms(
+        lambda: torch.linalg.solve_triangular(l_dense.transpose(-1, -2), rhs, upper=True), reps=5)
+    print(f"[timing] library yardstick on the grid's dense L {tuple(l_dense.shape)} float32: solve_triangular "
+          f"upper {library['solve_triangular upper grid']:.4f} ms on {card}")
+    del l_dense
 
     # bounds from this run's inputs
     d, bsz = pattern.d, v1.shape[1]
@@ -1496,6 +1534,8 @@ def phase_timing(dev, card, twin_ms):
                                   subst_flops(sched, bsz, d, True)),
         "level_bwd_subst": _bound(sum(_nbytes(*bw) + _nbytes(bw[2]) for _, _, bw in lv),
                                   subst_flops(sched, bsz, d, False)),
+        "level_bwd_subst 2048x8": _bound(sum(_nbytes(*bw) + _nbytes(bw[2]) for _, _, bw in lv_deep),
+                                         subst_flops(deep.builder.sched, WHOLE_SHAPES[1][1], d, False)),
         "reprojection": _bound(_nbytes(*rops, *rops_out), REPROJECTION_FLOPS * rops[0].shape[0] * rops[0].shape[1]),
         "whole_factor": _bound(_nbytes(w_ata, w_l), factor_flops(sched, bsz, d)),
         "whole_factor 2048x8": _bound(_nbytes(dw_ata) + (deep_sched.sym.nnz_l + 1) * dw_ata[0].numel() * 4,
@@ -1511,6 +1551,7 @@ def phase_timing(dev, card, twin_ms):
            "level_fwd_subst": library["solve_triangular lower"],
            "whole_fwd_subst": library["solve_triangular lower"],
            "level_bwd_subst": library["solve_triangular upper"],
+           "level_bwd_subst grid": library["solve_triangular upper grid"],
            "whole_bwd_subst": library["solve_triangular upper"]}
     for name, (bms, by) in bounds.items():
         print(f"[timing] bound {name:<19} {bms:.4f} ms ({by}); kernel {times[name][0]:.4f} ms back to back, "
@@ -1639,13 +1680,16 @@ def main() -> int:
             "device_ms": dev_times[name],
         }
         if name == "level_bwd_subst":  # the grid's head levels, beside 256 x 128's
-            entry["ms_grid"], entry["device_ms_grid"] = times["level_bwd_subst grid"][0], dev_times["level_bwd_subst grid"]
+            entry["ms_grid"], entry["plain_ms_grid"] = times["level_bwd_subst grid"]
+            entry["device_ms_grid"] = dev_times["level_bwd_subst grid"]
             entry["bound_ms_grid"], _ = bounds["level_bwd_subst grid"]
+            entry["library_ms_grid"] = library["level_bwd_subst grid"]
         if name == "assemble_blocks":  # the BA main path's shape, beside PGO's
             entry["ms_ba"], entry["plain_ms_ba"] = times["assemble_blocks ba"]
             entry["device_ms_ba"] = dev_times["assemble_blocks ba"]
             entry["bound_ms_ba"], entry["bound_by_ba"] = bounds["assemble_blocks ba"]
-        if name in ("level_factor", "whole_factor", "whole_fwd_subst", "whole_bwd_subst"):  # the deep and narrow shape
+        if name in ("level_factor", "level_bwd_subst", "whole_factor", "whole_fwd_subst",
+                    "whole_bwd_subst"):  # the deep and narrow shape
             entry["ms_2048x8"], entry["plain_ms_2048x8"] = times[f"{name} 2048x8"]
             entry["device_ms_2048x8"] = dev_times[f"{name} 2048x8"]
             entry["bound_ms_2048x8"], _ = bounds[f"{name} 2048x8"]

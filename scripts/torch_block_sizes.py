@@ -1,11 +1,18 @@
 """Time theseus_tpu_torch's kernels whose block size was chosen by timing, at each candidate size.
 
-Five kernels (PERF.md kernel table rows 1, 5, 6, 7 and 8):
+Six kernels (PERF.md kernel table rows 1, 5, 4b, 6, 7 and 8):
 
 - `between_se3` (`csrc/between_se3.cu`) and `reprojection`
   (`csrc/reprojection.cu`): the block size is a launch argument, which
   `_cuda.tile_geometry` picks (64, 128 or 256 threads); here each size is
   launched through the package library's own entry point;
+- `level_bwd_subst` (`csrc/level_subst.cu`): the batch tile bt (a block
+  has bt d threads), which `bwd_subst_geometry` picks per level; here one
+  bt for every level of a sweep (capped at the batch, the rows a chunk
+  `bwd_subst_rows`), bt = 1, 2, ..., 32, on the level operands of the
+  plain-twin factor and solve at PGO 256 x 128, 2048 x 8 and the
+  16 x 16 x 128 grid's head levels, against one sweep of the package's
+  launches;
 - `whole_factor` (`csrc/whole_factor.cu`): the constant `WF_THREADS`
   (1024), which also sets the launch bounds and so the registers a thread
   may use (64 at 1024 threads, 128 at 512, 255 at 256);
@@ -29,7 +36,8 @@ ptxas's registers and spill stores of the d = 6 kernels are printed for
 the rebuilt copies. Needs an NVIDIA Hopper GPU and nvcc. Run from the
 repository root, for every kernel or the ones named:
 
-    python3 scripts/torch_block_sizes.py [between_se3 reprojection whole_factor whole_fwd_subst whole_bwd_subst]
+    python3 scripts/torch_block_sizes.py [between_se3 reprojection level_bwd_subst whole_factor whole_fwd_subst
+                                          whole_bwd_subst]
 
 It prints the card's name and power limit, then one line per build and per
 measurement, and exits non-zero if a block size changed an output.
@@ -57,7 +65,8 @@ REBUILT = {
     "whole_bwd_subst": ("whole_subst.cu", "constexpr int WBS_THREADS = {};", "whole_bwd_kernel", 256,
                         (128, 256, 512)),
 }
-KERNELS = ("between_se3", "reprojection") + tuple(REBUILT)
+BWD_TILES = (1, 2, 4, 8, 16, 32)
+KERNELS = ("between_se3", "reprojection", "level_bwd_subst") + tuple(REBUILT)
 
 
 def build(kernel, threads):
@@ -182,6 +191,54 @@ def reprojection_sizes(dev, card):
     return same
 
 
+def bwd_tiles(dev, card):
+    """Each batch tile of the level backward substitution, one for every
+    level of a sweep, against the package's launches bit for bit, and the
+    sweep's device time."""
+    import torch
+
+    import chip_smoke as cs
+    from theseus_tpu_torch import _cuda
+    from theseus_tpu_torch.sparse.level_kernels import (
+        FWD_BLOCKS_PER_SM, bwd_subst_geometry, bwd_subst_rows, level_bwd_subst)
+
+    same = []
+    min_blocks = FWD_BLOCKS_PER_SM * _cuda.sm_count(dev.index)
+    for dtype in (torch.float32, torch.float64):
+        dn = str(dtype).split(".")[-1]
+        fn = getattr(_cuda.lib(), f"th_level_bwd_subst_{_cuda.suffix(dtype)}")
+        for label, make in (("PGO 256x128", lambda: cs.synthetic_problem(256, 128, dtype, dev)),
+                            ("PGO 2048x8", lambda: cs.synthetic_problem(2048, 8, dtype, dev)),
+                            ("grid {}x{}x{}".format(*cs.GRID), lambda: cs.grid_prob(dtype, dev))):
+            prob = make()
+            bwd = [tuple(t.contiguous() for t in bw) for _, _, bw in cs.level_inputs(prob, *cs.plain_system(prob)[1:])]
+            ref = [level_bwd_subst(*bw) for bw in bwd]
+            isz = ref[0].element_size()
+            picks = [bwd_subst_geometry(*bw[0].shape[:3], bw[0].shape[-1], isz, min_blocks)[0] for bw in bwd]
+            ms = cs.device_ms(lambda: [level_bwd_subst(*bw) for bw in bwd])
+            print(f"[time] level_bwd_subst {dn} {label} the geometry's tiles {picks}: {ms:.4f} ms device a sweep "
+                  f"on {card}")
+            for bt in BWD_TILES:
+                outs = [torch.empty_like(r) for r in ref]
+
+                def call():
+                    for (lcol, xr, y), out in zip(bwd, outs):
+                        C, rl, B, d, _ = lcol.shape
+                        t = min(bt, B)
+                        rc = fn(lcol.data_ptr(), xr.data_ptr(), y.data_ptr(), C, rl, B, d, t,
+                                bwd_subst_rows(t, rl, d, isz), out.data_ptr(), _cuda.stream_of(lcol))
+                        if rc != 0:
+                            raise RuntimeError(f"level_bwd_subst at bt {bt}: CUDA error {rc}")
+
+                call()
+                torch.cuda.synchronize()
+                same.append(all(torch.equal(o, r) for o, r in zip(outs, ref)))
+                ms = cs.device_ms(call)
+                print(f"[time] level_bwd_subst {dn} {label} bt {bt} every level: {ms:.4f} ms device a sweep, "
+                      f"bitwise equal to the package's launches: {same[-1]} on {card}")
+    return same
+
+
 def rebuilt_sizes(dev, card, libs):
     """Each rebuilt block size of the whole-sweep kernels against the
     package kernel, bit for bit, and its device time."""
@@ -281,6 +338,7 @@ def main():
     dev = torch.device("cuda", torch.cuda.current_device())
     same = ((between_sizes(dev, card) if "between_se3" in wanted else [])
             + (reprojection_sizes(dev, card) if "reprojection" in wanted else [])
+            + (bwd_tiles(dev, card) if "level_bwd_subst" in wanted else [])
             + rebuilt_sizes(dev, card, libs))
     return 0 if all(same) else 1
 

@@ -810,3 +810,63 @@ def test_whole_bwd_subst_pieces_and_device_x(cuda_device, dtype, monkeypatch):
     assert not whole.get_tables(bld.sched).bwd_plan(6, ata.element_size()).vec_smem
     x_w, x_l = _whole_bwd_pair(bld, ata, atb)
     assert float((x_w - x_l).abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# the redesigned level backward substitution on the grid's head levels
+# ---------------------------------------------------------------------------
+def _grid_bwd_levels(device, dtype, batch):
+    """The backward operands of every head level of the 16 x 16 grid ((C, rl)
+    from (118, 5) to (2, 15)), gathered by `bwd_operands` from a plain-twin
+    factorization and solve of its LM-damped system."""
+    from theseus_tpu_torch.sparse.assemble import apply_block_damping
+    from theseus_tpu_torch.sparse.cholesky import backward_sweep, bwd_operands, forward_sweep
+
+    opt, obj, vals = _grid_layer(device, dtype, rows=16, cols=16, batch=batch)
+    co = obj.compile()
+    values = obj.default_values(vals)
+    state, aux = co.pack(values, batch), co.build_aux(values, batch)
+    bld = opt.normal_builder
+    with config.plain_path():
+        ata, atb = assemble(bld.pattern, co.linearize_blocks(state, aux))
+        ata = apply_block_damping(bld.pattern, ata, 1e-3, False, 1e-8)
+        lflat = factorize(bld.sched, ata)
+        perm, _, levels = bld.sched.on(device)
+        y = forward_sweep(bld.sched, lflat, atb[perm])
+        x = backward_sweep(bld.sched, lflat, y)
+    return [bwd_operands(t, lflat, x, y) for t in levels]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("batch", [5, 33])
+def test_level_bwd_subst_grid_levels_chunked(cuda_device, dtype, batch, monkeypatch):
+    """Each grid head level: two launches bitwise equal and within tolerance
+    of the twin; then, with the shared-memory budget cut so that the rows
+    are staged one and two at a time (bwd_subst_geometry), the same bits as
+    with every row staged at once."""
+    from theseus_tpu_torch.sparse import level_kernels as lk
+
+    levels = _grid_bwd_levels(cuda_device, dtype, batch)
+    assert max(lcol.shape[1] for lcol, _, _ in levels) == 15
+    whole = []
+    for lcol, xr, y in levels:
+        _cuda.reset_launches()
+        x1, x2 = level_bwd_subst(lcol, xr, y), level_bwd_subst(lcol, xr, y)
+        assert _cuda.launches["level_bwd_subst"] == 2
+        want = level_bwd_subst_plain(lcol, xr, y)
+        torch.cuda.synchronize()
+        assert torch.equal(x1, x2)
+        _close(x1, want, dtype, max(1.0, float(want.abs().max())))
+        whole.append(x1)
+    isz = torch.empty((), dtype=dtype).element_size()
+    for rows in (1, 2):
+        for (lcol, xr, y), x_all in zip(levels, whole):
+            C, rl, B = lcol.shape[:3]
+            sms = _cuda.sm_count(lcol.device.index)
+            bt, _ = lk.bwd_subst_geometry(C, rl, B, 6, isz, lk.FWD_BLOCKS_PER_SM * sms)
+            monkeypatch.setattr(lk, "FWD_SMEM_MAX", lk.bwd_subst_smem(bt, rows, 6, isz))
+            assert lk.bwd_subst_geometry(C, rl, B, 6, isz, lk.FWD_BLOCKS_PER_SM * sms) == (bt, rows)
+            got = level_bwd_subst(lcol, xr, y)
+            monkeypatch.undo()
+            torch.cuda.synchronize()
+            assert torch.equal(got, x_all)

@@ -151,8 +151,9 @@ _SIGNATURES = {
     # ljk, yk, b, ldiag, C, ul, B, d, batch tile, lanes per output, u
     # chunk (sparse/level_kernels.py fwd_subst_geometry), y, stream
     "th_level_fwd_subst": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
-    # lcol, xr, y, C, rl, B, d, x, stream
-    "th_level_bwd_subst": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # lcol, xr, y, C, rl, B, d, batch tile, rows a chunk
+    # (sparse/level_kernels.py bwd_subst_geometry), x, stream
+    "th_level_bwd_subst": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     # pose, point, focal, feat, k1, k2, (k, b) strides of the four aux,
     # K, B, threads, shared-memory bytes (ops/reprojection.py
     # reprojection_geometry), jpose, jpt, err, stream

@@ -10,16 +10,10 @@
 
 #define TH_EXPORT extern "C" __attribute__((visibility("default")))
 
-// Threads per block for the one-thread-per-item kernels.
-constexpr int TH_BLOCK = 128;
-
-inline unsigned th_blocks(long long n) {
-  return static_cast<unsigned>((n + TH_BLOCK - 1) / TH_BLOCK);
-}
-
-// The tile kernels (between_se3.cu, reprojection.cu): a block owns a
-// contiguous range of items, stages its input tiles in shared memory and
-// stores its output tiles from there.
+// The tile kernels (between_se3.cu, reprojection.cu; level_subst.cu's
+// backward kernel per row of a column): a block owns a contiguous range of
+// items, stages its input tiles in shared memory and stores its output
+// tiles from there.
 
 // count values from device memory into shared memory by cp.async: 16 bytes
 // a copy when vec (both ends 16-byte aligned), single values for the rest

@@ -8,7 +8,7 @@
 //   backward: x_j = L_jj^{-T} (y_j - sum_{r>=1} L_rj[r]^T x_r[r])
 // The backward kernel ignores row 0 of its operands (the diagonal block's
 // row) and expects rows that are invalid or above the diagonal to be zeroed
-// by the caller (pallas_factorize.py:204-206, cholesky.py:890-892); the
+// by the caller (pallas_factorize.py:204-206, cholesky.py bwd_operands); the
 // forward kernel likewise expects invalid updates zeroed. The iterative
 // refinement step reuses both kernels.
 //
@@ -38,8 +38,27 @@
 // The host picks (bt, gu, u chunk) per launch (sparse/level_kernels.py
 // fwd_subst_geometry); a level longer than the chunk stages it in chunks of
 // a multiple of gu, which keeps each lane's order.
-// The backward kernel keeps one thread per (column, batch), the d-vectors
-// (d <= 8, a template parameter) in registers.
+//
+// Backward design. The first design gave one thread to each (column, batch)
+// and walked the column's rows in series: on the grid's deep levels (C = 2
+// to 5, rl up to 15) a thread paid rl - 1 dependent memory round trips and
+// the launch filled 2 to 5 SMs, with lanes reading blocks 144 bytes apart.
+// Now a block owns (column c, a tile of bt batch elements) and:
+//   1. copies the tile's rows 1 .. rl - 1 of lcol and xr, its diagonal
+//      blocks and y into shared memory by cp.async (16 bytes a copy where
+//      both ends are aligned): for a fixed (c, r) the tile's blocks are
+//      contiguous, and every load of the column is in flight at once;
+//   2. gives d lanes to each batch element, lane jj owning output jj, which
+//      runs the first design's chain: s = y[jj], then s -= L_r[i][jj] x_r[i]
+//      over r = 1, 2, ... in order, i inner, padded rows included (s - L 0
+//      can flip the sign of a zero), so the bits do not change and the whole
+//      backward sweep (whole_subst.cu) still equals this one;
+//   3. one thread per batch element solves L_jj^T x = y - sum with the first
+//      design's statements, and the tile's x leaves through shared memory in
+//      coalesced (16-byte where aligned) stores.
+// The host picks (bt, row chunk) per launch (sparse/level_kernels.py
+// bwd_subst_geometry); a column whose rows exceed the shared-memory budget
+// is staged in chunks of rows in order, each lane's s kept in its register.
 
 #include <cuda_pipeline.h>
 
@@ -130,44 +149,100 @@ __global__ void fwd_subst_kernel(const T* __restrict__ ljk, const T* __restrict_
   }
 }
 
+// values a shared-memory slot of n values takes: a multiple of 16 bytes, so
+// every slot starts 16-byte aligned
+template <typename T>
+__host__ __device__ constexpr int bwd_slot(int n) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  return (n + V - 1) / V * V;
+}
+
+// bytes of shared memory a backward block takes: rc staged rows and the
+// diagonal row, each a slot of bt d x d blocks and one of bt d-vectors
+template <typename T, int D>
+size_t bwd_smem_bytes(int bt, int rc) {
+  return sizeof(T) * (static_cast<size_t>(rc) + 1) * (bwd_slot<T>(bt * D * D) + bwd_slot<T>(bt * D));
+}
+
+template <typename T>
+__device__ __forceinline__ bool aligned16(const T* p) {
+  return (reinterpret_cast<size_t>(p) & 15) == 0;
+}
+
 template <typename T, int D>
 __global__ void bwd_subst_kernel(const T* __restrict__ lcol, const T* __restrict__ xr,
-                                 const T* __restrict__ yvec, int C, int rl, int B,
+                                 const T* __restrict__ yvec, int C, int rl, int B, int bt, int rc,
                                  T* __restrict__ x) {
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<long long>(C) * B) return;
-  const long long c = idx / B;
-  const long long b = idx % B;
-  const long long DD = D * D;
-  T acc[D];
-#pragma unroll
-  for (int j = 0; j < D; ++j) acc[j] = yvec[idx * D + j];
-  for (int r = 1; r < rl; ++r) {
-    const long long row = (c * rl + r) * B + b;
-    const T* l = lcol + row * DD;
-    const T* v = xr + row * D;
-    T vv[D];
-#pragma unroll
-    for (int i = 0; i < D; ++i) vv[i] = v[i];
-#pragma unroll
-    for (int j = 0; j < D; ++j) {
-      T s = acc[j];
-#pragma unroll
-      for (int i = 0; i < D; ++i) s -= l[i * D + j] * vv[i];
-      acc[j] = s;
+  constexpr int DD = D * D;
+  extern __shared__ __align__(16) unsigned char bs_smem[];
+  const int nbt = (B + bt - 1) / bt;
+  const int c = blockIdx.x / nbt;
+  const int b0 = (blockIdx.x % nbt) * bt;
+  const int tb = min(bt, B - b0);
+  const int sl = bwd_slot<T>(bt * DD);
+  const int sx = bwd_slot<T>(bt * D);
+  T* ls = reinterpret_cast<T*>(bs_smem);  // [rc][sl] a chunk of the column's rows
+  T* xs = ls + rc * sl;                   // [rc][sx] their x rows
+  T* l0s = xs + rc * sx;                  // [sl] the diagonal blocks
+  T* vs = l0s + sl;                       // [sx] y, then y - sum, then x
+  const long long rowL = static_cast<long long>(B) * DD;
+  const long long rowX = static_cast<long long>(B) * D;
+  const long long cb = static_cast<long long>(c) * B + b0;
+  const T* l_c = lcol + static_cast<long long>(c) * rl * rowL + static_cast<long long>(b0) * DD;
+  const T* x_c = xr + static_cast<long long>(c) * rl * rowX + static_cast<long long>(b0) * D;
+
+  th_stage_tile(l0s, l_c, tb * DD, aligned16(l_c));
+  th_stage_tile(vs, yvec + cb * D, tb * D, aligned16(yvec + cb * D));
+
+  const int bl = threadIdx.x / D;  // lane threadIdx.x owns output jj of batch element bl
+  const int jj = threadIdx.x - bl * D;
+  const bool mine = bl < tb;
+  const int rows = rl - 1;
+  const int chunks = rows > 0 ? (rows + rc - 1) / rc : 1;
+  T s = T(0);
+  for (int k = 0; k < chunks; ++k) {
+    const int r0 = 1 + k * rc;
+    const int nr = min(rc, rows - k * rc);
+    for (int rr = 0; rr < nr; ++rr) {
+      const T* lsrc = l_c + (r0 + rr) * rowL;
+      const T* xsrc = x_c + (r0 + rr) * rowX;
+      th_stage_tile(ls + rr * sl, lsrc, tb * DD, aligned16(lsrc));
+      th_stage_tile(xs + rr * sx, xsrc, tb * D, aligned16(xsrc));
     }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    if (mine) {
+      if (k == 0) s = vs[threadIdx.x];
+      for (int rr = 0; rr < nr; ++rr) {
+        const T* l = ls + rr * sl + bl * DD + jj;
+        const T* v = xs + rr * sx + bl * D;
+#pragma unroll
+        for (int i = 0; i < D; ++i) s -= l[i * D] * v[i];
+      }
+    }
+    __syncthreads();  // before the next chunk overwrites the buffers
   }
-  const T* l0 = lcol + ((c * rl) * B + b) * DD;
-  T out[D];
+  if (mine) vs[threadIdx.x] = s;
+  __syncthreads();
+
+  if (threadIdx.x < tb) {
+    const T* l0 = l0s + threadIdx.x * DD;
+    T* a = vs + threadIdx.x * D;
+    T out[D];
 #pragma unroll
-  for (int j = D - 1; j >= 0; --j) {
-    T s = acc[j];
+    for (int j = D - 1; j >= 0; --j) {
+      T t = a[j];
 #pragma unroll
-    for (int k = j + 1; k < D; ++k) s -= l0[k * D + j] * out[k];
-    out[j] = s / l0[j * D + j];
+      for (int k = j + 1; k < D; ++k) t -= l0[k * D + j] * out[k];
+      out[j] = t / l0[j * D + j];
+    }
+#pragma unroll
+    for (int j = 0; j < D; ++j) a[j] = out[j];
   }
-#pragma unroll
-  for (int j = 0; j < D; ++j) x[idx * D + j] = out[j];
+  __syncthreads();
+  T* xo = x + cb * D;
+  th_store_tile<T, D, D>(vs, xo, tb, aligned16(xo));
 }
 
 #define TH_SUB_SWITCH(CALL)                         \
@@ -202,12 +277,16 @@ int fwd_d(const void* ljk, const void* yk, const void* b, const void* ldiag, int
 }
 
 template <typename T, int D>
-int bwd_d(const void* lcol, const void* xr, const void* y, int C, int rl, int B, void* x,
-          cudaStream_t st) {
-  const long long n = static_cast<long long>(C) * B;
-  if (n <= 0) return 0;
-  bwd_subst_kernel<T, D><<<th_blocks(n), TH_BLOCK, 0, st>>>(
-      static_cast<const T*>(lcol), static_cast<const T*>(xr), static_cast<const T*>(y), C, rl, B,
+int bwd_d(const void* lcol, const void* xr, const void* y, int C, int rl, int B, int bt, int rc,
+          void* x, cudaStream_t st) {
+  if (C <= 0 || B <= 0) return 0;
+  const int threads = bt * D;
+  if (rl < 1 || bt < 1 || rc < 1 || threads > 1024 || bwd_smem_bytes<T, D>(bt, rc) > 48 * 1024)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long blocks = static_cast<long long>(C) * ((B + bt - 1) / bt);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  bwd_subst_kernel<T, D><<<static_cast<unsigned>(blocks), threads, bwd_smem_bytes<T, D>(bt, rc), st>>>(
+      static_cast<const T*>(lcol), static_cast<const T*>(xr), static_cast<const T*>(y), C, rl, B, bt, rc,
       static_cast<T*>(x));
   return static_cast<int>(cudaGetLastError());
 }
@@ -222,10 +301,10 @@ int fwd(const void* ljk, const void* yk, const void* b, const void* ldiag, int C
 }
 
 template <typename T>
-int bwd(const void* lcol, const void* xr, const void* y, int C, int rl, int B, int d, void* x,
-        void* stream) {
+int bwd(const void* lcol, const void* xr, const void* y, int C, int rl, int B, int d, int bt, int rc,
+        void* x, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define TH_BWD(DD) bwd_d<T, DD>(lcol, xr, y, C, rl, B, x, st)
+#define TH_BWD(DD) bwd_d<T, DD>(lcol, xr, y, C, rl, B, bt, rc, x, st)
   TH_SUB_SWITCH(TH_BWD)
 #undef TH_BWD
 }
@@ -245,11 +324,11 @@ TH_EXPORT int th_level_fwd_subst_f64(const void* ljk, const void* yk, const void
 }
 
 TH_EXPORT int th_level_bwd_subst_f32(const void* lcol, const void* xr, const void* y, int C,
-                                     int rl, int B, int d, void* x, void* stream) {
-  return bwd<float>(lcol, xr, y, C, rl, B, d, x, stream);
+                                     int rl, int B, int d, int bt, int rc, void* x, void* stream) {
+  return bwd<float>(lcol, xr, y, C, rl, B, d, bt, rc, x, stream);
 }
 
 TH_EXPORT int th_level_bwd_subst_f64(const void* lcol, const void* xr, const void* y, int C,
-                                     int rl, int B, int d, void* x, void* stream) {
-  return bwd<double>(lcol, xr, y, C, rl, B, d, x, stream);
+                                     int rl, int B, int d, int bt, int rc, void* x, void* stream) {
+  return bwd<double>(lcol, xr, y, C, rl, B, d, bt, rc, x, stream);
 }

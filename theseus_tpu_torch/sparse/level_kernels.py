@@ -11,8 +11,9 @@ All operands are AoS with the batch before the block: (C, rows, B, d, d)
 and (C, rows, B, d). The gathers that build them and the scatters of the
 results stay in sparse/cholesky.py. The twins follow cholesky.py's
 `_factorize_levels` / `_solve_levels` arithmetic through the unrolled
-ops/batched_linalg routines. The forward kernel's launch geometry is chosen
-here (`fwd_subst_geometry`), where the CPU tests reach it.
+ops/batched_linalg routines. The substitution kernels' launch geometry is
+chosen here (`fwd_subst_geometry`, `bwd_subst_geometry`), where the CPU
+tests reach it.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from ..ops.batched_linalg import (
     solve_upper_vec,
 )
 
-# level_fwd_subst's geometry (fwd_subst_geometry)
+# the substitution kernels' geometry (fwd_subst_geometry, bwd_subst_geometry)
 WARP = 32
 FWD_TILE_MAX = 32  # batch elements a block
 FWD_THREADS_MAX = 1024
@@ -134,6 +135,45 @@ def fwd_subst_geometry(C: int, ul: int, B: int, d: int, itemsize: int, min_block
     return bt, gu, uc
 
 
+def bwd_subst_smem(bt: int, rc: int, d: int, itemsize: int) -> int:
+    """Shared-memory bytes of one `level_bwd_subst` block (csrc/level_subst.cu
+    bwd_smem_bytes): rc staged rows and the diagonal row, each a slot of bt
+    d x d blocks and one of bt d-vectors, every slot a multiple of 16 bytes."""
+    v = 16 // itemsize
+
+    def slot(n):
+        return -(-n // v) * v
+
+    return (rc + 1) * (slot(bt * d * d) + slot(bt * d)) * itemsize
+
+
+def bwd_subst_geometry(C: int, rl: int, B: int, d: int, itemsize: int, min_blocks: int):
+    """(bt, rc) of one `level_bwd_subst` launch (csrc/level_subst.cu): a
+    block per (column, tile of bt batch elements), d lanes per batch
+    element, the column's rows 1 .. rl - 1 staged rc at a time in order.
+
+    The forward's rule: bt starts at FWD_TILE_MAX and halves while a block
+    would exceed FWD_THREADS_MAX threads or the launch would have fewer
+    than min_blocks blocks (FWD_BLOCKS_PER_SM times the card's SMs: 264 on
+    the H100), or one staged row would exceed FWD_SMEM_MAX; then bt <= B.
+    rc is `bwd_subst_rows(bt, ...)`."""
+    bt = FWD_TILE_MAX
+    while bt > 1 and (bt * d > FWD_THREADS_MAX or C * -(-B // bt) < min_blocks
+                      or bwd_subst_smem(bt, 1, d, itemsize) > FWD_SMEM_MAX):
+        bt //= 2
+    bt = max(1, min(bt, B))
+    return bt, bwd_subst_rows(bt, rl, d, itemsize)
+
+
+def bwd_subst_rows(bt: int, rl: int, d: int, itemsize: int) -> int:
+    """Rows a staged chunk holds at a tile of bt: all rl - 1 (at least 1),
+    or as many as FWD_SMEM_MAX holds."""
+    rc = max(rl - 1, 1)
+    if bwd_subst_smem(bt, rc, d, itemsize) > FWD_SMEM_MAX:
+        rc = FWD_SMEM_MAX // bwd_subst_smem(bt, 0, d, itemsize) - 1
+    return rc
+
+
 def level_fwd_subst(ljk, yk, b, ldiag):
     if not use_kernel(ljk):
         return level_fwd_subst_plain(ljk, yk, b, ldiag)
@@ -159,9 +199,11 @@ def level_bwd_subst(lcol, xr, y):
     if xr.shape != (C, rl, B, d) or y.shape != (C, B, d):
         raise ValueError(f"level_bwd_subst: shapes {lcol.shape}, {xr.shape}, {y.shape} do not agree")
     fn, (lcol, xr, y) = _prepare("level_bwd_subst", [lcol, xr, y], d)
+    sms = _cuda.sm_count(lcol.device.index)
+    bt, rows = bwd_subst_geometry(C, rl, B, d, lcol.element_size(), FWD_BLOCKS_PER_SM * sms)
     x = torch.empty_like(y)
     with torch.cuda.device(lcol.device):
-        rc = fn(lcol.data_ptr(), xr.data_ptr(), y.data_ptr(), C, rl, B, d,
+        rc = fn(lcol.data_ptr(), xr.data_ptr(), y.data_ptr(), C, rl, B, d, bt, rows,
                 x.data_ptr(), _cuda.stream_of(lcol))
     _cuda.check(rc, "level_bwd_subst")
     _cuda.launches["level_bwd_subst"] += 1
