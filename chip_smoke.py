@@ -6,7 +6,7 @@ toolkit (nvcc):
 
     python3 chip_smoke.py
 
-It imports neither jax nor theseus_tpu. Four main paths run through
+It imports neither jax nor theseus_tpu. Six main paths run through
 `TheseusLayer.forward`: the PGO forward solve (256 poses x batch 128,
 sparse linearization, level plan), the BA forward solve (128 cameras x 4000
 points x batch 1, visibility 0.4: 204,800 Reprojection observations, Schur
@@ -14,9 +14,13 @@ linearization), the PGO training step (256 x 128: implicit backward
 through the whole-sweep plan, `config.set_whole_sweep(True)`, and an SGD
 step on a loop-closure weight) and the dense-tail PGO (a 16 x 16 grid of
 poses at batch 128: 14 head levels through the level kernels, a 51-column
-dense tail through one batched cholesky_ex; the tail phase prints both). A fifth, the AoS Between
-entry point `between_linearize_fused`, has no caller in the package and is
-driven alone. In order:
+dense tail through one batched cholesky_ex; the tail phase prints both), the
+robust BA training step (128 x 4000 x 1 float32, 5 % outliers, a Huber loss
+whose log radius three implicit SGD steps learn, Schur linearization) and
+the DLM training step (PGO 256 x 128 float32, level and whole-sweep plans).
+A sixth, the AoS Between entry point `between_linearize_fused`, has no
+caller in the package and is driven alone; a 3-D g2o file is read onto the
+card and solved. In order:
 
 1. fails fast without a CUDA device or outside a checkout;
 2. builds the CUDA kernels from theseus_tpu_torch/csrc (nvcc, sm_90a, one
@@ -52,7 +56,16 @@ driven alone. In order:
    float64 step at 64 x 16 against the twins; the grid with the dense
    tail: the float32 forward (counters, one cholesky_ex a factorization),
    its plateau against the float64 plain-twin solve, and one implicit
-   training step against the float64 twins' gradient;
+   training step against the float64 twins' gradient; the robust BA
+   training step: three float32 implicit steps with the counters read
+   around forward and backward() (Reprojection and assembly launches in
+   the forward), forward and backward() ms, the gradient against the
+   float64 plain twins and float64 kernels, and an unrolled float64 step at
+   16 x 200 x 16 against the twins; the DLM step on both plans with the
+   counters showing backward()'s two perturbed solves, its gradient against
+   the float64 twins, and a float64 DLM step on BA 16 x 200 x 16 against
+   the twins; `read_3d_g2o` of tests/fixtures/mini_3d.g2o solved on the card
+   to below 1e-10;
 5. timing phase: ms per LM iteration (marginal window, as bench.py) for the
    level kernels, the whole-sweep kernels and the plain twins (PGO 64 x 16,
    256 x 128 and 2048 x 8, the grid; BA 16 x 200 x 16 and 128 x 4000 x 1), ms per
@@ -177,6 +190,47 @@ GRAD_RTOL_F32 = 5e-2
 # the same arithmetic in another order through 10 differentiated iterations.
 UNROLL = (64, 16, 10)
 GRAD_RTOL_F64 = 1e-7
+# The robust BA training path: BA_MAIN float32 with 5 % outliers, a Huber
+# loss on every Reprojection cost, its log radius learned by BA_SGD_STEPS
+# implicit steps of SGD (the first moves it by SGD_FIRST_STEP). Camera 0 is
+# pinned at its ground truth (the gauge) and landmark 0 too, with weight
+# BA_SCALE_PIN: the camera-0 gauge leaves the scene's scale free, and the
+# implicit step's undamped system would be singular along it. (Pinning
+# camera 1 instead, with the gauge's weight 1e4, fights the noisy
+# observations: the undamped final step then moves the outer loss by 49 %
+# and its float32 gradient sits 29 % from float64's from the same float64
+# solution; with landmark 0 at 1e3 the step moves the loss by 2.7e-4 and
+# float32 sits within 1.2e-4. BA_MAIN on an H100 80GB HBM3 at 700 W,
+# scripts/torch_f32_gradients.py.)
+BA_SCALE_PIN = 1e3
+BA_OUTLIERS = 0.05
+BA_LOG_RADIUS0 = 0.0
+BA_SGD_STEPS = 3
+# The float32 kernel gradient is held to the float64 plain twins' by the PGO
+# rule, GRAD_RTOL_F32 (1.3e-3 measured at BA_MAIN on an H100 80GB HBM3 at
+# 700 W, scripts/torch_f32_gradients.py), and the float64 kernels
+# to the float64 twins by GRAD_RTOL_F64, as the unrolled steps.
+# one unrolled float64 step on BA_SMALL, kernels against twins (GRAD_RTOL_F64)
+BA_UNROLL_ITERS = 5
+# DLM (direct loss minimization) training steps: the flagship's PGO TRAIN
+# shape in float32 on the level and the whole-sweep plans, gradient against
+# the float64 plain twins (GRAD_RTOL_F32: the float32 plateau, as for the
+# implicit step; 3.1e-4 at 64 x 16 and 6.6e-4 at TRAIN on an H100 80GB HBM3
+# at 700 W, scripts/torch_f32_gradients.py); and one
+# float64 step on BA_SMALL, kernels against the twins on the CPU
+# (GRAD_RTOL_F64). The gradient is a central difference over eps = 1e-2, so
+# rounding-order differences of the solves reach it amplified by up to
+# 1/(2 eps) = 50: the card twins' atomic index_add_ sums moved their own
+# gradient by up to 1.3e-7 from run to run (an H100 80GB HBM3 at 700 W),
+# while the kernels give the same bits each run and the CPU twins one order
+# (4.7e-9 from the kernels on that card). BA's DLM
+# runs in float64 only: its perturbed solves move the state by
+# eps H^{-1} u ~ 1e-8 (H carries the focal length squared), below float32's
+# resolution of the state, so a float32 BA DLM gradient is rounding noise
+# (exactly 0 at BA_MAIN, -1.2e-4 against float64's 1.1e-6 at
+# 128 x 1000 x 1, on that card, the same script).
+DLM_BA_ITERS = 10
+G2O = ROOT / "tests" / "fixtures" / "mini_3d.g2o"
 WHOLE_SHAPES = ((256, 128), (2048, 8))
 # the dense-tail path: a 16 x 16 grid PGO (256 poses) at batch 128; its
 # symbolic analysis folds the last 51 columns into one dense supernode
@@ -1101,6 +1155,227 @@ def phase_tail(dev):
 
 
 # ---------------------------------------------------------------------------
+# the robust BA training step, the DLM steps and the g2o reader
+# ---------------------------------------------------------------------------
+def ba_train_layer(shape, dtype, dev, log_radius, iters=ITERS):
+    """The robust BA training problem at shape (cameras, points, batch):
+    (layer, inputs, ground-truth cameras)."""
+    import theseus_tpu_torch as tt
+    from theseus_tpu_torch.utils.examples.bundle_adjustment import ba_values, build_ba_objective, synthetic_ba
+
+    cams, pts, batch = shape
+    prob = synthetic_ba(cams, pts, batch=batch, seed=0, visibility=BA_VISIBILITY, outlier_fraction=BA_OUTLIERS,
+                        dtype=dtype, device=dev)
+    obj, _, pt_fam = build_ba_objective(prob, dtype=dtype, device=dev, robust_loss_cls=tt.HuberLoss,
+                                        log_loss_radius=log_radius, gauge_target=prob.gt_poses[0])
+    obj.add(tt.Local(pt_fam[0], prob.gt_points[0].cpu().numpy(), tt.ScaleCostWeight(BA_SCALE_PIN),
+                     name="scale_pin"))
+    layer = tt.TheseusLayer(tt.LevenbergMarquardt(obj, max_iterations=iters, **BA_OPTS))
+    return layer, ba_values(prob), prob.gt_poses
+
+
+def ba_outer_loss(out, gt):
+    """Mean squared SE3 local from each solved camera to its ground truth."""
+    import torch
+
+    from theseus_tpu_torch.lie import se3
+
+    d = se3.log(se3.compose(se3.inverse(out["cam"]), gt))
+    return torch.mean(torch.sum(d * d, dim=-1))
+
+
+def timed_step(forward, loss_fn, leaf):
+    """One training step: (loss, d loss / d leaf, forward ms, backward() ms,
+    launches in forward, launches in backward()), each part ended by a
+    sync."""
+    import torch
+
+    from theseus_tpu_torch import _cuda
+
+    leaf.grad = None
+    torch.cuda.synchronize()
+    before = dict(_cuda.launches)
+    t0 = time.perf_counter()
+    out = forward()
+    loss = loss_fn(out)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mid = dict(_cuda.launches)
+    loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    after = dict(_cuda.launches)
+    return (float(loss.detach()), leaf.grad.detach().clone(), (t1 - t0) * 1e3, (t2 - t1) * 1e3,
+            {k: mid[k] - before[k] for k in mid}, {k: after[k] - mid[k] for k in mid})
+
+
+def ba_train_grad(shape, dtype, dev, mode="implicit", plain=False, iters=ITERS):
+    """(loss, d loss / d log radius, forward ms, backward ms) of one step."""
+    import torch
+
+    from theseus_tpu_torch import config
+
+    log_radius = torch.full((1, 1), BA_LOG_RADIUS0, dtype=dtype, device=dev, requires_grad=True)
+    layer, inputs, gt = ba_train_layer(shape, dtype, dev, log_radius, iters)
+    with config.plain_path() if plain else contextlib.nullcontext():
+        loss, g, f_ms, b_ms, _, _ = timed_step(
+            lambda: layer.forward(inputs, optimizer_kwargs={"backward_mode": mode})[0],
+            lambda out: ba_outer_loss(out, gt), log_radius)
+    return loss, float(g), f_ms, b_ms
+
+
+def phase_ba_train(dev):
+    """The robust BA training path: BA_SGD_STEPS implicit steps at BA_MAIN
+    float32 on the kernels, the log radius of the Huber loss learned by SGD,
+    counters reset just before and read just after; then the gradient
+    against the float64 plain twins and float64 kernels, and an unrolled
+    float64 step at BA_SMALL."""
+    import numpy as np
+    import torch
+
+    from theseus_tpu_torch import _cuda
+
+    log_radius = torch.full((1, 1), BA_LOG_RADIUS0, dtype=torch.float32, device=dev, requires_grad=True)
+    layer, inputs, gt = ba_train_layer(BA_MAIN, torch.float32, dev, log_radius)
+    label = "{}x{}x{}".format(*BA_MAIN)
+    grads, sgd, step_ms = [], None, []
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    for step in range(BA_SGD_STEPS):
+        loss, g, f_ms, b_ms, fwd, bwd = timed_step(
+            lambda: layer.forward(inputs, optimizer_kwargs={"backward_mode": "implicit"})[0],
+            lambda out: ba_outer_loss(out, gt), log_radius)
+        if sgd is None:
+            sgd = torch.optim.SGD([log_radius], lr=SGD_FIRST_STEP / max(abs(float(g)), 1e-30))
+        sgd.step()
+        grads.append(float(g))
+        step_ms.append((f_ms, b_ms))
+        print(f"[ba-train] step {step}: loss {loss:.8e}, d loss/d log_radius {grads[-1]:.6e}, log_radius -> "
+              f"{float(log_radius.detach()):.6f}; forward {f_ms:.3f} ms, backward() {b_ms:.3f} ms; forward "
+              f"launches { {k: v for k, v in fwd.items() if v} }, backward launches "
+              f"{ {k: v for k, v in bwd.items() if v} }")
+        check(np.isfinite(loss) and np.isfinite(grads[-1]) and grads[-1] != 0.0,
+              "BA training step: loss or gradient not finite, or zero gradient")
+        check(fwd["reprojection"] > 0 and fwd["assemble_blocks"] > 0,
+              "BA training forward did not launch the Reprojection and assembly kernels")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_cuda.launches)
+    print(f"[ba-train] {label} float32 Huber, {BA_SGD_STEPS} implicit steps in {wall:.3f} s wall, "
+          f"launches {launches}")
+
+    _, g64, f64_ms, b64_ms = ba_train_grad(BA_MAIN, torch.float64, dev, plain=True)
+    rel = abs(grads[0] - g64) / abs(g64)
+    print(f"[ba-train] gradient, float32 kernels vs float64 plain twins: {grads[0]:.6e} vs {g64:.6e}, rel "
+          f"{rel:.3e} (tol {GRAD_RTOL_F32:.0e}: the float32 plateau); twins forward {f64_ms:.3f} ms, "
+          f"backward() {b64_ms:.3f} ms")
+    check(rel <= GRAD_RTOL_F32, "BA training gradient off the float64 twin gradient")
+    _, g32p, _, _ = ba_train_grad(BA_MAIN, torch.float32, dev, plain=True)
+    print(f"[ba-train] gradient, float32 plain twins on the card: {g32p:.6e}, rel to float64 "
+          f"{abs(g32p - g64) / abs(g64):.3e}, to the float32 kernels {abs(g32p - grads[0]) / abs(grads[0]):.3e}")
+    _, gk64, _, _ = ba_train_grad(BA_MAIN, torch.float64, dev)
+    rel = abs(gk64 - g64) / abs(g64)
+    print(f"[ba-train] gradient, float64 kernels vs float64 plain twins: {gk64:.12e} vs {g64:.12e}, rel "
+          f"{rel:.3e} (tol {GRAD_RTOL_F64:.0e})")
+    check(rel <= GRAD_RTOL_F64, "BA float64 kernel gradient off the twins")
+
+    # unroll at BA_SMALL, float64: the Reprojection Function's backward and
+    # the Schur solve's d_ata path
+    _, gu, _, _ = ba_train_grad(BA_SMALL, torch.float64, dev, mode="unroll", iters=BA_UNROLL_ITERS)
+    _, gup, _, _ = ba_train_grad(BA_SMALL, torch.float64, dev, mode="unroll", plain=True, iters=BA_UNROLL_ITERS)
+    rel = abs(gu - gup) / abs(gup)
+    print(f"[ba-train] unroll {'x'.join(map(str, BA_SMALL))} float64, {BA_UNROLL_ITERS} LM iterations: kernels "
+          f"{gu:.12e} vs plain twins {gup:.12e}, rel {rel:.3e} (tol {GRAD_RTOL_F64:.0e})")
+    check(gu != 0.0 and rel <= GRAD_RTOL_F64, "BA unrolled gradient off the twins")
+    return launches, step_ms
+
+
+def phase_dlm(dev):
+    """DLM training steps: PGO TRAIN float32 on the level plan and on the
+    whole-sweep plan (counters reset just before each step and read around
+    forward and backward()), gradients against the float64 plain twins; a
+    float64 DLM step on BA_SMALL, kernels against twins."""
+    import numpy as np
+    import torch
+
+    from theseus_tpu_torch import _cuda, config
+    from theseus_tpu_torch.utils.examples.pose_graph import mean_sq_local
+
+    _, g64, _, _ = _grad_at(torch.float64, dev, whole=False, plain=True, mode="dlm")
+    launches, step_ms = {}, {}
+    _cuda.reset_launches()
+    for whole in (False, True):
+        plan = "whole" if whole else "level"
+        layer, poses, gt = train_problem(*TRAIN, torch.float32, dev)
+        n_levels = len(layer.optimizer.normal_builder.sched.level_tables)
+        theta = torch.tensor(THETA0, dtype=torch.float32, device=dev, requires_grad=True)
+        config.set_whole_sweep(whole)
+        try:
+            loss, g, f_ms, b_ms, fwd, bwd = timed_step(
+                lambda: layer.forward(dict(poses, w_loop=theta.reshape(1, 1)),
+                                      optimizer_kwargs={"backward_mode": "dlm"})[0],
+                lambda out: mean_sq_local(out, gt), theta)
+        finally:
+            config.set_whole_sweep(False)
+        g = float(g)
+        step_ms[plan] = (f_ms, b_ms)
+        rel = abs(g - g64) / abs(g64)
+        print(f"[dlm] {TRAIN[0]}x{TRAIN[1]} float32 {plan} plan: loss {loss:.8e}, d loss/d theta {g:.6e} vs float64 "
+              f"plain twins {g64:.6e}, rel {rel:.3e} (tol {GRAD_RTOL_F32:.0e}); forward {f_ms:.3f} ms, backward() "
+              f"{b_ms:.3f} ms; backward launches { {k: v for k, v in bwd.items() if v} }")
+        check(np.isfinite(g) and g != 0.0 and rel <= GRAD_RTOL_F32, f"DLM {plan}: gradient off the float64 twins")
+        # backward(): one normal system at the solution (one linearization
+        # and assembly) and two perturbed solves, each a factorization and
+        # both substitution sweeps
+        if whole:
+            want = {"whole_factor": 2, "whole_fwd_subst": 2, "whole_bwd_subst": 2, "level_factor": 0}
+        else:
+            want = {k: 2 * n_levels for k in LEVEL_KERNELS}
+            want["whole_factor"] = 0
+        want["assemble_blocks"] = 1
+        for k, v in want.items():
+            check(bwd[k] == v, f"DLM {plan} backward(): {k} launched {bwd[k]} times, expected {v}")
+        check(bwd["between_se3"] > 0, "DLM backward() did not launch the Between kernel")
+        for k, v in fwd.items():
+            launches[k] = launches.get(k, 0) + v + bwd[k]
+
+    # BA, float64 (see DLM_BA_ITERS): kernels against twins
+    _, gd, _, _ = ba_train_grad(BA_SMALL, torch.float64, dev, mode="dlm", iters=DLM_BA_ITERS)
+    _, gdp, _, _ = ba_train_grad(BA_SMALL, torch.float64, torch.device("cpu"), mode="dlm", plain=True,
+                                 iters=DLM_BA_ITERS)
+    rel = abs(gd - gdp) / abs(gdp)
+    print(f"[dlm] BA {'x'.join(map(str, BA_SMALL))} float64 Huber, {DLM_BA_ITERS} LM iterations: d loss/d log_radius "
+          f"kernels {gd:.12e} vs plain twins on the CPU {gdp:.12e}, rel {rel:.3e} (tol {GRAD_RTOL_F64:.0e})")
+    check(gd != 0.0 and rel <= GRAD_RTOL_F64, "BA DLM gradient off the twins")
+    return launches, step_ms
+
+
+def phase_g2o(dev):
+    """`read_3d_g2o` of tests/fixtures/mini_3d.g2o onto the card (its
+    default device) and the LM solve back to zero error in float64, the JAX
+    package's test plateau."""
+    import torch
+
+    import theseus_tpu_torch as tt
+    from theseus_tpu_torch import _cuda
+    from theseus_tpu_torch.utils.examples.pose_graph import build_pgo_objective, pose_values, read_3d_g2o
+
+    n, poses, edges, meas, w = read_3d_g2o(G2O)
+    check(poses.device.type == "cuda" and tuple(poses.shape) == (n, 1, 3, 4) and tuple(w.shape) == (len(edges), 6, 6),
+          "read_3d_g2o: not on the card or bad shapes")
+    obj, _ = build_pgo_objective(n, edges, meas, poses[0], dtype=torch.float64)
+    layer = tt.TheseusLayer(tt.LevenbergMarquardt(obj, max_iterations=15, adaptive_damping=True))
+    _cuda.reset_launches()
+    _, info = layer.forward(pose_values(poses))
+    first, last = float(info.err_history[0].mean()), float(info.last_err.mean())
+    print(f"[g2o] {G2O.relative_to(ROOT)}: {n} poses, {len(edges)} edges on {poses.device}; float64 LM error "
+          f"{first:.6e} -> {last:.3e} (tol 1e-10); launches { {k: v for k, v in _cuda.launches.items() if v} }")
+    check(first > 1e-3 and last < 1e-10, "g2o: the loaded graph did not solve to zero error")
+    check(_cuda.launches["between_se3"] > 0, "g2o: the solve ran no kernel")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timing
 # ---------------------------------------------------------------------------
 def lm_iter_ms(prob, n_small=5, extra=20, reps=3):
@@ -1663,6 +1938,9 @@ def main() -> int:
     launches = {"pgo": timed("slice", phase_slice, dev), "ba": timed("ba_slice", phase_ba_slice, dev),
                 "train": timed("train", phase_train, dev), "aos_entry": timed("aos_entry", phase_aos_entry, dev),
                 "tail": timed("tail", phase_tail, dev)}
+    launches["ba_train"], ba_train_ms = timed("ba_train", phase_ba_train, dev)
+    launches["dlm"], dlm_ms = timed("dlm", phase_dlm, dev)
+    timed("g2o", phase_g2o, dev)
     iters, times, dev_times, train_ms, bounds, library = timed("timing", phase_timing, dev, card, twin_ms)
     timed("profile", phase_profile, dev, card)
     check("jax" not in sys.modules and "theseus_tpu" not in sys.modules, "jax was imported")
@@ -1694,7 +1972,8 @@ def main() -> int:
             entry["device_ms_2048x8"] = dev_times[f"{name} 2048x8"]
             entry["bound_ms_2048x8"], _ = bounds[f"{name} 2048x8"]
         kernels.append(entry)
-    print(json.dumps({"lm_iter_ms": iters, "train_step_ms": train_ms}))
+    print(json.dumps({"lm_iter_ms": iters, "train_step_ms": train_ms, "ba_train_step_ms": ba_train_ms,
+                      "dlm_step_ms": dlm_ms}))
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; seconds a phase: {json.dumps(phase_s)}")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -11,6 +11,8 @@ formulas, different summation order and FMA contraction); float32 to a few
 ulp of the operands' magnitude, stated per test.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -870,3 +872,101 @@ def test_level_bwd_subst_grid_levels_chunked(cuda_device, dtype, batch, monkeypa
             monkeypatch.undo()
             torch.cuda.synchronize()
             assert torch.equal(got, x_all)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_reprojection_function_backward_matches_twin_vjp(cuda_device, dtype):
+    """The autograd Function on the card: its forward is one kernel launch,
+    its backward the VJP of the twin, held against the twin's own autograd
+    on the same inputs (float32: the outputs carry the focal length, so the
+    gradients are compared relative to their largest entry)."""
+    rng = np.random.default_rng(9)
+    args = _reprojection_inputs(rng, 97, 5, dtype, cuda_device)
+    cots = [torch.as_tensor(rng.standard_normal(s), dtype=dtype, device=cuda_device)
+            for s in ((97, 5, 2, 6), (97, 5, 2, 3), (97, 5, 2))]
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    _cuda.reset_launches()
+    got = torch.autograd.grad(reprojection_linearize(*leaves), leaves, cots)
+    assert _cuda.launches["reprojection"] == 1
+    twin = [a.clone().requires_grad_(True) for a in args]
+    want = torch.autograd.grad(reprojection_linearize_plain(*twin), twin, cots)
+    for g, w in zip(got, want):
+        _close(g, w, dtype, float(w.abs().max()))
+
+
+def _robust_ba_grad(device, dtype, mode, plain=False):
+    """d loss / d log_radius of a robust (Huber) BA layer, 128 x 200 x
+    batch 1, visibility 0.4, 5 % outliers and a scale pin on landmark 0,
+    Schur linearization: (loss, grad, launches in forward, launches in
+    backward()). 128 cameras: every point is seen by ~50 of them (with
+    fewer, points seen by two cameras run away under the Huber loss and
+    the undamped float32 solve fails)."""
+    import theseus_tpu_torch as tt
+    from theseus_tpu_torch.lie import se3
+
+    prob = synthetic_ba(128, 200, batch=1, seed=2, visibility=0.4, outlier_fraction=0.05, dtype=dtype,
+                        device=device)
+    log_radius = torch.zeros((1, 1), dtype=dtype, device=device, requires_grad=True)
+    obj, _, pts = build_ba_objective(prob, dtype=dtype, device=device, robust_loss_cls=tt.HuberLoss,
+                                     log_loss_radius=log_radius, gauge_target=prob.gt_poses[0])
+    obj.add(tt.Local(pts[0], prob.gt_points[0].cpu().numpy(), tt.ScaleCostWeight(1e3), name="scale_pin"))
+    opt = tt.LevenbergMarquardt(obj, max_iterations=6 if mode == "unroll" else 15, adaptive_damping=True,
+                                ellipsoidal_damping=True, linearization="schur")
+    with config.plain_path() if plain else contextlib.nullcontext():
+        before = dict(_cuda.launches)
+        out, _ = tt.TheseusLayer(opt).forward(ba_values(prob), optimizer_kwargs={"backward_mode": mode})
+        d = se3.log(se3.compose(se3.inverse(out["cam"]), prob.gt_poses))
+        loss = torch.mean(torch.sum(d * d, dim=-1))
+        mid = dict(_cuda.launches)
+        loss.backward()
+    fwd = {k: mid[k] - before[k] for k in mid}
+    bwd = {k: _cuda.launches[k] - mid[k] for k in mid}
+    return float(loss.detach()), float(log_radius.grad), fwd, bwd
+
+
+@pytest.mark.parametrize("mode", ["implicit", "unroll", "dlm"])
+def test_robust_ba_gradient_on_card_matches_twins(cuda_device, mode):
+    """The Schur backward (`_SchurSolve`) and the Reprojection Function on
+    the card: float64 kernels equal the float64 plain twins to rounding
+    order (1e-7); the float32 kernels' implicit gradient is within 5e-2 of
+    them (the float32 plateau, as in chip_smoke.py's training phases). An
+    unrolled float32 solve may accept or reject other LM steps, and a
+    float32 BA DLM step perturbs the state below float32's resolution, so
+    those two are held in float64 only."""
+    loss, grad, fwd, bwd = _robust_ba_grad(cuda_device, torch.float64, mode)
+    assert fwd["reprojection"] > 0 and fwd["assemble_blocks"] > 0
+    if mode == "unroll":  # the linearizations replay through the Function
+        assert bwd["reprojection"] == 0
+    # DLM's central difference magnifies the card twins' atomic sums: its
+    # reference runs on the CPU, where the sums have one order
+    ref_device = torch.device("cpu") if mode == "dlm" else cuda_device
+    loss_p, grad_p, fwd_p, _ = _robust_ba_grad(ref_device, torch.float64, mode, plain=True)
+    assert sum(fwd_p.values()) == 0
+    assert np.isfinite(grad) and grad != 0.0
+    np.testing.assert_allclose(loss, loss_p, rtol=1e-9)
+    np.testing.assert_allclose(grad, grad_p, rtol=1e-7)
+    if mode == "implicit":
+        _, grad32, _, _ = _robust_ba_grad(cuda_device, torch.float32, mode)
+        assert abs(grad32 - grad_p) <= 5e-2 * abs(grad_p)
+
+
+@pytest.mark.parametrize("whole", [False, True], ids=["levels", "whole"])
+def test_dlm_gradient_on_card_matches_twins(cuda_device, whole):
+    """DLM at PGO 64 x 16, float64: kernels against the plain twins on the
+    CPU to 1e-7;
+    backward() runs the two perturbed solves through the factorization and
+    substitution kernels of the plan."""
+    _cuda.reset_launches()
+    loss, grad, _, bwd = _training_grad(cuda_device, torch.float64, "dlm", whole, n=64, b=16)
+    if whole:
+        assert bwd["whole_factor"] == 2 and bwd["whole_fwd_subst"] == 2 and bwd["whole_bwd_subst"] == 2
+        assert bwd["level_factor"] == 0
+    else:
+        assert bwd["level_factor"] > 0 and bwd["level_fwd_subst"] == bwd["level_bwd_subst"] == bwd["level_factor"]
+        assert bwd["whole_factor"] == 0
+    assert bwd["between_se3"] > 0
+    with config.plain_path():  # on the CPU: one order of the twins' sums
+        loss_p, grad_p, _, _ = _training_grad(torch.device("cpu"), torch.float64, "dlm", False, n=64, b=16)
+    assert np.isfinite(grad) and grad != 0.0
+    np.testing.assert_allclose(loss, loss_p, rtol=1e-9)
+    np.testing.assert_allclose(grad, grad_p, rtol=1e-7)

@@ -104,3 +104,24 @@ def test_broadcast_over_leading_dims():
     got = SE3.local(b, a)
     want = torch.stack([SE3.local(b, a[k]) for k in range(5)])
     torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("op", ["so3_left_project", "se3_left_project", "quaternion_to_rotation"])
+def test_projections_and_quaternions(op):
+    """The DLM backward's map of an ambient cotangent to the right tangent
+    (`Group.egrad_to_tangent`, falling back to `left_project`), and the g2o
+    reader's quaternion conversion (unnormalized input)."""
+    import jax
+
+    rng = np.random.default_rng(7)
+    if op == "quaternion_to_rotation":
+        jq, tq = _both(rng.standard_normal((6, 4)))
+        _check(jso3.quaternion_to_rotation(jq), so3.quaternion_to_rotation(tq))
+        return
+    g = np.asarray(jax.vmap(jse3.exp)(jnp.asarray(_tangents(rng, 6, 1.3))))
+    jg, tg = _both(g if op == "se3_left_project" else g[..., :3])
+    jm, tm = _both(rng.standard_normal(jg.shape))
+    jmod, tmod = (jse3, se3) if op == "se3_left_project" else (jso3, so3)
+    _check(jax.vmap(jmod.left_project)(jg, jm), tmod.left_project(tg, tm))
+    if op == "se3_left_project":
+        _check(jax.vmap(JSE3.egrad_to_tangent)(jg, jm), SE3.egrad_to_tangent(tg, tm))

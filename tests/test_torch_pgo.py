@@ -122,10 +122,12 @@ def test_float32_solve_close_to_float64_plateau():
 @pytest.mark.parametrize(
     "case", ["requires_grad", "aux_requires_grad", "dense", "schur", "implicit_mode", "dlm"])
 def test_unported_paths_raise(case):
-    """The paths still to port raise NotImplementedError naming ROADMAP.md:
-    the dense linearization, the Schur and DLM backwards. Inputs that
-    require grad on the sparse path (unroll, the default, and implicit)
-    now get a finite, non-zero gradient instead."""
+    """The path still to port, the dense linearization, raises
+    NotImplementedError naming ROADMAP.md. Inputs that require grad get a
+    finite, non-zero gradient on every other path: the sparse one (unroll,
+    the default, and implicit), the Schur one (unroll, through the points)
+    and the DLM mode (through an aux input: DLM gives the initial state a
+    zero gradient)."""
     arrays, _ = _arrays(n=8, b=2)
     if case == "dense":
         obj, _ = problem_from_arrays(arrays, device="cpu")
@@ -133,7 +135,6 @@ def test_unported_paths_raise(case):
             tt.LevenbergMarquardt(obj, linearization=case)
         return
     if case == "schur":
-        # the Schur forward solve is ported; its backward is not
         from theseus_tpu_torch.utils.examples.bundle_adjustment import (
             ba_values, build_ba_objective, synthetic_ba)
 
@@ -141,19 +142,16 @@ def test_unported_paths_raise(case):
         obj, _, _ = build_ba_objective(prob, dtype=torch.float64, device="cpu")
         layer = tt.TheseusLayer(tt.LevenbergMarquardt(obj, linearization="schur"))
         inputs = ba_values(prob)
-        inputs["pt"] = inputs["pt"].clone().requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            layer.forward(inputs)
+        leaf = inputs["pt"] = inputs["pt"].clone().requires_grad_(True)
+        out, _ = layer.forward(inputs)
+        (grad,) = torch.autograd.grad((out["cam"][..., 3] ** 2).sum(), leaf)
+        assert bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0
         return
     layer, inputs = _port_layer(arrays)
     kwargs = {"backward_mode": "implicit"} if case == "implicit_mode" else {}
     if case == "dlm":
         kwargs = {"backward_mode": "dlm"}
-        inputs["pose_3"] = inputs["pose_3"].clone().requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            layer.forward(inputs, optimizer_kwargs=kwargs)
-        return
-    if case == "aux_requires_grad" or case == "implicit_mode":
+    if case in ("aux_requires_grad", "implicit_mode", "dlm"):
         prior = layer.objective.cost_functions["prior"]
         leaf = torch.as_tensor(prior.aux_vars[0].tensor).clone().requires_grad_(True)
         prior.aux_vars[0].tensor = leaf

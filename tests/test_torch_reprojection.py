@@ -139,10 +139,14 @@ def test_point_on_the_camera_plane_is_not_finite():
 
 
 def test_requires_grad_is_refused():
+    """Inputs that require grad are no longer refused: the call goes through
+    the autograd Function and the points get a finite, non-zero gradient
+    (tests/test_torch_ba_backward.py holds it against the JAX package)."""
     args = [torch.as_tensor(a) for a in _inputs(K=2, B=2)]
     args[1].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        reprojection_linearize(*args)
+    jpose, jpt, err = reprojection_linearize(*args)
+    (grad,) = torch.autograd.grad(jpose.sum() + jpt.sum() + err.sum(), args[1])
+    assert bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0
 
 
 def test_float32_twin_close_to_float64():

@@ -1,11 +1,13 @@
 """theseus_tpu_torch: the PyTorch / CUDA port of theseus_tpu (JAX counterpart: theseus_tpu/__init__.py).
 
-Differentiable nonlinear least squares on an NVIDIA Hopper GPU. Two forward
-solves are ported: the batched SE3 pose graph (Between and Local costs over
-the level-scheduled block-sparse Cholesky) and bundle adjustment
+Differentiable nonlinear least squares on an NVIDIA Hopper GPU. Two problem
+families are ported: the batched SE3 pose graph (Between and Local costs
+over the level-scheduled block-sparse Cholesky) and bundle adjustment
 (Reprojection cost families over SE3 cameras and Point3 landmarks, with the
 Schur-complement backend, `linearization="schur"`), both by
-Levenberg-Marquardt / Gauss-Newton through `TheseusLayer.forward`. Their
+Levenberg-Marquardt / Gauss-Newton through `TheseusLayer.forward`, both
+differentiable in the four backward modes (unroll, implicit, truncated,
+DLM), with robust losses on any cost. Their
 kernels (Between and Reprojection linearization, block assembly, level
 factorization, level substitution) are hand-written CUDA kernels under
 `csrc/`, built with nvcc at first use; on CPU tensors each runs its plain
@@ -21,16 +23,22 @@ from .core import (
     CostFunction,
     CostWeight,
     DiagonalCostWeight,
+    GemanMcClureLoss,
+    GNCRobustCostFunction,
+    HingeLoss,
+    HuberLoss,
     ManifoldVariable,
     Objective,
     Point3,
     Point3Family,
+    RobustCostFunction,
     ScaleCostWeight,
     SE3Family,
     Variable,
     VariableFamily,
     Vector,
     VectorFamily,
+    WelschLoss,
 )
 from .embodied import Between, Difference, Local, Reprojection
 from .layer import TheseusLayer
@@ -48,6 +56,12 @@ __all__ = [
     "Point3Family",
     "VectorFamily",
     "CostFunction",
+    "RobustCostFunction",
+    "GNCRobustCostFunction",
+    "WelschLoss",
+    "HuberLoss",
+    "HingeLoss",
+    "GemanMcClureLoss",
     "CostWeight",
     "DiagonalCostWeight",
     "ManifoldVariable",

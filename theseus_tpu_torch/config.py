@@ -217,14 +217,3 @@ def needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors
     )
-
-
-def check_no_grad(*tensors: torch.Tensor) -> None:
-    """Where the port has no backward yet (the Schur linearization, the
-    Reprojection op, the DLM mode; ROADMAP.md, queue 1), refuse inputs that
-    carry autograd history instead of detaching them silently."""
-    if needs_grad(*tensors):
-        raise NotImplementedError(
-            "theseus_tpu_torch has no backward pass for this path yet (ROADMAP.md, queue 1):"
-            " pass tensors that do not require grad"
-        )

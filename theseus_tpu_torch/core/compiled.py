@@ -13,6 +13,17 @@ A variable family (core/family.py) enters its type stack as one contiguous
 run and its values as one (N, B, ...) array; a cost family becomes one
 bucket whose index tables are built vectorized and whose aux arrays arrive
 pre-stacked.
+
+A robust bucket (`RobustCostFunction`, `GNCRobustCostFunction`) evaluates
+the wrapped cost as any bucket does, through its fused linearization where
+it has one, then applies the weight, then the robust loss: in metric mode
+`robust_apply_error`, in linearize mode the sqrt(rho') rescale of the
+weighted error and jacobians, a plain elementwise torch pass. Here the route
+differs from the JAX package, which skips its fused Pallas kernel for robust
+buckets (the kernel returns unweighted outputs that would bypass the
+transform) and vmaps the cost's jacobians function instead: the values are
+the same function, and the robust bundle-adjustment path still runs the
+Reprojection kernel on the card.
 """
 
 from __future__ import annotations
@@ -24,7 +35,7 @@ import numpy as np
 import torch
 
 from ..lie import Group
-from .cost_function import CostFunction
+from .cost_function import CostFunction, GNCRobustCostFunction, RobustCostFunction
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +68,14 @@ class BucketSpec:
     weight_slots: Tuple[AuxSlotSpec, ...]
     # CostFamily buckets carry no per-member cfs; their count is explicit
     count: Optional[int] = None
+
+    @property
+    def robust(self) -> bool:
+        return isinstance(self.template, RobustCostFunction)
+
+    @property
+    def gnc(self) -> bool:
+        return isinstance(self.template, GNCRobustCostFunction)
 
     @property
     def k(self) -> int:
@@ -259,17 +278,29 @@ class CompiledObjective:
         xs = self.gather_optim(bucket, state)
         template = bucket.template
         weight = template.weight
+        cost, cost_aux = template, cf_aux
+        if bucket.robust:  # aux: the wrapped cost's, log radius (, mu)
+            cost, cost_aux = template.cost_function, template.inner_aux(cf_aux)
+            log_radius = cf_aux[len(cost_aux)][..., 0]  # (K, B) or shared (B,)
+            mu = cf_aux[-1][..., 0] if bucket.gnc else None
         if mode == "metric":
-            fused = getattr(template, "fused_error", None)
-            err = fused(xs, cf_aux) if fused is not None else template.error_impl(xs, cf_aux)
+            fused = getattr(cost, "fused_error", None)
+            err = fused(xs, cost_aux) if fused is not None else cost.error_impl(xs, cost_aux)
             werr, _ = weight.apply_batched(err, None, w_aux)
+            if bucket.robust:
+                werr = template.robust_apply_error(werr, log_radius, mu)
             return self._guard_zero_weight_metric(weight, w_aux, werr)
-        fused = getattr(template, "fused_linearize", None)
+        fused = getattr(cost, "fused_linearize", None)
         if fused is not None:
-            jacs, err = fused(xs, cf_aux)
+            jacs, err = fused(xs, cost_aux)
         else:
-            jacs, err = template.jacobians_impl(xs, cf_aux)
+            jacs, err = cost.jacobians_impl(xs, cost_aux)
         werr, wjacs = weight.apply_batched(err, list(jacs), w_aux)
+        if bucket.robust:
+            scale = template.robust_rescale(werr, log_radius, mu)
+            scale = scale if template.flatten_dims else scale[..., None]
+            werr = scale * werr
+            wjacs = [scale[..., None] * j for j in wjacs]
         werr, wjacs = self._mask_zero_weights(weight, w_aux, werr, wjacs)
         return tuple(wjacs), werr
 

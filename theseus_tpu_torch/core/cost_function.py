@@ -4,15 +4,20 @@ The analytic-jacobian path only. `error_impl(optim, aux)` and
 `jacobians_impl(optim, aux)` take whole stacked buckets: every optim operand
 is (K, B, *shape) and every aux operand (K, B, ...) or, when all members of
 the bucket share it, (B, ...); torch broadcasting does what the JAX
-package's vmap over instances and batch did. Autodiff and robust costs are
-not ported yet (ROADMAP.md, queue 1, slice 3).
+package's vmap over instances and batch did. `RobustCostFunction` and
+`GNCRobustCostFunction` wrap a cost with a robust loss; the compiled
+objective applies the loss to the wrapped cost's weighted outputs.
+Autodiff costs are not ported yet (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import torch
+
 from .cost_weight import CostWeight, ScaleCostWeight
+from .robust_loss import LOSS_EPS
 from .variable import ManifoldVariable, Variable, as_variable
 
 
@@ -62,3 +67,113 @@ class CostFunction:
 
     def __repr__(self):
         return f"{type(self).__name__}(name={self.name}, dim={self.dim()})"
+
+
+def _as_batched_scalar(value) -> Variable:
+    """A user scalar (Python or numpy float, 0-d or 1-d array) as a (1, 1)
+    or (B, 1) aux Variable: every aux operand carries a leading batch axis."""
+    v = as_variable(value)
+    t = v.tensor
+    if t is not None:
+        if t.ndim == 0:
+            v.tensor = t.reshape(1, 1)
+        elif t.ndim == 1:  # (B,) -> (B, 1): 1-d means per-batch values
+            v.tensor = t.reshape(-1, 1)
+    return v
+
+
+def _trailing(x):
+    """Per-cost scalar (..., K, B) -> (..., K, B, 1), to meet (K, B, dim)."""
+    return x[..., None] if isinstance(x, torch.Tensor) else x
+
+
+class RobustCostFunction(CostFunction):
+    """A cost with a robust loss rho applied to ||w e||^2.
+
+    The weighted error reported for metrics is ones * sqrt(rho / dim), so
+    that its sum of squares is the loss; the linearization rescales the
+    weighted error and jacobians by sqrt(rho') (the Triggs correction with
+    alpha = 0). With flatten_dims the loss applies to each dimension's
+    squared entry instead. The log radius is the last aux variable."""
+
+    def __init__(
+        self,
+        cost_function: CostFunction,
+        loss_cls,
+        log_loss_radius,
+        flatten_dims: bool = False,
+        name: Optional[str] = None,
+    ):
+        log_loss_radius = _as_batched_scalar(log_loss_radius)
+        super().__init__(
+            cost_function.optim_vars,
+            tuple(cost_function.aux_vars) + (log_loss_radius,),
+            cost_function.weight,
+            name or f"Robust__{cost_function.name}",
+        )
+        self.cost_function = cost_function
+        self.loss_cls = loss_cls
+        self.log_loss_radius = log_loss_radius
+        self.flatten_dims = flatten_dims
+
+    @property
+    def has_analytic_jacobians(self):
+        return self.cost_function.has_analytic_jacobians
+
+    def dim(self) -> int:
+        return self.cost_function.dim()
+
+    def inner_aux(self, aux):
+        """The wrapped cost's aux operands."""
+        return aux[: len(self.cost_function.aux_vars)]
+
+    def error_impl(self, optim, aux):
+        return self.cost_function.error_impl(optim, self.inner_aux(aux))
+
+    def jacobians_impl(self, optim, aux):
+        return self.cost_function.jacobians_impl(optim, self.inner_aux(aux))
+
+    def robust_apply_error(self, werr, log_radius, mu=None):
+        """Metric-mode transform of the weighted error (K, B, dim)."""
+        if self.flatten_dims:
+            return torch.sqrt(self._loss_eval(werr**2, _trailing(log_radius), _trailing(mu)) + LOSS_EPS)
+        loss = self._loss_eval(torch.sum(werr**2, dim=-1), log_radius, mu)
+        return torch.ones_like(werr) * torch.sqrt(loss / self.dim() + LOSS_EPS)[..., None]
+
+    def robust_rescale(self, werr, log_radius, mu=None):
+        """sqrt(rho') factors for the linearization: (K, B) per cost, or
+        (K, B, dim) with flatten_dims."""
+        if self.flatten_dims:
+            return torch.sqrt(self._loss_lin(werr**2, _trailing(log_radius), _trailing(mu)) + LOSS_EPS)
+        return torch.sqrt(self._loss_lin(torch.sum(werr**2, dim=-1), log_radius, mu) + LOSS_EPS)
+
+    def _loss_eval(self, x, log_radius, mu):
+        if self.loss_cls.is_gnc:
+            return self.loss_cls.evaluate(x, log_radius, 1.0 if mu is None else mu)
+        return self.loss_cls.evaluate(x, log_radius)
+
+    def _loss_lin(self, x, log_radius, mu):
+        if self.loss_cls.is_gnc:
+            return self.loss_cls.linearize(x, log_radius, 1.0 if mu is None else mu)
+        return self.loss_cls.linearize(x, log_radius)
+
+    def schema(self):
+        return ("Robust", self.loss_cls.__name__, self.flatten_dims, self.cost_function.schema())
+
+
+class GNCRobustCostFunction(RobustCostFunction):
+    """A robust cost with a graduated-non-convexity control mu as one more
+    aux variable: an outer loop anneals mu from large (near quadratic)
+    toward 1 (the full robust loss). Aux: the wrapped cost's, then the log
+    radius, then mu."""
+
+    def __init__(self, cost_function, loss_cls, log_loss_radius, gnc_control_val,
+                 flatten_dims: bool = False, name=None):
+        if not getattr(loss_cls, "is_gnc", False):
+            raise ValueError(f"{loss_cls.__name__} is not a GNC-capable loss.")
+        super().__init__(cost_function, loss_cls, log_loss_radius, flatten_dims=flatten_dims, name=name)
+        self.gnc_control_val = _as_batched_scalar(gnc_control_val)
+        self.aux_vars = tuple(self.aux_vars) + (self.gnc_control_val,)
+
+    def schema(self):
+        return ("GNC",) + super().schema()

@@ -11,7 +11,10 @@ user-facing primitive instead:
 - `CostFamily`: N structurally identical costs given by one template cost,
   per-slot member index arrays and pre-stacked (N, B|1, ...) aux arrays.
   The compiler turns it into one evaluation bucket, the same bucket schema
-  grouping makes of N costs added one by one.
+  grouping makes of N costs added one by one. A robust template (a
+  RobustCostFunction around the template cost) follows the same rule: its
+  (1, 1) log radius is one shared aux slot, a per-cost (N, 1, 1) radius a
+  stacked one.
 """
 
 from __future__ import annotations

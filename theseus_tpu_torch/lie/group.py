@@ -41,6 +41,13 @@ class Group:
     def adjoint(self, g):
         return self.mod.adjoint(g)
 
+    def egrad_to_tangent(self, g, grad):
+        """Project a Euclidean gradient of an element onto its right tangent
+        space: the module's own rule, else `left_project`."""
+        if hasattr(self.mod, "egrad_to_tangent"):
+            return self.mod.egrad_to_tangent(g, grad)
+        return self.mod.left_project(g, grad)
+
     def retract(self, g, delta):
         """g * exp(delta)."""
         return self.mod.compose(g, self.mod.exp(delta))

@@ -40,5 +40,10 @@ def adjoint(g):
     return _eye_like(g)
 
 
+def egrad_to_tangent(g, grad):
+    """A Euclidean gradient is already the tangent one."""
+    return grad
+
+
 def identity(dof: int, *batch, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.zeros(tuple(batch) + (dof,), dtype=dtype, device=device)

@@ -4,7 +4,8 @@ Layout (..., 3, 4) with the rotation in [..., :3] and the translation in
 [..., 3]; tangents are [linear(3); angular(3)] with right perturbation
 g * exp(delta). The subset the PGO path needs: exp, log, jlog, compose,
 inverse, adjoint, with the JAX package's Taylor branches and eps, and the
-point action `transform` the bundle-adjustment data needs. `exp` and `log`
+point action `transform` the bundle-adjustment data needs, and
+`left_project` for the DLM backward. `exp` and `log`
 carry the JAX package's custom JVP rules as autograd Functions (see
 lie/so3.py), taken only while autograd records.
 """
@@ -222,3 +223,10 @@ def identity(*batch, dtype: torch.dtype, device) -> torch.Tensor:
     base = torch.zeros(3, 4, dtype=dtype, device=device)
     base[:, :3] = torch.eye(3, dtype=dtype, device=device)
     return base.expand(tuple(batch) + (3, 4))
+
+
+def left_project(g: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """A Euclidean gradient (..., 3, 4) -> right tangent (..., 6): [R^T m_t;
+    so3.project(R^T m_R)]."""
+    rt = transpose(g[..., :3])
+    return torch.cat([mvp(rt, m[..., 3]), so3.project(rt @ m[..., :3])], dim=-1)

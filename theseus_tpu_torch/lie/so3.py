@@ -1,6 +1,8 @@
 """Functional SO(3) ops on 3x3 rotation matrices (JAX counterpart: theseus_tpu/lie/so3.py).
 
-The subset the PGO path needs: exp, log, jlog, compose, inverse, adjoint.
+The subset the PGO path needs: exp, log, jlog, compose, inverse, adjoint;
+and for the DLM backward `left_project` (a Euclidean gradient to the right
+tangent) and `quaternion_to_rotation` (the g2o reader).
 Right-perturbation tangent convention, and the same Taylor branches and
 per-dtype eps as the JAX package (exp near-zero Pade; log near-zero and
 near-pi branches; jlog coefficients on the wider derivative eps). All ops
@@ -172,3 +174,24 @@ def inverse(g: torch.Tensor) -> torch.Tensor:
 def adjoint(g: torch.Tensor) -> torch.Tensor:
     return g
 
+
+def project(m: torch.Tensor) -> torch.Tensor:
+    """Adjoint of hat: the full antisymmetric differences, (..., 3, 3) -> (..., 3)."""
+    return 2.0 * antisym_project(m)
+
+
+def left_project(g: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """project(g^{-1} m): a Euclidean gradient (..., 3, 3) -> right tangent (..., 3)."""
+    return project(transpose(g) @ m)
+
+
+def quaternion_to_rotation(q: torch.Tensor) -> torch.Tensor:
+    """(..., 4) wxyz quaternion, normalized here -> (..., 3, 3)."""
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q.unbind(-1)
+    rows = [
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ]
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)

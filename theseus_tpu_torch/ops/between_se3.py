@@ -5,8 +5,8 @@ d = v1^{-1} v2, r = log(m^{-1} d), J2 = jlog(m^{-1} d) and
 J1 = -J2 Adj(d^{-1}). On a CUDA tensor it launches `csrc/between_se3.cu`;
 on a CPU tensor it runs `between_linearize_plain`, the pure-torch
 formulation of the same outputs (the model of the JAX package's
-`_reference_linearize`). While autograd records, the call goes through an
-autograd Function whose backward differentiates that twin.
+`_reference_linearize`). While autograd records, the call goes through
+`twin_vjp`'s Function, whose backward differentiates that twin.
 
 `between_linearize_fused` is the AoS entry point of the JAX package's
 `ops/pallas_between.py`, which computes the same function on the same
@@ -21,8 +21,9 @@ from __future__ import annotations
 import torch
 
 from .. import _cuda
-from ..config import get_eps, needs_grad, use_kernel
+from ..config import get_eps, use_kernel
 from ..lie import se3
+from .twin_vjp import kernel_with_twin_vjp
 
 # the shared-memory values a thread's outputs occupy in csrc/between_se3.cu
 # (BT_TILE: J1 and J2 rows padded from 36 to 37 values, err from 6 to 7)
@@ -43,41 +44,22 @@ def between_linearize_plain(v1, v2, meas):
     return j1, jl, res
 
 
-def _forward(v1, v2, meas, counter):
+def _forward(counter):
     """The outputs without autograd: the kernel on a CUDA tensor (its launch
     counted under `counter`), the twin on a CPU tensor."""
-    if not use_kernel(v1):
-        return between_linearize_plain(v1, v2, meas)
-    return _launch(v1, v2, meas, counter)
 
+    def fwd(v1, v2, meas):
+        if not use_kernel(v1):
+            return between_linearize_plain(v1, v2, meas)
+        return _launch(v1, v2, meas, counter)
 
-class _BetweenLinearize(torch.autograd.Function):
-    """Forward: the kernel. Backward: the VJP of `between_linearize_plain` at
-    the saved inputs (the JAX package's `_fused_bwd`)."""
-
-    @staticmethod
-    def forward(ctx, v1, v2, meas, counter):
-        ctx.save_for_backward(v1, v2, meas)
-        return _forward(v1, v2, meas, counter)
-
-    @staticmethod
-    def backward(ctx, gj1, gj2, gerr):
-        wants = ctx.needs_input_grad[:3]
-        prims = [t.detach().requires_grad_(w) for t, w in zip(ctx.saved_tensors, wants)]
-        with torch.enable_grad():
-            outs = between_linearize_plain(*prims)
-        leaves = [p for p, w in zip(prims, wants) if w]
-        grads = iter(torch.autograd.grad(outs, leaves, (gj1, gj2, gerr), allow_unused=True))
-        return tuple(next(grads) if w else None for w in wants) + (None,)
+    return fwd
 
 
 def between_linearize(v1, v2, meas):
     """v1, v2 (K, B, 3, 4); meas broadcastable to them (a shared measurement
     may drop the edge axis). Returns (j1, j2, err)."""
-    meas = meas.expand(v1.shape)
-    if needs_grad(v1, v2, meas):
-        return _BetweenLinearize.apply(v1, v2, meas, "between_se3")
-    return _forward(v1, v2, meas, "between_se3")
+    return kernel_with_twin_vjp(_forward("between_se3"), between_linearize_plain, v1, v2, meas.expand(v1.shape))
 
 
 def between_linearize_fused(v1, v2, meas, block_edges: int = 8):
@@ -91,9 +73,7 @@ def between_linearize_fused(v1, v2, meas, block_edges: int = 8):
     if meas.shape != v1.shape:
         raise ValueError(f"between_linearize_fused expects meas of shape {tuple(v1.shape)}, "
                          f"got {tuple(meas.shape)}")
-    if needs_grad(v1, v2, meas):
-        return _BetweenLinearize.apply(v1, v2, meas, "between_se3_aos")
-    return _forward(v1, v2, meas, "between_se3_aos")
+    return kernel_with_twin_vjp(_forward("between_se3_aos"), between_linearize_plain, v1, v2, meas)
 
 
 def _launch(v1, v2, meas, counter):

@@ -9,9 +9,13 @@ with closed-form jacobians jpt = de/dP R (2x3) and
 jpose = [jpt | -jpt hat(p)] (2x6, right tangent [lin; ang]).
 `reprojection_linearize` launches `csrc/reprojection.cu` on a CUDA tensor
 and runs `reprojection_linearize_plain` (the port of the JAX package's
-`_reference_linearize`) on a CPU tensor. The kernel's launch (block size,
-shared memory) is worked out here, in `reprojection_geometry`, where the
-CPU tests reach it.
+`_reference_linearize`) on a CPU tensor. While autograd records, the call
+goes through `twin_vjp`'s Function, whose forward is that same launch
+or twin and whose backward is the VJP of the twin at the saved inputs (the
+JAX package's `_fused_bwd` takes `jax.vjp` of `_reference_linearize`; it
+has no backward kernel either). The kernel's launch (block size, shared
+memory) is worked out here, in `reprojection_geometry`, where the CPU tests
+reach it.
 """
 
 from __future__ import annotations
@@ -19,8 +23,9 @@ from __future__ import annotations
 import torch
 
 from .. import _cuda
-from ..config import check_no_grad, use_kernel
+from ..config import use_kernel
 from ..lie.utils import so3_hat
+from .twin_vjp import kernel_with_twin_vjp
 
 # the shared-memory values a thread's outputs occupy in csrc/reprojection.cu
 # (RP_TILE: jpose's row padded from 12 to 13 values, jpt's from 6 to 7,
@@ -73,14 +78,19 @@ def broadcast_aux(pose, aux):
     return [a.expand(pose.shape[:1] + a.shape) if a.dim() == pose.dim() - 2 else a for a in aux]
 
 
+def _forward(*ops):
+    """The outputs without autograd: the kernel on a CUDA tensor, the twin
+    on a CPU tensor."""
+    if not use_kernel(ops[0]):
+        return reprojection_linearize_plain(*ops)
+    return _launch(*ops)
+
+
 def reprojection_linearize(pose, point, focal, feat, k1, k2):
     """pose (K, B, 3, 4), point (K, B, 3); focal, k1, k2 (K, B, 1) and feat
     (K, B, 2), each of them or shared (B, s). Returns (jpose, jpt, err)."""
-    check_no_grad(pose, point, focal, feat, k1, k2)
-    focal, feat, k1, k2 = broadcast_aux(pose, (focal, feat, k1, k2))
-    if not use_kernel(pose):
-        return reprojection_linearize_plain(pose, point, focal, feat, k1, k2)
-    return _launch(pose, point, focal, feat, k1, k2)
+    return kernel_with_twin_vjp(_forward, reprojection_linearize_plain, pose, point,
+                                *broadcast_aux(pose, (focal, feat, k1, k2)))
 
 
 def _launch(pose, point, focal, feat, k1, k2):

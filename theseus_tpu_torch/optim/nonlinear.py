@@ -8,9 +8,8 @@ launches; `run_while` checks after every iteration whether all elements are
 done (one host sync per iteration) and stops early.
 
 The "sparse" (block Cholesky) and "schur" (landmark elimination,
-optim/schur.py) linearizations are ported; "dense" raises. The sparse one
-is differentiable end to end (the layer's backward modes); the Schur one
-refuses inputs that require grad.
+optim/schur.py) linearizations are ported; "dense" raises. Both are
+differentiable end to end (the layer's backward modes).
 """
 
 from __future__ import annotations

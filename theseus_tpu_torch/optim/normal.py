@@ -51,11 +51,16 @@ class BlockNormal:
 
 
 class SparseNormal(BlockNormal):
-    def solve(self, damping=0.0, ellipsoidal=False):
-        """Returns (delta (B, D), fail (B,)); see finite_or_zero."""
+    def solve(self, damping=0.0, ellipsoidal=False, rhs_shift=None):
+        """Returns (delta (B, D), fail (B,)); see finite_or_zero. rhs_shift
+        (B, D), when given, is subtracted from Atb (the DLM backward's
+        perturbed solves)."""
         bld = self.builder
         ata = apply_block_damping(bld.pattern, self.ata, damping, ellipsoidal, bld.damping_eps)
-        x = sparse_block_solve(bld.sched, ata, self.atb_blocks)
+        rhs = self.atb_blocks
+        if rhs_shift is not None:
+            rhs = rhs - bld.unflatten(rhs_shift)
+        x = sparse_block_solve(bld.sched, ata, rhs)
         return finite_or_zero(bld.flatten(x))
 
 

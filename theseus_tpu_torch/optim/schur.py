@@ -28,6 +28,11 @@ Where PyTorch and JAX part ways, the port follows JAX's semantics:
   to NaN, so the `bad` mask zeroes its step and LM raises its damping;
 - JAX's `.at[idx].add` accumulates repeated indices; here every such
   scatter is `index_add_` / `index_put_(accumulate=True)`.
+
+The solve is differentiable (`_SchurSolve`): its backward reuses the
+forward's landmark Choleskys and reduced-camera factor for h = H^{-1} g,
+as the sparse backend's solve reuses its factor. JAX gets the same
+gradient by differentiating the plain ops of its solve.
 """
 
 from __future__ import annotations
@@ -38,11 +43,10 @@ import numpy as np
 import torch
 
 from .. import config
-from ..config import check_no_grad
 from ..core.compiled import CompiledObjective
 from ..ops.batched_linalg import chol_small, chol_solve_mat, chol_solve_vec
 from ..sparse.assemble import apply_block_damping
-from ..sparse.refine import block_matvec, hp_dtype, refine, refine_active
+from ..sparse.refine import block_matvec, hp_dtype, refine, refine_active, solve_vjp
 from .normal import BlockNormal, BlockNormalBuilder, finite_or_zero
 
 # one-hot matmuls make segment sums fixed-order products; past this many
@@ -80,16 +84,22 @@ class SchurNormal(BlockNormal):
         rhs = self.atb_blocks
         if rhs_shift is not None:
             rhs = rhs - bld.unflatten(rhs_shift)
-        # factor once, then apply to the rhs; the same apply serves the
-        # iterative-refinement sweeps of the high-precision tier
-        apply_fn = self._prepare_apply(ata)
+        if config.needs_grad(ata, rhs):
+            x_blocks = _SchurSolve.apply(self, ata, rhs)
+        else:
+            x_blocks = self._apply_refined(self._prepare_apply(ata), ata, rhs)
+        return finite_or_zero(bld.flatten(x_blocks))
+
+    def _apply_refined(self, apply_fn, ata, rhs):
+        """apply_fn(rhs), then the iterative-refinement sweeps of the
+        high-precision tier, each reusing the same factors."""
         x_blocks = apply_fn(rhs)
         if refine_active(rhs.dtype):
-            tables = bld.pattern.matvec_tables(rhs.device)
+            tables = self.builder.pattern.matvec_tables(rhs.device)
             hp = hp_dtype(rhs.dtype)
             x_blocks = refine(apply_fn, lambda xv: block_matvec(tables, ata, xv, hp),
                               rhs, x_blocks, config.REFINE_STEPS)
-        return finite_or_zero(bld.flatten(x_blocks))
+        return x_blocks
 
     def _prepare_apply(self, ata):
         """Eliminate the landmarks and factor the reduced camera system;
@@ -169,6 +179,30 @@ class SchurNormal(BlockNormal):
         return apply_fn
 
 
+class _SchurSolve(torch.autograd.Function):
+    """x = H^{-1} rhs through the Schur elimination, with factor reuse.
+
+    Forward: eliminate and factor once (`_prepare_apply`), apply, refine.
+    Backward: `solve_vjp`, as the sparse solve's, its h = H^{-1} g by the
+    same apply and refinement; d_ata only when asked for."""
+
+    @staticmethod
+    def forward(ctx, normal, ata, rhs):
+        apply_fn = normal._prepare_apply(ata)
+        x = normal._apply_refined(apply_fn, ata, rhs)
+        ctx.normal, ctx.apply_fn = normal, apply_fn
+        ctx.save_for_backward(ata, x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        ata, x = ctx.saved_tensors
+        d_ata, h = solve_vjp(lambda r: ctx.normal._apply_refined(ctx.apply_fn, ata, r),
+                             ctx.normal.builder.pattern.matvec_tables(g.device), ata, x, g,
+                             ctx.needs_input_grad[1])
+        return None, d_ata, h
+
+
 class SchurNormalBuilder(BlockNormalBuilder):
     """eliminate: predicate(name, group) -> True for landmark-style vars."""
 
@@ -220,12 +254,6 @@ class SchurNormalBuilder(BlockNormalBuilder):
         self.pt_diag_slots = np.asarray([pattern.pair_slot[(v, v)] for v in self.pt_vars], np.int64)
         self._tables: Dict[str, Dict[str, torch.Tensor]] = {}
         self._chunks: Dict[tuple, tuple] = {}
-
-    def build(self, state, aux, detach_hessian: bool = False) -> SchurNormal:
-        """The Schur linearization has no backward yet (ROADMAP.md, queue 1):
-        inputs that require grad raise."""
-        check_no_grad(*state.values(), *(t for bucket in aux for slot in bucket for t in slot))
-        return super().build(state, aux, detach_hessian)
 
     def tables(self, device) -> Dict[str, torch.Tensor]:
         """The index tables as tensors on `device`, built once: a copy from

@@ -42,7 +42,7 @@ from .. import config
 from ..ops.batched_linalg import chol_small, rt_solve_lower, solve_lower_vec, solve_upper_vec
 from .assemble import BlockPattern
 from .level_kernels import level_bwd_subst, level_factor, level_fwd_subst
-from .refine import block_matvec, hp_dtype, refine, refine_active
+from .refine import block_matvec, hp_dtype, refine, refine_active, solve_vjp
 from .structure import SymbolicFactor
 from .whole import solve_whole, whole_factor
 
@@ -522,10 +522,8 @@ def _refine_with_factor(sched, lflat, ata_flat, b, x0):
 class _SparseBlockSolve(torch.autograd.Function):
     """x = H^{-1} atb with factor reuse (JAX `_solve_fwd` / `_solve_bwd`).
 
-    Backward: h = H^{-1} g with the saved factor (plus refinement), so
-    d_atb = h; d_ata, only when asked for, is -(h_i x_j^T + x_i h_j^T) on
-    each stored off-diagonal block and half of that on the diagonal blocks
-    (read symmetrised in the forward)."""
+    Backward: `solve_vjp`, its h = H^{-1} g solved with the saved factor
+    (plus refinement); d_ata only when asked for."""
 
     @staticmethod
     def forward(ctx, sched, ata_flat, atb):
@@ -540,18 +538,12 @@ class _SparseBlockSolve(torch.autograd.Function):
     def backward(ctx, g):
         sched = ctx.sched
         lflat, ata_flat, x = ctx.saved_tensors
-        h = solve_with_factor(sched, lflat, g)  # H is symmetric
-        h = _refine_with_factor(sched, lflat, ata_flat, g, h)
-        d_ata = None
-        if ctx.needs_input_grad[1]:
-            t = sched.pattern.matvec_tables(g.device)
-            grads = -(
-                torch.einsum("nbi,nbj->nbij", h[t.ii], x[t.jj])
-                + torch.einsum("nbi,nbj->nbij", x[t.ii], h[t.jj])
-            )
-            grads = torch.where(t.off[:, None, None, None], grads, 0.5 * grads)
-            d_ata = torch.zeros_like(ata_flat)
-            d_ata[t.slots] = grads
+
+        def solve(r):  # H is symmetric
+            return _refine_with_factor(sched, lflat, ata_flat, r, solve_with_factor(sched, lflat, r))
+
+        d_ata, h = solve_vjp(solve, sched.pattern.matvec_tables(g.device), ata_flat, x, g,
+                             ctx.needs_input_grad[1])
         return None, d_ata, h
 
 

@@ -80,6 +80,28 @@ def block_matvec(tables: MatvecTables, ata_flat, x, out_dtype=None):
     return rows[tables.gather].sum(dim=1)
 
 
+def solve_vjp(solve: Callable, tables: MatvecTables, ata_flat, x, g, need_d_ata: bool):
+    """(d_ata, d_b) of x = H^{-1} b for the cotangent g, with h = solve(g) =
+    H^{-1} g (H is symmetric, so d_b = h). d_ata, when asked for, is
+    -(h_i x_j^T + x_i h_j^T) on each stored off-diagonal block and half of
+    that on the diagonal blocks, which the solves read symmetrised; zero on
+    unused slots. A batch element whose forward solution is not finite (a
+    failed factorization, whose step the callers zero) gets zero cotangents:
+    its NaN factor would otherwise turn the gradient of any parameter shared
+    across the batch into NaN."""
+    ok = torch.isfinite(x).all(dim=-1).all(dim=0)[None, :, None]  # (1, B, 1)
+    h = torch.where(ok, solve(g), 0.0)
+    if not need_d_ata:
+        return None, h
+    x = torch.where(ok, x, 0.0)
+    grads = -(torch.einsum("nbi,nbj->nbij", h[tables.ii], x[tables.jj])
+              + torch.einsum("nbi,nbj->nbij", x[tables.ii], h[tables.jj]))
+    grads = torch.where(tables.off[:, None, None, None], grads, 0.5 * grads)
+    d_ata = torch.zeros_like(ata_flat)
+    d_ata[tables.slots] = grads
+    return d_ata, h
+
+
 def refine(inner_solve: Callable, matvec: Callable, b, x0, steps: int):
     """x ~= H^{-1} b by iterative refinement around a low-precision solver."""
     if steps <= 0:

@@ -11,9 +11,12 @@ package's exact arrays, carry them over with utils/convert.py
 `build_ba_objective` builds one Reprojection cost per observation, as one
 CostFamily over a camera SE3Family and a landmark Point3Family (the default,
 O(1) Python objects at any size) or as individual costs (for parity tests),
-plus a Local prior on camera 0 that fixes the gauge. Solve it with
-`LevenbergMarquardt(obj, linearization="schur", adaptive_damping=True,
-ellipsoidal_damping=True)`.
+plus a Local prior on camera 0 that fixes the gauge; `robust_loss_cls`
+wraps every Reprojection cost in that robust loss, its log radius the aux
+variable "obs_log_radius". Solve it with `LevenbergMarquardt(obj,
+linearization="schur", adaptive_damping=True, ellipsoidal_damping=True)`;
+every backward mode of `TheseusLayer.forward` differentiates through it,
+so an outer loop can learn the radius.
 """
 
 from __future__ import annotations
@@ -195,12 +198,21 @@ def build_ba_objective(
     gauge_target=None,
     weight=None,
     use_families: bool = True,
+    robust_loss_cls=None,
+    log_loss_radius=0.0,
 ):
     """Reprojection objective with a Local prior (weight 1e4) on camera 0 as
     gauge. Returns (objective, cameras, points): the two families, or the
     lists of individual variables with use_families=False. The aux arrays
     are gathered on the host; the compiled objective moves each to `device`
-    in one copy."""
+    in one copy.
+
+    robust_loss_cls (e.g. core.HuberLoss) wraps each Reprojection cost in a
+    RobustCostFunction whose log radius is one (1, 1) aux variable,
+    "obs_log_radius", shared by every observation on both builders (the
+    JAX package's per-cost builder gives each cost its own copy of the same
+    value). log_loss_radius: a float, or a tensor that requires grad, which
+    the solve then differentiates."""
     obj = core.Objective(dtype=dtype, device=device)
     if use_families:
         cams = core.SE3Family(prob.num_cameras, name="cam")
@@ -215,6 +227,12 @@ def build_ba_objective(
     obs_cam, obs_pt = np.asarray(prob.obs_cam), np.asarray(prob.obs_pt)
     focals, k1, k2 = _host(prob.focals), _host(prob.k1), _host(prob.k2)
     obs_img = _host(prob.obs_img)
+    robust = None
+    if robust_loss_cls is not None:
+        radius = (log_loss_radius.reshape(1, 1) if isinstance(log_loss_radius, torch.Tensor)
+                  else np.full((1, 1), float(log_loss_radius)))
+        radius = core.Variable(radius, name="obs_log_radius")
+        robust = lambda cost, name: core.RobustCostFunction(cost, robust_loss_cls, radius, name=name)  # noqa: E731
     if use_families:
         template = Reprojection(
             cams[0],
@@ -226,11 +244,14 @@ def build_ba_objective(
             cost_weight=weight,
             name="obs_template",
         )
+        if robust is not None:
+            template = robust(template, "obs_robust_template")
         obj.add(core.CostFamily(template, members=[(cams, obs_cam), (pts, obs_pt)], name="obs"))
         return obj, cams, pts
     for oi, (ci, pi) in enumerate(zip(obs_cam.tolist(), obs_pt.tolist())):
-        obj.add(Reprojection(cams[ci], pts[pi], focal_length=focals[ci], image_feature_point=obs_img[oi],
-                             calib_k1=k1[ci], calib_k2=k2[ci], cost_weight=weight, name=f"obs_{oi}"))
+        cost = Reprojection(cams[ci], pts[pi], focal_length=focals[ci], image_feature_point=obs_img[oi],
+                            calib_k1=k1[ci], calib_k2=k2[ci], cost_weight=weight, name=f"obs_{oi}")
+        obj.add(cost if robust is None else robust(cost, f"robs_{oi}"))
     return obj, cams, pts
 
 

@@ -7,6 +7,10 @@ random numbers come from a numpy Generator seeded by `seed`, so the problem
 is reproducible without JAX; they are not the JAX package's numbers (its
 generator is jax.random). To solve the JAX package's exact arrays, load them
 with utils/convert.py.
+
+`read_3d_g2o` reads a g2o file of SE3 vertices and edges (the format of
+the public pose-graph datasets) into torch tensors on the card, or on the
+`device` given, ready for `build_pgo_objective`.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from ...config import resolve_device
 from ...core import Objective, ScaleCostWeight
 from ...core.variable import SE3, Variable
 from ...embodied import Between, Local
-from ...lie import se3
+from ...lie import se3, so3
 
 
 def chain_edges(n_poses: int, extra_loop_closures: bool = True) -> List[Tuple[int, int]]:
@@ -118,3 +122,44 @@ def mean_sq_local(values: Dict[str, torch.Tensor], gt: torch.Tensor) -> torch.Te
 def pose_values(init) -> Dict[str, object]:
     """(N, B, 3, 4) stacked initialization -> {pose_i: (B, 3, 4)}."""
     return {f"pose_{i}": init[i] for i in range(init.shape[0])}
+
+
+def read_3d_g2o(path, dtype: torch.dtype = torch.float64, device=None):
+    """VERTEX_SE3:QUAT / EDGE_SE3:QUAT reader. Returns (num_poses, poses
+    (N, 1, 3, 4), edges [(i, j)], measurements (E, 1, 3, 4), weights
+    (E, 6, 6)): the weights are the upper-triangular sqrt-information
+    W = L^T of each edge's information matrix info = L L^T, so W^T W = info
+    (g2o stores info's upper triangle, row by row). Vertices are numbered
+    0 .. N-1. Parsed in float64 on the host, then cast to (dtype, device);
+    device None is the card (config.default_device)."""
+    device = resolve_device(device)
+    verts: Dict[int, List[float]] = {}
+    edges: List[Tuple[int, int]] = []
+    meas, infos = [], []
+    iu = np.triu_indices(6)
+    with open(path) as f:
+        for line in f:
+            tok = line.split()
+            if not tok:
+                continue
+            if tok[0] == "VERTEX_SE3:QUAT":
+                x, y, z, qx, qy, qz, qw = map(float, tok[2:9])
+                verts[int(tok[1])] = [x, y, z, qw, qx, qy, qz]
+            elif tok[0] == "EDGE_SE3:QUAT":
+                edges.append((int(tok[1]), int(tok[2])))
+                x, y, z, qx, qy, qz, qw = map(float, tok[3:10])
+                meas.append([x, y, z, qw, qx, qy, qz])
+                info = np.zeros((6, 6))
+                info[iu] = list(map(float, tok[10:31]))
+                infos.append(info + np.triu(info, 1).T)
+    n = len(verts)
+
+    def to_se3(rows):
+        a = torch.as_tensor(np.asarray(rows), dtype=torch.float64)
+        return torch.cat([so3.quaternion_to_rotation(a[:, 3:7]), a[:, :3, None]], dim=-1)[:, None]
+
+    def cast(t):
+        return t.to(dtype=dtype, device=device)
+
+    weights = torch.as_tensor(np.stack([np.linalg.cholesky(i).T for i in infos]))
+    return n, cast(to_se3([verts[i] for i in range(n)])), edges, cast(to_se3(meas)), cast(weights)
