@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""On-card check of theseus_tpu_torch: the batched SE3 pose-graph and bundle-adjustment LM solves on one NVIDIA GPU.
+"""On-card check of theseus_tpu_torch: the batched SE3 pose-graph, bundle-adjustment and inverse-kinematics LM solves on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with one CUDA GPU and the CUDA
 toolkit (nvcc):
@@ -20,7 +20,11 @@ whose log radius three implicit SGD steps learn, Schur linearization) and
 the DLM training step (PGO 256 x 128 float32, level and whole-sweep plans).
 A sixth, the AoS Between entry point `between_linearize_fused`, has no
 caller in the package and is driven alone; a 3-D g2o file is read onto the
-card and solved. In order:
+card and solved. Two more go through the default dense linearization: IK
+serving (the 7-dof arm, an AutoDiffCostFunction over forward kinematics,
+12 LM iterations from zero, float32, at batch 1, 256 and 4096) and PGO
+64 x 16 (the JAX golden's problem), whose dense jacobian comes from the
+Between kernel. In order:
 
 1. fails fast without a CUDA device or outside a checkout;
 2. builds the CUDA kernels from theseus_tpu_torch/csrc (nvcc, sm_90a, one
@@ -65,7 +69,16 @@ card and solved. In order:
    counters showing backward()'s two perturbed solves, its gradient against
    the float64 twins, and a float64 DLM step on BA 16 x 200 x 16 against
    the twins; `read_3d_g2o` of tests/fixtures/mini_3d.g2o solved on the card
-   to below 1e-10;
+   to below 1e-10; IK serving: ms per call and solves/s at each batch
+   (fresh targets per call, each call ended by a sync), float32 against
+   float64 per element at batch 256 (joint angles printed; held: of the
+   targets float64 reaches, float32 reaches all but under 1 % to within
+   1e-3), float64 on the card against the CPU, one LM iteration
+   behind a sleep kernel (no host sync), synced stage times and a
+   profiler window (idle share, kernels per iteration); dense PGO 64 x 16:
+   the float32 forward with the counters around it (the Between kernel
+   2 x 30 + 1 times), its plateau against the float64 plain-twin dense
+   solve (2e-3) and the float64 dense solve against the JAX golden (1e-8);
 5. timing phase: ms per LM iteration (marginal window, as bench.py) for the
    level kernels, the whole-sweep kernels and the plain twins (PGO 64 x 16,
    256 x 128 and 2048 x 8, the grid; BA 16 x 200 x 16 and 128 x 4000 x 1), ms per
@@ -243,6 +256,33 @@ GRID = (16, 16, 128)
 # printed beside this run's
 FIRST_DESIGN_DEVICE_MS = {"reprojection": 0.0416, "whole_bwd_subst": 0.0528, "level_bwd_subst": 0.0649,
                           "level_bwd_subst 2048x8": 0.0777, "level_bwd_subst grid": 0.2731}
+# The IK serving path (utils/examples/inverse_kinematics.py): the 7-dof arm
+# at these batches, IK_REQUESTS timed requests each on fresh targets.
+IK_BATCHES = (1, 256, 4096)
+IK_REQUESTS = 3
+# float32 against float64 at IK_CHECK_BATCH, per batch element. The arm is
+# redundant (7 joints, a 6-dof pose): AtA is 7 x 7 of rank 6, its null
+# direction bounded only by the damping (down to 1e-7), and float32 rounding
+# gives each step a null-space part of order eps_f32 / damping, so float32
+# ends at another point of the solution set: joint angles more than 1e-2
+# apart in 27 of 256 elements, the rest within 9.5e-3 rad (an H100 80GB
+# HBM3 at 700 W); the JAX package's float32 solve does the same
+# (tests/test_torch_kin.py). Joint angles are printed, not held. Held: of
+# the elements the float64 solve brings to their target (pose residual
+# norm below IK_SOLVED), float32 brings all but under IK_MISS_SHARE there
+# too (residual below IK_TASK_TOL; on that card every one of the 247, the
+# worst at 7.7e-7). Elements that 12 iterations leave unsolved in either
+# precision follow each precision's own LM trajectory and are only
+# counted.
+IK_CHECK_BATCH = 256
+IK_BASIN = 1e-2
+IK_SOLVED = 1e-6
+IK_TASK_TOL = 1e-3
+IK_MISS_SHARE = 0.01
+# float64 on the card against the CPU, first IK_CPU_BATCH elements: the
+# same float64 arithmetic in another order through 12 LM iterations
+IK_CPU_BATCH = 4
+IK_F64_TOL = 1e-9
 # the card's peaks for the bound: HBM3 bytes/s and float32 FLOP/s outside the
 # tensor cores (H100 SXM data sheet, at the 700 W limit)
 PEAK_BYTES = 3.35e12
@@ -287,6 +327,7 @@ class Problem:
         self.obj = obj
         self.inputs = inputs
         opt_kwargs.setdefault("adaptive_damping", True)
+        opt_kwargs.setdefault("linearization", "sparse")
         self.layer = tt.TheseusLayer(
             tt.LevenbergMarquardt(obj, max_iterations=iters, **opt_kwargs)
         )
@@ -313,11 +354,11 @@ def grid_prob(dtype, dev):
     return Problem(obj, inputs)
 
 
-def golden_problem(dtype, dev):
+def golden_problem(dtype, dev, **opt_kwargs):
     from theseus_tpu_torch.utils.convert import load_problem_npz
 
     obj, inputs = load_problem_npz(GOLDEN, dtype=dtype, device=dev)
-    return Problem(obj, inputs)
+    return Problem(obj, inputs, **opt_kwargs)
 
 
 def golden_errors(path=GOLDEN):
@@ -882,7 +923,8 @@ def train_problem(n, b, dtype, dev, iters=ITERS):
     w_odo, w_loop = training_weights()
     obj, _ = build_pgo_objective(n, edges, meas, gt[0], dtype=dtype, device=dev,
                                  edge_weight=w_odo, loop_weight=w_loop)
-    layer = tt.TheseusLayer(tt.LevenbergMarquardt(obj, max_iterations=iters, adaptive_damping=True))
+    layer = tt.TheseusLayer(tt.LevenbergMarquardt(obj, max_iterations=iters, adaptive_damping=True,
+                                                  linearization="sparse"))
     return layer, pose_values(init), gt
 
 
@@ -1123,7 +1165,8 @@ def phase_tail(dev):
 
     def grad(dtype, plain):
         g_obj, g_inputs, gt = grid_problem(rows, cols, batch, dtype, dev, training=True)
-        g_layer = tt.TheseusLayer(tt.LevenbergMarquardt(g_obj, max_iterations=ITERS, adaptive_damping=True))
+        g_layer = tt.TheseusLayer(tt.LevenbergMarquardt(g_obj, max_iterations=ITERS, adaptive_damping=True,
+                                                        linearization="sparse"))
         theta = torch.tensor(THETA0, dtype=dtype, device=dev, requires_grad=True)
         with config.plain_path() if plain else contextlib.nullcontext():
             before = dict(_cuda.launches)
@@ -1365,7 +1408,8 @@ def phase_g2o(dev):
     check(poses.device.type == "cuda" and tuple(poses.shape) == (n, 1, 3, 4) and tuple(w.shape) == (len(edges), 6, 6),
           "read_3d_g2o: not on the card or bad shapes")
     obj, _ = build_pgo_objective(n, edges, meas, poses[0], dtype=torch.float64)
-    layer = tt.TheseusLayer(tt.LevenbergMarquardt(obj, max_iterations=15, adaptive_damping=True))
+    layer = tt.TheseusLayer(tt.LevenbergMarquardt(obj, max_iterations=15, adaptive_damping=True,
+                                                  linearization="sparse"))
     _cuda.reset_launches()
     _, info = layer.forward(pose_values(poses))
     first, last = float(info.err_history[0].mean()), float(info.last_err.mean())
@@ -1373,6 +1417,210 @@ def phase_g2o(dev):
           f"{first:.6e} -> {last:.3e} (tol 1e-10); launches { {k: v for k, v in _cuda.launches.items() if v} }")
     check(first > 1e-3 and last < 1e-10, "g2o: the loaded graph did not solve to zero error")
     check(_cuda.launches["between_se3"] > 0, "g2o: the solve ran no kernel")
+
+
+def ik_residual_norm(fk, theta, targets):
+    """Per batch element: the norm of the SE3 local of the end effector's
+    pose at theta to its target, in float64."""
+    import torch
+
+    from theseus_tpu_torch.lie import SE3
+
+    (pose,) = fk(theta.double())
+    return torch.linalg.vector_norm(SE3.local(targets.double(), pose), dim=-1)
+
+
+def phase_ik(dev, card):
+    """The IK serving path: the 7-dof arm (utils/examples/inverse_kinematics.py),
+    an AutoDiffCostFunction over FK (jacrev), LM with adaptive damping on the
+    default dense linearization, IK_ITERS iterations from zero, float32, through
+    TheseusLayer.forward at each of IK_BATCHES with fresh targets per call,
+    each call ended by a sync; float32 against float64 at IK_CHECK_BATCH;
+    the float64 card solve against the CPU; one LM iteration behind a sleep
+    kernel (no host sync); synced stage times and a profiler window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from theseus_tpu_torch import _cuda
+    from theseus_tpu_torch.utils.examples.inverse_kinematics import (
+        IK_ITERS, build_ik_layer, ik_targets, perturb_targets)
+
+    t_phase = time.perf_counter()
+    rows = []
+    layer, fk, robot = build_ik_layer(torch.float32, dev)
+    check(layer.optimizer.linearization == "dense", "IK: the default linearization is not dense")
+    for batch in IK_BATCHES:
+        targets = ik_targets(fk, robot.dof, batch, torch.float32, dev)
+        theta0 = torch.zeros(batch, robot.dof, dtype=torch.float32, device=dev)
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        out, info = layer.forward({"theta": theta0, "target": targets})
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        check(sum(_cuda.launches.values()) == 0, "IK: a kernel of the table launched on the IK path")
+        check(tuple(out["theta"].shape) == (batch, robot.dof) and bool(torch.isfinite(out["theta"]).all())
+              and bool(torch.isfinite(info.last_err).all()), f"IK batch {batch}: bad output")
+        times, errs = [], []
+        for i in range(IK_REQUESTS):
+            request = perturb_targets(targets, i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, info = layer.forward({"theta": theta0, "target": request})
+            err = info.last_err.mean()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            errs.append(float(err))
+        ms = sum(times) / len(times)
+        rows.append({"batch": batch, "ms_per_call": ms, "min_ms": min(times), "solves_per_s": batch / ms * 1e3,
+                     "mean_final_err": sum(errs) / len(errs), "first_call_ms": first_ms})
+        print(f"[ik] 7-dof IK float32, batch {batch}: {ms:.3f} ms/call (mean of {IK_REQUESTS} requests, min "
+              f"{min(times):.3f}; first call {first_ms:.3f}), {batch / ms * 1e3:.1f} solves/s, mean final err "
+              f"{rows[-1]['mean_final_err']:.6e}, on {card}")
+
+    print(f"[ik] serving done at {time.perf_counter() - t_phase:.1f} s of the phase")
+    # float32 against float64 on the same targets (joint angles drawn in
+    # float64), per batch element
+    b = IK_CHECK_BATCH
+    l64, fk64, _ = build_ik_layer(torch.float64, dev)
+    tg = ik_targets(fk64, robot.dof, b, torch.float64, dev)
+    out32, info32 = layer.forward({"theta": torch.zeros(b, robot.dof, dtype=torch.float32, device=dev),
+                                   "target": tg.float()})
+    out64, info64 = l64.forward({"theta": torch.zeros(b, robot.dof, dtype=torch.float64, device=dev),
+                                 "target": tg})
+    joint = (out32["theta"].double() - out64["theta"]).abs().amax(-1)
+    r32, r64 = ik_residual_norm(fk64, out32["theta"], tg), ik_residual_norm(fk64, out64["theta"], tg)
+    n_joint, n_task = int((joint > IK_BASIN).sum()), int(((r32 - r64).abs() > IK_BASIN).sum())
+    solved = r64 < IK_SOLVED
+    n_solved, n_miss = int(solved.sum()), int((solved & (r32 > IK_TASK_TOL)).sum())
+    worst = float(r32[solved].max())
+    print(f"[ik] batch {b} float32 vs float64 on the card, per element: joint angles more than {IK_BASIN:.0e} apart "
+          f"in {n_joint} of {b} ({100 * n_joint / b:.1f} %), the rest within "
+          f"{float(joint[joint <= IK_BASIN].max()):.3e} rad (the arm is redundant: float32 ends at another point "
+          f"of the solution set); pose residual norms more than {IK_BASIN:.0e} apart in {n_task} of {b}. float64 "
+          f"brings {n_solved} of {b} to the target (residual < {IK_SOLVED:.0e}); float32 misses {n_miss} of them "
+          f"(residual > {IK_TASK_TOL:.0e}; tol under {IK_MISS_SHARE:.0%}), its worst residual there {worst:.3e}")
+    check(n_solved > 0 and n_miss < IK_MISS_SHARE * n_solved, "IK: float32 misses targets that float64 reaches")
+
+    print(f"[ik] float32 vs float64 done at {time.perf_counter() - t_phase:.1f} s of the phase")
+    # the float64 card solve against the same solve on the CPU
+    lcpu, _, _ = build_ik_layer(torch.float64, "cpu")
+    small = tg[:IK_CPU_BATCH]
+    outc, _ = lcpu.forward({"theta": torch.zeros(IK_CPU_BATCH, robot.dof, dtype=torch.float64),
+                            "target": small.cpu()})
+    dev_cpu = float((out64["theta"][:IK_CPU_BATCH].cpu() - outc["theta"]).abs().max())
+    print(f"[ik] float64 on the card vs the CPU, batch {IK_CPU_BATCH}: max joint angle difference {dev_cpu:.3e} "
+          f"(tol {IK_F64_TOL:.0e})")
+    check(dev_cpu <= IK_F64_TOL, "IK: float64 on the card off the CPU solve")
+
+    print(f"[ik] card vs CPU done at {time.perf_counter() - t_phase:.1f} s of the phase")
+    # where an iteration's time goes, at the check batch, float32
+    opt, co = layer.optimizer, layer.objective.compile()
+    values = layer.objective.default_values({"theta": torch.zeros(b, robot.dof, device=dev), "target": tg.float()})
+    state, aux = co.pack(values, b), co.build_aux(values, b)
+    bld = opt.normal_builder
+    with torch.no_grad():
+        ns = bld.build(state, aux)
+        delta, _ = ns.solve(1e-3, False)
+        fwd_layer, _, _ = build_ik_layer(torch.float32, dev, autograd_mode="fwd")
+        fco = fwd_layer.objective.compile()
+        stages = {
+            "linearize (vmap, jacrev over FK)": lambda: co.linearize_blocks(state, aux),
+            "linearize (vmap, jacfwd over FK)": lambda: fco.linearize_blocks(state, aux),
+            "dense A, AtA, Atb": lambda: bld.build(state, aux),
+            "solve (cholesky_ex)": lambda: ns.solve(1e-3, False),
+            "retract": lambda: co.retract(state, delta),
+            "error (vmap over FK)": lambda: co.error_metric(state, aux),
+        }
+        line = ", ".join(f"{k} {_synced_ms(f):.3f}" for k, f in stages.items())
+        print(f"[ik] batch {b} stages (ms, each synced, mean of 5): {line} on {card}")
+        # one iteration behind a one-second sleep kernel: the host returns
+        # long before the sleep ends unless the iteration syncs
+        carry = opt.run_scan(opt.init_carry(state, aux, opt.opts), aux, 1, opt.opts)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(SLEEP_CYCLES_PER_S))
+        t0 = time.perf_counter()
+        carry = opt.run_scan(carry, aux, 1, opt.opts)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    print(f"[ik] one LM iteration enqueued behind a 1 s sleep kernel: the host returned after {host_ms:.2f} ms")
+    check(host_ms < 500.0, "IK: the LM iteration waited for the card")
+    print(f"[ik] stages done at {time.perf_counter() - t_phase:.1f} s of the phase")
+
+    profiled = {}
+    for batch in IK_BATCHES[-1:]:
+        targets = ik_targets(fk, robot.dof, batch, torch.float32, dev)
+        theta0 = torch.zeros(batch, robot.dof, dtype=torch.float32, device=dev)
+        layer.forward({"theta": theta0, "target": targets})
+        torch.cuda.synchronize()
+        # device activity only: the vmapped autodiff records ~10^5 host ops a
+        # call, whose post-processing alone would take seconds
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            layer.forward({"theta": theta0, "target": perturb_targets(targets, 0)})
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+        profiled[batch] = {"wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall,
+                           "kernels_per_iter": len(events) / IK_ITERS}
+        print(f"[profile] ik7 batch {batch}, one call ({IK_ITERS} LM iterations): wall {wall:.2f} ms, device busy "
+              f"{busy:.2f} ms (idle {100 * (1 - busy / wall):.1f} %), {len(events) / IK_ITERS:.0f} device kernels per "
+              f"iteration (the initial error included), on {card}")
+    return {"rows": rows, "profile": profiled, "f32_vs_f64": {"joint_basins": n_joint, "task_basins": n_task,
+                                                             "f64_solved": n_solved, "f32_missed": n_miss}}
+
+
+def phase_dense_pgo(dev):
+    """PGO 64 x 16 (the JAX golden's problem) through the dense
+    linearization: the float32 forward with the counters reset just before
+    and read just after (the Between kernel linearizes every iteration, via
+    dense_A_b; one AtA product and one cholesky_ex solve), its plateau
+    against the float64 plain-twin dense solve on the card, and the float64
+    kernel solve against the JAX float64 golden."""
+    import torch
+
+    from theseus_tpu_torch import _cuda, config
+
+    golden, golden_iters = golden_errors()
+    check(golden_iters == ITERS, "golden iteration count changed")
+    golden_t = torch.as_tensor(golden)
+    g = golden_problem(torch.float32, dev, linearization="dense")
+    check(g.opt.linearization == "dense", "dense PGO: not the dense linearization")
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    _, info = g.layer.forward(g.inputs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_cuda.launches)
+    print(f"[dense] PGO 64x16 float32 dense forward, {ITERS} LM iterations: {wall:.3f} s wall, mean final err "
+          f"{float(info.last_err.mean()):.8e}, launches { {k: v for k, v in launches.items() if v} }")
+    want = {k: 0 for k in launches}
+    want["between_se3"] = 2 * ITERS + 1  # linearize + tentative error per iteration, + initial error
+    for k, v in want.items():
+        check(launches[k] == v, f"dense PGO: {k} {launches[k]} launches, expected {v}")
+    check(bool(torch.isfinite(info.last_err).all()), "dense PGO: non-finite final error")
+
+    ref = golden_problem(torch.float64, dev, linearization="dense")
+    _cuda.reset_launches()
+    with config.plain_path():
+        _, ref_info = ref.layer.forward(ref.inputs)
+    check(sum(_cuda.launches.values()) == 0, "the plain path launched a kernel")
+    rel = _rel(info.last_err, ref_info.last_err)
+    print(f"[dense] float32 kernels vs float64 plain twins on the card (dense): max rel dev of per-batch final error "
+          f"{float(rel.max()):.3e} (tol {PLATEAU_RTOL_F32:.0e})")
+    check(float(rel.max()) <= PLATEAU_RTOL_F32, "dense PGO: float32 plateau off the float64 plateau")
+
+    g64 = golden_problem(torch.float64, dev, linearization="dense")
+    _, info64 = g64.layer.forward(g64.inputs)
+    rel = _rel(info64.last_err, golden_t)
+    print(f"[dense] float64 kernels (dense) vs JAX float64 golden: max rel dev {float(rel.max()):.3e} "
+          f"(tol {PLATEAU_RTOL_F64:.0e}); mean {float(info64.last_err.mean()):.8e} vs {float(golden.mean()):.8e}")
+    check(float(rel.max()) <= PLATEAU_RTOL_F64, "dense PGO: float64 off the JAX golden")
+    dense_ms = lm_iter_ms(g)
+    print(f"[dense] PGO 64x16 float32 dense LM iteration {dense_ms:.4f} ms (marginal window, as the timing phase)")
+    return launches, dense_ms
 
 
 # ---------------------------------------------------------------------------
@@ -1941,6 +2189,8 @@ def main() -> int:
     launches["ba_train"], ba_train_ms = timed("ba_train", phase_ba_train, dev)
     launches["dlm"], dlm_ms = timed("dlm", phase_dlm, dev)
     timed("g2o", phase_g2o, dev)
+    ik = timed("ik", phase_ik, dev, card)
+    launches["dense_pgo"], dense_ms = timed("dense_pgo", phase_dense_pgo, dev)
     iters, times, dev_times, train_ms, bounds, library = timed("timing", phase_timing, dev, card, twin_ms)
     timed("profile", phase_profile, dev, card)
     check("jax" not in sys.modules and "theseus_tpu" not in sys.modules, "jax was imported")
@@ -1973,7 +2223,7 @@ def main() -> int:
             entry["bound_ms_2048x8"], _ = bounds[f"{name} 2048x8"]
         kernels.append(entry)
     print(json.dumps({"lm_iter_ms": iters, "train_step_ms": train_ms, "ba_train_step_ms": ba_train_ms,
-                      "dlm_step_ms": dlm_ms}))
+                      "dlm_step_ms": dlm_ms, "ik_serving": ik, "dense_lm_iter_ms_64x16": dense_ms}))
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; seconds a phase: {json.dumps(phase_s)}")
     print(json.dumps({"kernels": kernels}))
     print(card)

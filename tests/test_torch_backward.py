@@ -249,8 +249,8 @@ def _port_outer(mode):
     obj, _ = build_pgo_objective(N, edges, meas, gt[0], dtype=torch.float64, device="cpu",
                                  edge_weight=w_odo, loop_weight=w_loop)
     kind, iters = SOLVERS[mode]
-    opt = (tt.LevenbergMarquardt(obj, max_iterations=iters, adaptive_damping=True) if kind == "lm"
-           else tt.GaussNewton(obj, max_iterations=iters))
+    opt = (tt.LevenbergMarquardt(obj, max_iterations=iters, adaptive_damping=True, linearization="sparse")
+           if kind == "lm" else tt.GaussNewton(obj, max_iterations=iters, linearization="sparse"))
     theta = torch.tensor(THETA, dtype=torch.float64, requires_grad=True)
     inputs = dict(pose_values(_t(init)), w_loop=theta.reshape(1, 1))
     out, _ = tt.TheseusLayer(opt).forward(
@@ -281,7 +281,8 @@ def test_sgd_on_theta_lowers_the_loss():
     w_odo, w_loop = training_weights()
     obj, _ = build_pgo_objective(N, edges, meas, gt[0], dtype=torch.float64, device="cpu",
                                  edge_weight=w_odo, loop_weight=w_loop)
-    layer = tt.TheseusLayer(tt.LevenbergMarquardt(obj, max_iterations=30, adaptive_damping=True))
+    layer = tt.TheseusLayer(tt.LevenbergMarquardt(obj, max_iterations=30, adaptive_damping=True,
+                                                  linearization="sparse"))
     theta = torch.tensor(THETA, dtype=torch.float64, requires_grad=True)
     sgd = torch.optim.SGD([theta], lr=20.0)
     losses = []

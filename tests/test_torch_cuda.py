@@ -226,7 +226,8 @@ def test_lm_solve_on_card_matches_cpu_twins(cuda_device):
     for dev in ("cpu", cuda_device):
         gt, edges, meas, init = synthetic_pose_graph(n, b, seed=3, dtype=torch.float64, device=dev)
         obj, _ = build_pgo_objective(n, edges, meas, gt[0], dtype=torch.float64, device=dev)
-        layer = tt.TheseusLayer(tt.LevenbergMarquardt(obj, max_iterations=15, adaptive_damping=True))
+        layer = tt.TheseusLayer(tt.LevenbergMarquardt(obj, max_iterations=15, adaptive_damping=True,
+                                                      linearization="sparse"))
         _cuda.reset_launches()
         _, info = layer.forward(pose_values(init))
         results[str(dev)] = info.last_err.cpu()
@@ -247,7 +248,7 @@ def test_run_scan_never_syncs_with_the_host(cuda_device, high_precision):
 
     gt, edges, meas, init = synthetic_pose_graph(32, 8, seed=4, dtype=torch.float32, device=cuda_device)
     obj, _ = build_pgo_objective(32, edges, meas, gt[0], dtype=torch.float32, device=cuda_device)
-    opt = tt.LevenbergMarquardt(obj, max_iterations=3, adaptive_damping=True)
+    opt = tt.LevenbergMarquardt(obj, max_iterations=3, adaptive_damping=True, linearization="sparse")
     co = obj.compile()
     values = obj.default_values(pose_values(init))
     state, aux = co.pack(values, 8), co.build_aux(values, 8)
@@ -518,7 +519,8 @@ def _training_grad(device, dtype, mode, whole, n=32, b=8, iters=20, cls=None):
     w_odo, w_loop = training_weights()
     obj, _ = build_pgo_objective(n, edges, meas, gt[0], dtype=dtype, device=device,
                                  edge_weight=w_odo, loop_weight=w_loop)
-    opt = (cls or tt.LevenbergMarquardt)(obj, max_iterations=iters, **({} if cls else {"adaptive_damping": True}))
+    opt = (cls or tt.LevenbergMarquardt)(obj, max_iterations=iters, linearization="sparse",
+                                         **({} if cls else {"adaptive_damping": True}))
     theta = torch.tensor(1.3, dtype=dtype, device=device, requires_grad=True)
     inputs = dict(pose_values(init), w_loop=theta.reshape(1, 1))
     config.set_whole_sweep(whole)
@@ -561,7 +563,7 @@ def test_whole_sweep_run_scan_never_syncs_with_the_host(cuda_device):
 
     gt, edges, meas, init = synthetic_pose_graph(32, 8, seed=4, dtype=torch.float32, device=cuda_device)
     obj, _ = build_pgo_objective(32, edges, meas, gt[0], dtype=torch.float32, device=cuda_device)
-    opt = tt.LevenbergMarquardt(obj, max_iterations=3, adaptive_damping=True)
+    opt = tt.LevenbergMarquardt(obj, max_iterations=3, adaptive_damping=True, linearization="sparse")
     co = obj.compile()
     values = obj.default_values(pose_values(init))
     state, aux = co.pack(values, 8), co.build_aux(values, 8)
@@ -685,7 +687,7 @@ def _grid_layer(device, dtype, rows=6, cols=6, batch=3, iters=15, seed=8):
                        se3.exp(torch.as_tensor(0.05 * rng.standard_normal((len(edges), batch, 6)))))
     init = se3.compose(gt, se3.exp(torch.as_tensor(0.2 * rng.standard_normal((n, batch, 6)))))
     obj, _ = build_pgo_objective(n, edges, meas.to(dtype), gt[0].to(dtype), dtype=dtype, device=device)
-    opt = tt.LevenbergMarquardt(obj, max_iterations=iters, adaptive_damping=True)
+    opt = tt.LevenbergMarquardt(obj, max_iterations=iters, adaptive_damping=True, linearization="sparse")
     assert opt.normal_builder.sched.tail_k > 0 and opt.normal_builder.sched.n_head > 0
     return opt, obj, pose_values(init.to(dtype).to(device))
 
@@ -970,3 +972,106 @@ def test_dlm_gradient_on_card_matches_twins(cuda_device, whole):
     assert np.isfinite(grad) and grad != 0.0
     np.testing.assert_allclose(loss, loss_p, rtol=1e-9)
     np.testing.assert_allclose(grad, grad_p, rtol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# the dense linearization, autodiff costs and kinematics (no kernel of their
+# own: cholesky_ex / solve_ex and batched matmuls; the PGO's dense jacobian
+# comes from the Between kernel)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("solver", ["cholesky", "lu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dense_solvers_on_card_match_cpu(cuda_device, solver, dtype):
+    """A batch of SPD systems with one negative definite element: on the
+    card cholesky_ex gives that element a partial factor and info > 0, and
+    the solver must still zero and flag it (LU solves it)."""
+    from theseus_tpu_torch.optim.linear import DenseCholeskySolver, DenseLUSolver
+
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((16, 40, 32))
+    ata = np.einsum("bmi,bmj->bij", a, a) + 0.1 * np.eye(32)
+    ata[5] = -np.eye(32)
+    atb = rng.standard_normal((16, 32))
+    cls = DenseCholeskySolver if solver == "cholesky" else DenseLUSolver
+    out = {}
+    for dev in ("cpu", cuda_device):
+        delta, bad = cls().solve(torch.as_tensor(ata, dtype=dtype, device=dev),
+                                 torch.as_tensor(atb, dtype=dtype, device=dev), 1e-3, True)
+        out[str(dev)] = (delta.cpu(), bad.cpu())
+    (dc, bc), (dg, bg) = out["cpu"], out["cuda"]
+    assert torch.equal(bc, bg) and bool(bg[5]) == (solver == "cholesky") and int(bg.sum()) == bool(bg[5])
+    tol = 1e-9 if dtype == torch.float64 else 2e-3
+    torch.testing.assert_close(dg, dc, atol=tol * float(dc.abs().max()), rtol=0)
+
+
+def _ik_layer(device, dtype, batch):
+    from theseus_tpu_torch.utils.examples.inverse_kinematics import build_ik_layer, ik_targets
+
+    layer, fk, robot = build_ik_layer(dtype, device)
+    targets = ik_targets(fk, robot.dof, batch, torch.float64, device).to(dtype)
+    return layer, {"theta": torch.zeros(batch, robot.dof, dtype=dtype, device=device), "target": targets}
+
+
+def test_ik_on_card_matches_cpu(cuda_device):
+    """The 7-dof serving IK in float64 (dense linearization, autodiff FK
+    cost, 12 LM iterations from zero): the card against the CPU, 1e-9."""
+    thetas = {}
+    for dev in ("cpu", cuda_device):
+        layer, inputs = _ik_layer(dev, torch.float64, 16)
+        _cuda.reset_launches()
+        out, info = layer.forward(inputs)
+        thetas[str(dev)] = out["theta"].cpu()
+        assert sum(_cuda.launches.values()) == 0 and torch.isfinite(info.last_err).all()
+    torch.testing.assert_close(thetas["cuda"], thetas["cpu"], atol=1e-9, rtol=0)
+
+
+def test_dense_pgo_on_card_matches_cpu(cuda_device):
+    """PGO 24 x 4 float64 on the dense linearization: the Between kernel
+    linearizes (2 launches an iteration + 1), the plateau equals the CPU's."""
+    import theseus_tpu_torch as tt
+
+    errs = {}
+    for dev in ("cpu", cuda_device):
+        gt, edges, meas, init = synthetic_pose_graph(24, 4, seed=3, dtype=torch.float64, device=dev)
+        obj, _ = build_pgo_objective(24, edges, meas, gt[0], dtype=torch.float64, device=dev)
+        layer = tt.TheseusLayer(tt.LevenbergMarquardt(obj, max_iterations=15, adaptive_damping=True))
+        _cuda.reset_launches()
+        _, info = layer.forward(pose_values(init))
+        errs[str(dev)] = info.last_err.cpu()
+        if dev != "cpu":
+            assert _cuda.launches["between_se3"] == 2 * 15 + 1 and _cuda.launches["assemble_blocks"] == 0
+    torch.testing.assert_close(errs["cuda"], errs["cpu"], rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("problem", ["ik", "pgo"])
+def test_dense_run_scan_never_syncs_with_the_host(cuda_device, problem):
+    """The dense LM loop (autodiff IK, or PGO through the Between kernel)
+    never waits for the card: an iteration enqueued behind a one-second
+    sleep kernel returns to the host long before it ends. (torch's sync
+    debug mode misses the sync of torch.cholesky_solve, which this catches:
+    the solver uses two solve_triangular calls instead.)"""
+    import time
+
+    import theseus_tpu_torch as tt
+
+    if problem == "ik":
+        layer, inputs = _ik_layer(cuda_device, torch.float32, 64)
+        obj, opt = layer.objective, layer.optimizer
+    else:
+        gt, edges, meas, init = synthetic_pose_graph(32, 8, seed=4, dtype=torch.float32, device=cuda_device)
+        obj, _ = build_pgo_objective(32, edges, meas, gt[0], dtype=torch.float32, device=cuda_device)
+        opt, inputs = tt.LevenbergMarquardt(obj, max_iterations=3, adaptive_damping=True), pose_values(init)
+    co = obj.compile()
+    values = obj.default_values(inputs)
+    bsz = co.resolve_batch_size(values)
+    state, aux = co.pack(values, bsz), co.build_aux(values, bsz)
+    with torch.no_grad():
+        carry = opt.run_scan(opt.init_carry(state, aux, opt.opts), aux, 1, opt.opts)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(2.0e9))  # at least 1 s at the H100's top clock of 1.98 GHz
+        t0 = time.perf_counter()
+        carry = opt.run_scan(carry, aux, 1, opt.opts)
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    assert host_s < 0.5, host_s
+    assert torch.isfinite(carry["err"]).all()

@@ -50,7 +50,7 @@ def _linear_grad(theta, loss_scale=1.0, n=4):
     x = tt.Vector(n, name="x")
     obj.add(tt.Local(x, tt.Variable(np.zeros((1, n)), name="target"), tt.ScaleCostWeight(1.0), name="fit"))
     obj.add(tt.Local(x, tt.Variable(np.zeros((1, n)), name="zero"), tt.ScaleCostWeight(0.7), name="reg"))
-    layer = tt.TheseusLayer(tt.GaussNewton(obj, max_iterations=3))
+    layer = tt.TheseusLayer(tt.GaussNewton(obj, max_iterations=3, linearization="sparse"))
     th = torch.tensor(theta, dtype=torch.float64, requires_grad=True)
     target = torch.arange(1.0, n + 1.0, dtype=torch.float64)[None] * th
     out, _ = layer.forward({"x": torch.zeros((1, n), dtype=torch.float64), "target": target},
@@ -80,7 +80,7 @@ def _se3_grad(mode, theta=0.4):
     r = tt.SE3(name="r")
     obj.add(tt.Local(r, tt.Variable(se3.identity(1, dtype=torch.float64, device="cpu"), name="target"),
                      tt.ScaleCostWeight(1.0), name="fit"))
-    layer = tt.TheseusLayer(tt.GaussNewton(obj, max_iterations=6))
+    layer = tt.TheseusLayer(tt.GaussNewton(obj, max_iterations=6, linearization="sparse"))
     th = torch.tensor(theta, dtype=torch.float64, requires_grad=True)
     zero = torch.zeros((), dtype=torch.float64)
     # the JAX test's SO3 target, as a pure rotation of SE3
@@ -151,7 +151,7 @@ def _port_dlm(mask=None, loss_rows=None):
     kwargs = {"backward_mode": "dlm"}
     if mask is not None:
         kwargs["batch_ignore_mask"] = torch.as_tensor(mask)
-    out, _ = tt.TheseusLayer(tt.GaussNewton(obj, max_iterations=GN_ITERS)).forward(
+    out, _ = tt.TheseusLayer(tt.GaussNewton(obj, max_iterations=GN_ITERS, linearization="sparse")).forward(
         dict(pose_values(torch.as_tensor(init)), w_loop=theta.reshape(1, 1)), optimizer_kwargs=kwargs)
     rows = slice(None) if loss_rows is None else torch.as_tensor(loss_rows)
     loss = mean_sq_local({k: v[rows] for k, v in out.items() if k.startswith("pose_")},
@@ -191,7 +191,7 @@ def test_dlm_initial_state_gets_zero_gradient():
     obj, _ = build_pgo_objective(N, edges, meas, gt[0], dtype=torch.float64, device="cpu")
     inputs = pose_values(torch.as_tensor(init))
     leaf = inputs["pose_3"] = inputs["pose_3"].clone().requires_grad_(True)
-    out, _ = tt.TheseusLayer(tt.GaussNewton(obj, max_iterations=GN_ITERS)).forward(
+    out, _ = tt.TheseusLayer(tt.GaussNewton(obj, max_iterations=GN_ITERS, linearization="sparse")).forward(
         inputs, optimizer_kwargs={"backward_mode": "dlm"})
     (g,) = torch.autograd.grad(mean_sq_local(out, torch.as_tensor(gt)), leaf)
     assert torch.equal(g, torch.zeros_like(g))

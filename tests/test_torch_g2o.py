@@ -68,7 +68,7 @@ def test_3d_g2o_solvable(tail, monkeypatch):
         monkeypatch.setattr(config, "SPARSE_TAIL_MIN_K", 1)
     n, poses, edges, meas, _ = read_3d_g2o(FIXTURE, device="cpu")
     obj, _ = build_pgo_objective(n, edges, meas, poses[0], dtype=torch.float64, device="cpu")
-    opt = tt.LevenbergMarquardt(obj, max_iterations=15, adaptive_damping=True)
+    opt = tt.LevenbergMarquardt(obj, max_iterations=15, adaptive_damping=True, linearization="sparse")
     assert (opt.normal_builder.sched.tail_k > 0) == tail
     _, info = tt.TheseusLayer(opt).forward(pose_values(poses))
     assert float(info.err_history[0].mean()) > 1e-3

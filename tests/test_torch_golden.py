@@ -81,7 +81,7 @@ def test_port_reaches_golden_plateau_on_cpu():
     from theseus_tpu_torch.utils.convert import load_problem_npz
 
     obj, inputs = load_problem_npz(FIXTURE, dtype=torch.float64, device="cpu")
-    opt = ttt.LevenbergMarquardt(obj, max_iterations=N_ITERS, adaptive_damping=True)
+    opt = ttt.LevenbergMarquardt(obj, max_iterations=N_ITERS, adaptive_damping=True, linearization="sparse")
     _, info = ttt.TheseusLayer(opt).forward(inputs)
     with np.load(FIXTURE) as f:
         np.testing.assert_allclose(info.last_err.numpy(), f["final_err"], rtol=PLATEAU_RTOL)

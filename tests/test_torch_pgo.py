@@ -41,6 +41,7 @@ def _arrays(n=N, b=B, dtype=jnp.float64):
 def _port_layer(arrays, dtype=torch.float64, cls=tt.LevenbergMarquardt, **kw):
     obj, inputs = problem_from_arrays(arrays, dtype=dtype, device="cpu")
     kw.setdefault("adaptive_damping", cls is tt.LevenbergMarquardt)
+    kw.setdefault("linearization", "sparse")
     return tt.TheseusLayer(cls(obj, max_iterations=ITERS, **kw)), inputs
 
 
@@ -79,7 +80,8 @@ def test_diagonal_weight_equals_scale_weight():
     for weight in (tt.ScaleCostWeight(2.0), tt.DiagonalCostWeight(np.full(6, 2.0))):
         obj, _ = build_pgo_objective(8, [tuple(e) for e in arrays["edges"]], arrays["measurements"],
                                      arrays["gt"][0], dtype=torch.float64, device="cpu", edge_weight=weight)
-        layer = tt.TheseusLayer(tt.LevenbergMarquardt(obj, max_iterations=ITERS, adaptive_damping=True))
+        layer = tt.TheseusLayer(tt.LevenbergMarquardt(obj, max_iterations=ITERS, adaptive_damping=True,
+                                                      linearization="sparse"))
         errs.append(layer.forward(pose_values(torch.as_tensor(arrays["init"])))[1].last_err)
     torch.testing.assert_close(errs[1], errs[0], rtol=1e-12, atol=0)
 
@@ -122,17 +124,23 @@ def test_float32_solve_close_to_float64_plateau():
 @pytest.mark.parametrize(
     "case", ["requires_grad", "aux_requires_grad", "dense", "schur", "implicit_mode", "dlm"])
 def test_unported_paths_raise(case):
-    """The path still to port, the dense linearization, raises
-    NotImplementedError naming ROADMAP.md. Inputs that require grad get a
-    finite, non-zero gradient on every other path: the sparse one (unroll,
-    the default, and implicit), the Schur one (unroll, through the points)
-    and the DLM mode (through an aux input: DLM gives the initial state a
-    zero gradient)."""
+    """Inputs that require grad get a finite, non-zero gradient on every
+    path: the sparse one (unroll, and implicit), the dense one (now ported,
+    the default: the same gradient as the sparse one, to 1e-9), the Schur
+    one (unroll, through the points) and the DLM mode (through an aux input:
+    DLM gives the initial state a zero gradient). No path raises."""
     arrays, _ = _arrays(n=8, b=2)
     if case == "dense":
-        obj, _ = problem_from_arrays(arrays, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tt.LevenbergMarquardt(obj, linearization=case)
+        grads = []
+        for linearization in ("dense", "sparse"):
+            layer, inputs = _port_layer(arrays, linearization=linearization)
+            leaf = inputs["pose_3"] = inputs["pose_3"].clone().requires_grad_(True)
+            out, _ = layer.forward(inputs)
+            loss = sum((out[f"pose_{i}"][..., 3] ** 2).sum() for i in range(8))
+            grads.append(torch.autograd.grad(loss, leaf)[0])
+        assert tt.LevenbergMarquardt(layer.objective).linearization == "dense"
+        assert bool(torch.isfinite(grads[0]).all()) and float(grads[0].abs().max()) > 0
+        np.testing.assert_allclose(grads[0].numpy(), grads[1].numpy(), rtol=1e-9, atol=1e-12)
         return
     if case == "schur":
         from theseus_tpu_torch.utils.examples.bundle_adjustment import (

@@ -144,7 +144,7 @@ def test_robust_weighted_error_carries_loss_value(name, flatten_dims):
 
 
 def _solve(obj, opt_cls=tt.GaussNewton, **kw):
-    layer = tt.TheseusLayer(opt_cls(obj, **kw))
+    layer = tt.TheseusLayer(opt_cls(obj, linearization="sparse", **kw))
     out, _ = layer.forward()
     return out
 

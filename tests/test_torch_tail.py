@@ -191,7 +191,8 @@ def test_lm_solve_matches_jax(name):
     _, jinfo = jlayer.forward(jpose_values(a["init"]))
 
     obj, inputs = problem_from_arrays(a, dtype=torch.float64, device="cpu")
-    layer = tt.TheseusLayer(tt.LevenbergMarquardt(obj, max_iterations=ITERS, adaptive_damping=True))
+    layer = tt.TheseusLayer(tt.LevenbergMarquardt(obj, max_iterations=ITERS, adaptive_damping=True,
+                                                  linearization="sparse"))
     assert layer.optimizer.normal_builder.sched.tail_k > 0
     _, info = layer.forward(inputs)
     assert bool((info.last_err < 0.1 * info.err_history[0]).all())
@@ -240,7 +241,8 @@ def test_implicit_gradient_matches_jax():
     w_odo, w_loop = training_weights()
     obj, _ = build_pgo_objective(n, edges, a["measurements"], a["gt"][0], dtype=torch.float64, device="cpu",
                                  edge_weight=w_odo, loop_weight=w_loop)
-    layer = tt.TheseusLayer(tt.LevenbergMarquardt(obj, max_iterations=ITERS, adaptive_damping=True))
+    layer = tt.TheseusLayer(tt.LevenbergMarquardt(obj, max_iterations=ITERS, adaptive_damping=True,
+                                                  linearization="sparse"))
     assert layer.optimizer.normal_builder.sched.tail_k > 0
     theta = torch.tensor(THETA, dtype=torch.float64, requires_grad=True)
     out, _ = layer.forward(dict(pose_values(torch.as_tensor(a["init"])), w_loop=theta.reshape(1, 1)),

@@ -37,6 +37,19 @@ torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
 
+@contextlib.contextmanager
+def full_precision():
+    """The pin above, held for this block even if the caller changed the
+    process-wide setting since: the solver's float32 products (the dense
+    AtA and Atb) never run in TF32."""
+    prev = torch.get_float32_matmul_precision()  # "high" is TF32 allowed
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
 # Branch-switch thresholds, keyed "<name>_<dtype>" exactly as in the JAX
 # package (reference torchlie/torchlie/global_params.py:36-63).
 _DEFAULTS: Dict[str, float] = {
@@ -212,8 +225,18 @@ def resolve_device(device=None) -> torch.device:
 
 
 def needs_grad(*tensors) -> bool:
-    """True when autograd is recording and one of `tensors` requires grad:
-    a kernel wrapper then goes through its autograd Function."""
+    """True when the call could be differentiated, and a kernel wrapper or a
+    Lie exp/log must then go through its autograd Function: autograd
+    records and one of `tensors` requires grad; or a torch.func transform
+    is active that differentiates (grad, jvp: jacrev, jacfwd); or vmap is
+    active while autograd records (a tensor under vmap reports
+    requires_grad=False whatever the tensor it wraps)."""
+    if torch._C._functorch.peek_interpreter_stack() is not None:
+        from torch._C._functorch import TransformType
+        from torch._functorch.pyfunctorch import retrieve_all_functorch_interpreters
+
+        keys = [i.key() for i in retrieve_all_functorch_interpreters()]
+        return torch.is_grad_enabled() or any(k != TransformType.Vmap for k in keys)
     return torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors
     )

@@ -1,7 +1,7 @@
 """Objective, variables, costs and weights (JAX counterpart: theseus_tpu/core/__init__.py)."""
 
 from .compiled import CompiledObjective, compile_objective
-from .cost_function import CostFunction, GNCRobustCostFunction, RobustCostFunction
+from .cost_function import AutoDiffCostFunction, CostFunction, GNCRobustCostFunction, RobustCostFunction
 from .cost_weight import CostWeight, DiagonalCostWeight, ScaleCostWeight
 from .family import CostFamily, Point3Family, SE3Family, VariableFamily, VectorFamily
 from .objective import Objective
@@ -12,6 +12,7 @@ __all__ = [
     "CompiledObjective",
     "compile_objective",
     "CostFunction",
+    "AutoDiffCostFunction",
     "RobustCostFunction",
     "GNCRobustCostFunction",
     "WelschLoss",

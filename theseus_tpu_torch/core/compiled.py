@@ -14,6 +14,16 @@ run and its values as one (N, B, ...) array; a cost family becomes one
 bucket whose index tables are built vectorized and whose aux arrays arrive
 pre-stacked.
 
+A cost without analytic jacobians (`AutoDiffCostFunction`, or any
+`CostFunction` that leaves `jacobians_impl` out) is written for one instance
+and one batch element, as in the JAX package: its bucket maps the error
+function, or its autodiff jacobians (`CostFunction.jacobians_fn`), with
+`torch.func.vmap` over the K instances (shared aux slots unmapped) and the
+batch, as the JAX compiler does with jax.vmap.
+
+`dense_A_b` places every bucket's jacobian blocks into one dense (B, M, D)
+matrix for the dense linearization.
+
 A robust bucket (`RobustCostFunction`, `GNCRobustCostFunction`) evaluates
 the wrapped cost as any bucket does, through its fused linearization where
 it has one, then applies the weight, then the robust loss: in metric mode
@@ -163,6 +173,7 @@ class CompiledObjective:
                 [np.arange(self.col_offset[n], self.col_offset[n] + g.dof) for n in members]
             )
         self._index_cache: Dict[Tuple[int, str], torch.Tensor] = {}
+        self._dense = None  # dense_A_b's tables, built on first use
 
     def _index(self, arr: np.ndarray, device) -> torch.Tensor:
         """A static numpy index table as a long tensor on `device`, cached so
@@ -271,6 +282,19 @@ class CompiledObjective:
             for s in bucket.optim_slots
         )
 
+    @staticmethod
+    def _map_instances(bucket: BucketSpec, fn, xs, cost_aux):
+        """A per-instance, per-batch-element fn(optim, aux) over the stacked
+        (K, B, ...) operands: vmap over K (a shared aux slot, (B, ...),
+        unmapped), then over B."""
+        n = len(xs)
+
+        def one(*args):
+            return fn(tuple(args[:n]), tuple(args[n:]))
+
+        k_dims = (0,) * n + tuple(None if s.shared else 0 for s in bucket.aux_slots[: len(cost_aux)])
+        return torch.func.vmap(torch.func.vmap(one), in_dims=k_dims)(*xs, *cost_aux)
+
     def _bucket_eval(self, bucket: BucketSpec, state, bucket_aux, mode: str):
         """mode 'metric' -> weighted error (K, B, dim); 'linearize' ->
         (weighted jacobians per slot (K, B, dim, dof), weighted error)."""
@@ -283,15 +307,23 @@ class CompiledObjective:
             cost, cost_aux = template.cost_function, template.inner_aux(cf_aux)
             log_radius = cf_aux[len(cost_aux)][..., 0]  # (K, B) or shared (B,)
             mu = cf_aux[-1][..., 0] if bucket.gnc else None
+        per_instance = not cost.has_analytic_jacobians
         if mode == "metric":
             fused = getattr(cost, "fused_error", None)
-            err = fused(xs, cost_aux) if fused is not None else cost.error_impl(xs, cost_aux)
+            if per_instance:
+                err = self._map_instances(bucket, cost.error_impl, xs, cost_aux)
+            elif fused is not None:
+                err = fused(xs, cost_aux)
+            else:
+                err = cost.error_impl(xs, cost_aux)
             werr, _ = weight.apply_batched(err, None, w_aux)
             if bucket.robust:
                 werr = template.robust_apply_error(werr, log_radius, mu)
             return self._guard_zero_weight_metric(weight, w_aux, werr)
         fused = getattr(cost, "fused_linearize", None)
-        if fused is not None:
+        if per_instance:
+            jacs, err = self._map_instances(bucket, cost.jacobians_fn(), xs, cost_aux)
+        elif fused is not None:
             jacs, err = fused(xs, cost_aux)
         else:
             jacs, err = cost.jacobians_impl(xs, cost_aux)
@@ -326,6 +358,64 @@ class CompiledObjective:
             self._bucket_eval(bk, state, bk_aux, "linearize")
             for bk, bk_aux in zip(self.buckets, aux)
         ]
+
+    def _dense_tables(self):
+        """Static tables of `dense_A_b`: the flat (row * D + column) position
+        in A of every bucket's jacobian entries, in (bucket, K, dim, slot
+        columns) order, no position twice; and per bucket, per slot, the
+        (other slot, (K,) mask) pairs that name the same variable."""
+        if self._dense is None:
+            pos, repeats = [], []
+            for bk in self.buckets:
+                rows = bk.row_offset + np.arange(bk.rows).reshape(bk.k, bk.dim)
+                cols = np.concatenate([s.cols for s in bk.optim_slots], axis=1)  # (K, S)
+                pos.append((rows[:, :, None] * self.total_dof + cols[:, None, :]).reshape(-1))
+                slots = bk.optim_slots
+                repeats.append([
+                    [(j, (a.idx == b.idx).astype(np.int64)) for j, b in enumerate(slots)
+                     if j != i and a.type_key == b.type_key and bool(np.any(a.idx == b.idx))]
+                    for i, a in enumerate(slots)
+                ])
+            self._dense = (np.concatenate(pos), repeats)
+        return self._dense
+
+    def _sum_repeated_slots(self, repeats, jacs):
+        """A cost that names one variable in two slots writes one block of A
+        twice: give each such slot the sum, in slot order, of the slots that
+        share its variable, so every write carries the same bits and a plain
+        scatter places the sum."""
+        out = []
+        for i, partners in enumerate(repeats):
+            if not partners:
+                out.append(jacs[i])
+                continue
+            masks = dict(partners)
+            total = None
+            for t, jac in enumerate(jacs):
+                if t != i and t not in masks:
+                    continue
+                if t != i:
+                    m = self._index(masks[t], jac.device).bool().reshape(-1, 1, 1, 1)
+                    jac = torch.where(m, jac, torch.zeros_like(jac))
+                total = jac if total is None else total + jac
+            out.append(total)
+        return out
+
+    def dense_A_b(self, state, aux):
+        """The batched dense jacobian A (B, M, D) and b = -err (B, M), with
+        M = total_dim and D = total_dof: one scatter of unique positions (no
+        atomics, so the same bits on every run)."""
+        pos, repeats = self._dense_tables()
+        some = next(iter(state.values()))
+        bsz = some.shape[1]
+        vals, errs = [], []
+        for rep, (jacs, werr) in zip(repeats, self.linearize_blocks(state, aux)):
+            jac = torch.cat(self._sum_repeated_slots(rep, jacs), dim=-1)  # (K, B, dim, S)
+            vals.append(jac.movedim(1, 0).reshape(bsz, -1))
+            errs.append(werr.movedim(0, 1).reshape(bsz, -1))
+        flat = torch.zeros((bsz, self.total_dim * self.total_dof), dtype=some.dtype, device=some.device)
+        flat = flat.index_copy(1, self._index(pos, some.device), torch.cat(vals, dim=1))
+        return flat.reshape(bsz, self.total_dim, self.total_dof), -torch.cat(errs, dim=-1)
 
     # ------------------------------------------------------------------
     def retract(self, state, delta, accept=None):
@@ -398,14 +488,6 @@ def compile_objective(objective) -> CompiledObjective:
     cfs = list(objective.cost_functions.values())
     if not cfs:
         raise ValueError("Objective has no cost functions.")
-    for cf in cfs:
-        t = cf.template if isinstance(cf, CostFamily) else cf
-        if not t.has_analytic_jacobians:
-            raise NotImplementedError(
-                f"{type(t).__name__} has no analytic jacobians; autodiff costs are not "
-                "ported yet (ROADMAP.md, queue 1, slice 3)"
-            )
-
     # optim var registry in insertion order; a family registers as one
     # contiguous run of its members
     var_entries: List[Tuple[str, object]] = []  # ("var", name) | ("fam", family)

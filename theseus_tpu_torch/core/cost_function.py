@@ -1,18 +1,27 @@
 """Cost functions: weighted residual terms over manifold variables (JAX counterpart: theseus_tpu/core/cost_function.py).
 
-The analytic-jacobian path only. `error_impl(optim, aux)` and
-`jacobians_impl(optim, aux)` take whole stacked buckets: every optim operand
-is (K, B, *shape) and every aux operand (K, B, ...) or, when all members of
-the bucket share it, (B, ...); torch broadcasting does what the JAX
-package's vmap over instances and batch did. `RobustCostFunction` and
-`GNCRobustCostFunction` wrap a cost with a robust loss; the compiled
-objective applies the loss to the wrapped cost's weighted outputs.
-Autodiff costs are not ported yet (ROADMAP.md, queue 1).
+Two contracts, chosen by `has_analytic_jacobians`:
+
+- analytic (True: Between, Local, Reprojection, ...): `error_impl(optim,
+  aux)` and `jacobians_impl(optim, aux)` take whole stacked buckets: every
+  optim operand is (K, B, *shape) and every aux operand (K, B, ...) or,
+  when all members of the bucket share it, (B, ...); torch broadcasting
+  does what the JAX package's vmap over instances and batch did;
+- autodiff (False: `AutoDiffCostFunction`, or a subclass that defines only
+  `error_impl`): `error_impl` is the JAX contract, one instance and one
+  batch element, (optim elements, aux elements) -> (dim,); the compiled
+  objective maps it with torch.func.vmap, and `jacobians_fn` gives its
+  tangent-space jacobians by torch.func.jacfwd (or jacrev) through the
+  retract at delta = 0.
+
+`RobustCostFunction` and `GNCRobustCostFunction` wrap a cost of either kind
+with a robust loss; the compiled objective applies the loss to the wrapped
+cost's weighted outputs.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -22,8 +31,10 @@ from .variable import ManifoldVariable, Variable, as_variable
 
 
 class CostFunction:
-    """Base class. Subclasses define `dim`, `error_impl` and the analytic
-    `jacobians_impl` (right-tangent jacobians)."""
+    """Base class. Subclasses define `dim`, `error_impl` and, with
+    has_analytic_jacobians, the analytic `jacobians_impl` (right-tangent
+    jacobians) over stacked buckets; without it `error_impl` is per
+    instance and the jacobians come from `jacobians_fn`."""
 
     has_analytic_jacobians = False
 
@@ -48,12 +59,36 @@ class CostFunction:
         raise NotImplementedError
 
     def error_impl(self, optim: Tuple, aux: Tuple):
-        """Stacked optim and aux operands -> (K, B, dim)."""
+        """Analytic: stacked optim and aux operands -> (K, B, dim).
+        Autodiff: one instance's elements -> (dim,)."""
         raise NotImplementedError
 
     def jacobians_impl(self, optim: Tuple, aux: Tuple):
         """Returns (list over optim slots of (K, B, dim, dof), err (K, B, dim))."""
         raise NotImplementedError
+
+    def jacobians_fn(self) -> Callable:
+        """The autodiff jacobians of the per-instance `error_impl`: a fn
+        (optim, aux) -> (list over slots of (dim, dof), err (dim,)) that
+        differentiates error(retract(x, delta)) at delta = 0, so that the
+        jacobians are in the right tangent space. `autograd_mode` "fwd"
+        (torch.func.jacfwd, the default; right when dim >= the total dof) or
+        "rev" (jacrev, for a low-dim residual over large variables). The
+        Lie exp/log inside take their analytic JVP rule, as under the JAX
+        package's custom_jvp."""
+        groups = tuple(v.group for v in self.optim_vars)
+        jac_op = torch.func.jacrev if getattr(self, "autograd_mode", "fwd") == "rev" else torch.func.jacfwd
+
+        def jfn(optim, aux):
+            def at(*deltas):
+                err = self.error_impl(tuple(g.retract(x, d) for g, x, d in zip(groups, optim, deltas)), aux)
+                return err, err
+
+            zeros = tuple(optim[0].new_zeros(g.dof) for g in groups)
+            jacs, err = jac_op(at, argnums=tuple(range(len(groups))), has_aux=True)(*zeros)
+            return list(jacs), err
+
+        return jfn
 
     def schema(self):
         """Costs with equal schema are evaluated together as one bucket."""
@@ -67,6 +102,40 @@ class CostFunction:
 
     def __repr__(self):
         return f"{type(self).__name__}(name={self.name}, dim={self.dim()})"
+
+
+class AutoDiffCostFunction(CostFunction):
+    """A user residual `err_fn(optim, aux) -> (dim,)` written for one
+    instance and one batch element (the JAX package's contract); the
+    compiled objective maps it over instances and batch with
+    torch.func.vmap and differentiates it by `jacobians_fn`."""
+
+    def __init__(
+        self,
+        optim_vars: Sequence[ManifoldVariable],
+        dim: int,
+        err_fn: Callable,
+        aux_vars: Sequence[Variable] = (),
+        cost_weight: Optional[CostWeight] = None,
+        name: Optional[str] = None,
+        autograd_mode: str = "fwd",
+    ):
+        super().__init__(optim_vars, aux_vars, cost_weight, name)
+        if autograd_mode not in ("fwd", "rev"):
+            raise ValueError("autograd_mode must be 'fwd' or 'rev'")
+        self._dim = dim
+        self._err_fn = err_fn
+        self.autograd_mode = autograd_mode
+
+    def dim(self) -> int:
+        return self._dim
+
+    def error_impl(self, optim, aux):
+        return self._err_fn(optim, aux)
+
+    def schema(self):
+        """Costs bucket together only with the same err_fn and mode."""
+        return super().schema() + (id(self._err_fn), self.autograd_mode)
 
 
 def _as_batched_scalar(value) -> Variable:

@@ -7,7 +7,7 @@ inverse, adjoint, with the JAX package's Taylor branches and eps, and the
 point action `transform` the bundle-adjustment data needs, and
 `left_project` for the DLM backward. `exp` and `log`
 carry the JAX package's custom JVP rules as autograd Functions (see
-lie/so3.py), taken only while autograd records.
+lie/so3.py), taken whenever the call could be differentiated.
 """
 
 from __future__ import annotations
@@ -75,22 +75,37 @@ def jexp(x: torch.Tensor):
 
 
 class _Exp(torch.autograd.Function):
-    """exp with the JAX rule dG = [R hat(d_ang) | R d_lin], d = J dx,
-    transposed."""
+    """exp with the JAX rule dG = [R hat(d_ang) | R d_lin], d = J dx
+    (`jvp`), and its transpose (`backward`); J is evaluated at the saved
+    input with differentiable ops (see lie/so3.py)."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, x):
-        (jac,), g = jexp(x)
-        ctx.save_for_backward(jac, g)
-        return g
+    def forward(x):
+        return _exp_helper(x)[0]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+        ctx.save_for_forward(inputs[0])
 
     @staticmethod
     def backward(ctx, gg):
-        jac, g = ctx.saved_tensors
+        (x,) = ctx.saved_tensors
+        (jac,), g = jexp(x)
         rt = transpose(g[..., :3])
         d_lin = mvp(rt, gg[..., 3])
         d_ang = 2.0 * antisym_project(rt @ gg[..., :3])
         return mvp(transpose(jac), torch.cat([d_lin, d_ang], dim=-1))
+
+    @staticmethod
+    def jvp(ctx, dx):
+        (x,) = ctx.saved_tensors
+        (jac,), g = jexp(x)
+        d = mvp(jac, dx)
+        r = g[..., :3]
+        return torch.cat([r @ so3_hat(d[..., 3:]), mvp(r, d[..., :3])[..., None]], dim=-1)
 
 
 def exp(x: torch.Tensor) -> torch.Tensor:
@@ -127,23 +142,39 @@ def _log_helper(g: torch.Tensor):
 
 
 class _Log(torch.autograd.Function):
-    """log with the JAX rule dx = J [R^T dt; antisym_project(R^T dR)],
-    transposed."""
+    """log with the JAX rule dx = J [R^T dt; antisym_project(R^T dR)]
+    (`jvp`), and its transpose (`backward`); J is evaluated at the saved
+    input with differentiable ops."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, g):
-        (jac,), x = jlog(g)
-        ctx.save_for_backward(jac, g)
-        return x
+    def forward(g):
+        return _log_helper(g)[0]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+        ctx.save_for_forward(inputs[0])
 
     @staticmethod
     def backward(ctx, gx):
-        jac, g = ctx.saved_tensors
+        (g,) = ctx.saved_tensors
+        (jac,), _ = jlog(g)
         r = g[..., :3]
         v = mvp(transpose(jac), gx)
         d_rot = r @ (0.5 * so3_hat(v[..., 3:]))
         d_t = mvp(r, v[..., :3])
         return torch.cat([d_rot, d_t[..., None]], dim=-1)
+
+    @staticmethod
+    def jvp(ctx, dg):
+        (g,) = ctx.saved_tensors
+        (jac,), _ = jlog(g)
+        rt = transpose(g[..., :3])
+        d_ang = antisym_project(rt @ dg[..., :3])
+        d_lin = mvp(rt, dg[..., 3])
+        return mvp(jac, torch.cat([d_lin, d_ang], dim=-1))
 
 
 def log(g: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,10 @@ near-pi branches; jlog coefficients on the wider derivative eps). All ops
 broadcast over leading batch dims. `exp` and `log` carry the JAX
 package's custom JVP rules as autograd Functions (the plain formulas give
 NaN gradients at an exact zero tangent: sqrt and the norm at 0, each 0 * inf
-under torch.where); they are taken only while autograd records.
+under torch.where), with a `jvp` for torch.func.jacfwd, a `backward` and a
+generated vmap rule; they are taken whenever the call could be
+differentiated (`config.needs_grad`: autograd recording, or a torch.func
+transform).
 """
 
 from __future__ import annotations
@@ -61,19 +64,35 @@ def jexp(w: torch.Tensor):
 
 
 class _Exp(torch.autograd.Function):
-    """exp with the JAX rule dR = R hat(J_r dw), transposed."""
+    """exp with the JAX rule dR = R hat(J_r dw): `jvp` is the rule (what
+    torch.func.jacfwd takes), `backward` its transpose. Both evaluate J_r at
+    the saved input with differentiable ops, so that a derivative of the
+    rule (a jacobian differentiated again, as the unrolled and implicit
+    backward do with autodiff costs) is the JAX package's."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, w):
-        (jac,), r = jexp(w)
-        ctx.save_for_backward(jac, r)
-        return r
+    def forward(w):
+        return _exp_helper(w)[0]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+        ctx.save_for_forward(inputs[0])
 
     @staticmethod
     def backward(ctx, g):
-        jac, r = ctx.saved_tensors
+        (w,) = ctx.saved_tensors
+        (jac,), r = jexp(w)
         # <G, R hat(v)> = 2 antisym_project(R^T G) . v
         return mvp(transpose(jac), 2.0 * antisym_project(transpose(r) @ g))
+
+    @staticmethod
+    def jvp(ctx, dw):
+        (w,) = ctx.saved_tensors
+        (jac,), r = jexp(w)
+        return r @ hat(mvp(jac, dw))
 
 
 def exp(w: torch.Tensor) -> torch.Tensor:
@@ -135,19 +154,33 @@ def _jlog_from_w(w, theta, sine, cosine):
 
 
 class _Log(torch.autograd.Function):
-    """log with the JAX rule dw = jlog antisym_project(R^T dR), transposed."""
+    """log with the JAX rule dw = jlog antisym_project(R^T dR) (`jvp`) and
+    its transpose (`backward`), jlog evaluated at the saved input as in
+    _Exp."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, g):
-        (jac,), w = jlog(g)
-        ctx.save_for_backward(jac, g)
-        return w
+    def forward(g):
+        return _log_helper(g)[0]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+        ctx.save_for_forward(inputs[0])
 
     @staticmethod
     def backward(ctx, gw):
-        jac, g = ctx.saved_tensors
+        (g,) = ctx.saved_tensors
+        (jac,), _ = jlog(g)
         # the adjoint of antisym_project is 0.5 hat
         return g @ (0.5 * hat(mvp(transpose(jac), gw)))
+
+    @staticmethod
+    def jvp(ctx, dg):
+        (g,) = ctx.saved_tensors
+        (jac,), _ = jlog(g)
+        return mvp(jac, antisym_project(transpose(g) @ dg))
 
 
 def log(g: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,15 @@ from .nonlinear import (
     NonlinearOptimizerStatus,
     OptimizerInfo,
 )
-from .normal import BlockNormal, BlockNormalBuilder, SparseNormal, SparseNormalBuilder
+from .linear import DenseCholeskySolver, DenseLUSolver
+from .normal import (
+    BlockNormal,
+    BlockNormalBuilder,
+    DenseNormal,
+    DenseNormalBuilder,
+    SparseNormal,
+    SparseNormalBuilder,
+)
 from .schur import SchurNormal, SchurNormalBuilder, eliminate_points
 
 __all__ = [
@@ -18,6 +26,10 @@ __all__ = [
     "NonlinearLeastSquares",
     "NonlinearOptimizerStatus",
     "OptimizerInfo",
+    "DenseCholeskySolver",
+    "DenseLUSolver",
+    "DenseNormal",
+    "DenseNormalBuilder",
     "BlockNormal",
     "BlockNormalBuilder",
     "SparseNormal",

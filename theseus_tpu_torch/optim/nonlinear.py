@@ -7,9 +7,11 @@ device value back to the host, so a solve on the card is one stream of
 launches; `run_while` checks after every iteration whether all elements are
 done (one host sync per iteration) and stops early.
 
-The "sparse" (block Cholesky) and "schur" (landmark elimination,
-optim/schur.py) linearizations are ported; "dense" raises. Both are
-differentiable end to end (the layer's backward modes).
+Three linearizations, each differentiable end to end (the layer's backward
+modes): "dense" (the default, as in the JAX package: the dense jacobian,
+AtA by one batched product and a batched Cholesky, optim/linear.py), "sparse"
+(the block Cholesky with the CUDA kernels) and "schur" (landmark
+elimination, optim/schur.py).
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from ..core.compiled import CompiledObjective
-from .normal import BlockNormalBuilder, SparseNormalBuilder
+from .linear import DenseCholeskySolver, damping_diag
+from .normal import DenseNormalBuilder, SparseNormalBuilder
 
 
 class NonlinearOptimizerStatus:
@@ -60,17 +63,6 @@ class NLSOptions:
     track_err_history: bool = True
 
 
-def damping_diag(ata_diag, damping, ellipsoidal: bool):
-    """The per-column damping actually applied (for the LM gain-ratio
-    denominator)."""
-    d = torch.as_tensor(damping, dtype=ata_diag.dtype, device=ata_diag.device)
-    if d.dim() == 0:
-        d = d.expand(ata_diag.shape[:-1])
-    if ellipsoidal:
-        return d[..., None] * ata_diag
-    return d[..., None].expand(ata_diag.shape)
-
-
 class NonlinearLeastSquares:
     """Base for GN/LM. Holds the objective and exposes `init_carry`,
     `iteration` and `run_*` building blocks that the layer composes."""
@@ -80,7 +72,8 @@ class NonlinearLeastSquares:
     def __init__(
         self,
         objective,
-        linearization: str = "sparse",
+        linear_solver=None,
+        linearization: str = "dense",
         ordering="auto",
         max_iterations: int = 20,
         step_size: float = 1.0,
@@ -88,14 +81,11 @@ class NonlinearLeastSquares:
         rel_err_tolerance: float = 1e-8,
         **opt_kwargs,
     ):
-        if linearization == "dense":
-            raise NotImplementedError(
-                "linearization='dense' is not ported yet (ROADMAP.md, queue 1); "
-                "use 'sparse' or 'schur'"
-            )
-        if linearization not in ("sparse", "schur"):
+        if linearization not in ("dense", "sparse", "schur"):
             raise ValueError("linearization must be 'dense', 'sparse' or 'schur'")
         self.objective = objective
+        # the dense linearization's solver (optim/linear.py)
+        self.linear_solver = linear_solver
         self.linearization = linearization
         self.ordering = ordering
         # schur: predicate(name, group) -> True for the variables to eliminate
@@ -115,10 +105,14 @@ class NonlinearLeastSquares:
         return self.objective.compile()
 
     @property
-    def normal_builder(self) -> BlockNormalBuilder:
+    def normal_builder(self):
         co = self.compiled
         if self._normal_builder is None or self._normal_builder.co is not co:
-            if self.linearization == "schur":
+            if self.linearization == "dense":
+                self._normal_builder = DenseNormalBuilder(
+                    co, self.linear_solver or DenseCholeskySolver(damping_eps=self.opts.damping_eps)
+                )
+            elif self.linearization == "schur":
                 from .schur import SchurNormalBuilder, eliminate_points
 
                 self._normal_builder = SchurNormalBuilder(
@@ -165,7 +159,7 @@ class NonlinearLeastSquares:
         return carry
 
     def compute_delta(self, ns, damping, opts: NLSOptions):
-        """Subclass hook: returns (delta, fail_mask) from a BlockNormal."""
+        """Subclass hook: returns (delta, fail_mask) from a normal system."""
         raise NotImplementedError
 
     def _accept_and_damping(self, delta, ns, new_err, prev_err, damping, opts):

@@ -1,12 +1,16 @@
-"""Block-sparse normal-equation system (JAX counterpart: theseus_tpu/optim/normal.py).
+"""Dense and block-sparse normal-equation systems (JAX counterpart: theseus_tpu/optim/normal.py).
 
-`SparseNormalBuilder` owns the static symbolic state (block pattern,
-elimination ordering, level schedule, flatten tables); `build` linearizes,
-assembles AtA / Atb and returns a `SparseNormal`, which exposes what the
-outer optimizers need: the damped solve, Atb, the quadratic form and the
-AtA diagonal. `BlockNormal` / `BlockNormalBuilder` hold what the sparse and
-the Schur backend (optim/schur.py) share; the dense backend is not ported
-yet.
+Each builder's `build` linearizes and returns a system that exposes what
+the outer optimizers need: the damped solve, Atb, the quadratic form and
+the AtA diagonal.
+
+- `DenseNormalBuilder`: the dense A (B, M, D) of `dense_A_b`, AtA and Atb
+  by two batched products under the full-float32 pin
+  (`config.full_precision`), solved by optim/linear.py.
+- `SparseNormalBuilder` owns the static symbolic state (block pattern,
+  elimination ordering, level schedule, flatten tables) and assembles AtA
+  blocks for the block Cholesky. `BlockNormal` / `BlockNormalBuilder` hold
+  what the sparse and the Schur backend (optim/schur.py) share.
 """
 
 from __future__ import annotations
@@ -14,17 +18,49 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import config
 from ..core.compiled import CompiledObjective
 from ..sparse.assemble import apply_block_damping, assemble, build_block_pattern
 from ..sparse.cholesky import NumericSchedule, sparse_block_solve
+from .linear import DenseCholeskySolver, finite_or_zero
 from .ordering import symbolic_for
 
 
-def finite_or_zero(delta):
-    """A batch element whose step came out non-finite (a non-positive pivot)
-    gets a zero step and bad=True. Returns (delta (B, D), bad (B,))."""
-    bad = torch.any(~torch.isfinite(delta), dim=-1)
-    return torch.where(bad[..., None], torch.zeros_like(delta), delta), bad
+class DenseNormal:
+    """AtA (B, D, D) and Atb (B, D) with their solver."""
+
+    def __init__(self, ata, atb, solver):
+        self.AtA = ata
+        self.Atb = atb
+        self.solver = solver
+
+    def solve(self, damping=0.0, ellipsoidal=False, rhs_shift=None):
+        """Returns (delta (B, D), fail (B,)). rhs_shift (B, D), when given,
+        is subtracted from Atb (the DLM backward's perturbed solves)."""
+        rhs = self.Atb if rhs_shift is None else self.Atb - rhs_shift
+        return self.solver.solve(self.AtA, rhs, damping, ellipsoidal)
+
+    def quad(self, v):
+        return torch.einsum("bi,bij,bj->b", v, self.AtA, v)
+
+    def diag(self):
+        return torch.diagonal(self.AtA, dim1=-2, dim2=-1)
+
+
+class DenseNormalBuilder:
+    def __init__(self, co: CompiledObjective, solver=None):
+        self.co = co
+        self.solver = solver or DenseCholeskySolver()
+
+    def build(self, state, aux, detach_hessian: bool = False) -> DenseNormal:
+        """detach_hessian: AtA carries no autograd history while Atb keeps
+        its graph (the implicit backward's final Gauss-Newton step)."""
+        a, b = self.co.dense_A_b(state, aux)
+        a_h = a.detach() if detach_hessian else a
+        with config.full_precision():
+            ata = a_h.transpose(-1, -2) @ a_h
+            atb = (a.transpose(-1, -2) @ b[..., None])[..., 0]
+        return DenseNormal(ata, atb, self.solver)
 
 
 class BlockNormal:
