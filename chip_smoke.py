@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""On-card check of theseus_tpu_torch: the batched SE3 pose-graph, bundle-adjustment and inverse-kinematics LM solves on one NVIDIA GPU.
+"""On-card check of theseus_tpu_torch: the batched SE3 pose-graph, bundle-adjustment, inverse-kinematics and 2-D SE2 pose-graph LM solves on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with one CUDA GPU and the CUDA
 toolkit (nvcc):
@@ -24,7 +24,11 @@ card and solved. Two more go through the default dense linearization: IK
 serving (the 7-dof arm, an AutoDiffCostFunction over forward kinematics,
 12 LM iterations from zero, float32, at batch 1, 256 and 4096) and PGO
 64 x 16 (the JAX golden's problem), whose dense jacobian comes from the
-Between kernel. In order:
+Between kernel. The 2-D path: an SE2 pose graph of M3500's size (3500
+poses, 5453 edges, batch 1; scripts/manhattan_g2o.py from a seed) read by
+`read_2d_g2o` onto the card and solved on the sparse level plan at block
+size 3, plus mini_2d.g2o and an SO3 rotation averaging on the dense
+linearization. In order:
 
 1. fails fast without a CUDA device or outside a checkout;
 2. builds the CUDA kernels from theseus_tpu_torch/csrc (nvcc, sm_90a, one
@@ -79,6 +83,19 @@ Between kernel. In order:
    the float32 forward with the counters around it (the Between kernel
    2 x 30 + 1 times), its plateau against the float64 plain-twin dense
    solve (2e-3) and the float64 dense solve against the JAX golden (1e-8);
+   pgo2d: the M3500-sized SE2 graph written to a temporary directory and
+   read onto the card, the assembly and level kernels against their twins
+   at its d = 3, batch-1 shapes (f32, f64), the float32 forward with the
+   counters around it (the assembly once an iteration, the three level
+   kernels once a head level an iteration, one cholesky_ex for the dense
+   tail), its plateau against the float64 plain-twin solve (2e-3), the
+   float64 kernels against the twins (1e-8) and, on the 500-pose graph of
+   tests/fixtures/pgo2d_500_jax_f64.npz, against the JAX golden (1e-8);
+   the symbolic-analysis seconds, level count, tail, nnz_L, the LM
+   iteration's ms and idle share, rows 2-4b's times and bounds at d = 3;
+   mini_2d.g2o on the default dense linearization to below 1e-10; an SO3
+   rotation averaging (SO3Family, from rand_so3 with no device named)
+   against its float64 twin (2e-3);
 5. timing phase: ms per LM iteration (marginal window, as bench.py) for the
    level kernels, the whole-sweep kernels and the plain twins (PGO 64 x 16,
    256 x 128 and 2048 x 8, the grid; BA 16 x 200 x 16 and 128 x 4000 x 1), ms per
@@ -244,6 +261,24 @@ BA_UNROLL_ITERS = 5
 # 128 x 1000 x 1, on that card, the same script).
 DLM_BA_ITERS = 10
 G2O = ROOT / "tests" / "fixtures" / "mini_3d.g2o"
+# The 2-D pose graph: scripts/manhattan_g2o.py's graph of M3500's size (3500
+# SE2 poses, 3499 odometry edges, 1954 loop closures) from PGO2D_SEED, read
+# by read_2d_g2o onto the card, solved at batch 1 on the sparse level plan
+# at block size 3; the JAX float64 golden's graph (PGO2D_GOLDEN, 500 poses)
+# is regenerated from its seed. The float64 kernel solve must sit on its
+# plateau after ITERS iterations: the error of iteration ITERS - 5 within
+# PLATEAU_RTOL_F64 of the last.
+MANHATTAN = ROOT / "scripts" / "manhattan_g2o.py"
+PGO2D_POSES = 3500
+PGO2D_SEED = 0
+PGO2D_GOLDEN = ROOT / "tests" / "fixtures" / "pgo2d_500_jax_f64.npz"
+G2O_2D = ROOT / "tests" / "fixtures" / "mini_2d.g2o"
+# mini_2d.g2o's vertices agree exactly with its edges: poses 1 and 2 are
+# moved off them by this tangent before the solve (tests/test_torch_g2o_2d.py)
+MINI_2D_SHIFT = (0.1, -0.05, 0.05)
+# rotation averaging on SO3 (dense): SO3_ROT rotations at batch SO3_BATCH, a
+# chain and the (i, i + 2) edges, measurement noise 0.05 rad, init noise 0.3
+SO3_ROT, SO3_BATCH = 20, 16
 WHOLE_SHAPES = ((256, 128), (2048, 8))
 # the dense-tail path: a 16 x 16 grid PGO (256 poses) at batch 128; its
 # symbolic analysis folds the last 51 columns into one dense supernode
@@ -337,7 +372,9 @@ class Problem:
         self.batch = self.co.resolve_batch_size(values)
         self.state = self.co.pack(values, self.batch)
         self.aux = self.co.build_aux(values, self.batch)
+        t0 = time.perf_counter()
         self.builder = self.opt.normal_builder
+        self.builder_s = time.perf_counter() - t0  # block pattern, symbolic analysis, schedule
 
 
 def synthetic_problem(n, b, dtype, dev, seed=0):
@@ -1624,6 +1661,346 @@ def phase_dense_pgo(dev):
 
 
 # ---------------------------------------------------------------------------
+# the 2-D pose graph (SE2, block size 3) and the SO3 dense solve
+# ---------------------------------------------------------------------------
+def manhattan():
+    """scripts/manhattan_g2o.py as a module (it imports numpy only)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("manhattan_g2o", MANHATTAN)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def pgo2d_objective(n, poses, edges, meas, w, dtype, dev):
+    """An SE2 variable per pose, a Between per edge with a
+    DiagonalCostWeight of the first edge's sqrt-information diagonal (the
+    generator's graphs carry one information matrix for every edge, as
+    M3500), a Local prior on pose 0 with weight 10: (objective, inputs)."""
+    import numpy as np
+
+    import theseus_tpu_torch as tt
+
+    w0 = w[0].double().cpu().numpy()
+    obj = tt.Objective(dtype=dtype, device=dev)
+    xs = [tt.SE2(name=f"pose_{i}") for i in range(n)]
+    obj.add(tt.Local(xs[0], poses[0].cpu().numpy(), tt.ScaleCostWeight(10.0), name="prior"))
+    weight = tt.DiagonalCostWeight(np.sqrt(np.diag(w0.T @ w0))[None])
+    meas = meas.cpu().numpy()  # sliced on the host, stacked once by the compiled objective
+    for e, (i, j) in enumerate(edges):
+        obj.add(tt.Between(xs[i], xs[j], meas[e], cost_weight=weight, name=f"edge_{e}"))
+    return obj, {f"pose_{i}": poses[i] for i in range(n)}
+
+
+def _profile_window(prob, n_iters):
+    """(wall ms, device busy ms, device kernels, {kernel name: (ms, count)})
+    of n_iters LM iterations under torch.profiler (device activity only:
+    the host side of ~3000 launches an iteration takes the profiler seconds
+    to post-process), after two warm ones."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    opt, opts = prob.opt, prob.opt.opts
+    with torch.no_grad():
+        carry = opt.run_scan(opt.init_carry(prob.state, prob.aux, opts), prob.aux, 2, opts)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            opt.run_scan(carry, prob.aux, n_iters, opts)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in events:
+        t, k = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, k + 1)
+    return wall, sum(e.time_range.elapsed_us() for e in events) / 1e3, len(events), by_name
+
+
+def phase_pgo2d(dev, card):
+    """The M3500-sized SE2 pose graph on the sparse level plan at block size
+    3, batch 1: scripts/manhattan_g2o.py's graph written to a temporary
+    directory and read onto the card (read_2d_g2o, no device named); the
+    assembly and level kernels against their twins at this graph's shapes
+    (f32, f64); the float32 forward with the counters reset just before and
+    read just after; its plateau against the float64 plain-twin solve; the
+    float64 kernel solve against that twin and (on the golden's 500-pose
+    graph) against the committed JAX golden; symbolic-analysis seconds, the
+    LM iteration's ms and idle share; rows 2-4b's times and bounds at d = 3.
+    Then mini_2d.g2o on the default dense linearization, and a small dense
+    SO3 rotation averaging against its float64 twin."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import theseus_tpu_torch as tt
+    from theseus_tpu_torch import _cuda, config
+    from theseus_tpu_torch.lie import so3
+    from theseus_tpu_torch.lie.utils import draw
+    from theseus_tpu_torch.sparse.assemble import assemble
+    from theseus_tpu_torch.sparse.assemble_kernel import assemble_blocks, assemble_blocks_plain
+    from theseus_tpu_torch.sparse.level_kernels import (
+        level_bwd_subst, level_bwd_subst_plain, level_factor, level_factor_plain,
+        level_fwd_subst, level_fwd_subst_plain)
+    from theseus_tpu_torch.utils.examples.pose_graph import read_2d_g2o
+
+    steps, t_step = {}, [time.perf_counter()]
+
+    def step(name):  # seconds of each part of the phase, printed at its end
+        now = time.perf_counter()
+        steps[name] = round(now - t_step[0], 2)
+        t_step[0] = now
+
+    mg = manhattan()
+    golden = np.load(PGO2D_GOLDEN)
+    with tempfile.TemporaryDirectory() as tmp:
+        path, gpath = Path(tmp) / "manhattan.g2o", Path(tmp) / "golden.g2o"
+        mg.write_g2o(path, mg.generate(PGO2D_POSES, PGO2D_SEED))
+        mg.write_g2o(gpath, mg.generate(int(golden["n_poses"]), int(golden["seed"])))
+        t0 = time.perf_counter()
+        graph = read_2d_g2o(path, dtype=torch.float64)  # device None: the card
+        read_s = time.perf_counter() - t0
+        ggraph = read_2d_g2o(gpath, dtype=torch.float64)
+    n, poses, edges, meas, w = graph
+    check(poses.device.type == "cuda" and tuple(poses.shape) == (n, 1, 4) and tuple(w.shape) == (len(edges), 3, 3),
+          "read_2d_g2o: not on the card or bad shapes")
+    print(f"[pgo2d] {MANHATTAN.relative_to(ROOT)} --poses {PGO2D_POSES} --seed {PGO2D_SEED}: {n} poses, "
+          f"{len(edges)} edges ({n - 1} odometry, {len(edges) - n + 1} loop closures), read onto {poses.device} "
+          f"in {read_s:.3f} s")
+    step("generate and read")
+
+    # the float32 objective takes the default ordering ("auto": nested
+    # dissection and AMD analysed, the cheaper kept); the float64 one is
+    # given the ordering it chose, by name, so the search runs once
+    ordering = {}
+    for dtype in (torch.float32, torch.float64):
+        obj, inputs = pgo2d_objective(*graph, dtype, dev)
+        t0 = time.perf_counter()
+        obj.compile()
+        compile_s = time.perf_counter() - t0
+        prob = Problem(obj, inputs, **ordering)
+        print(f"[pgo2d] {str(dtype)[6:]}: objective compiled in {compile_s:.3f} s; block pattern, symbolic analysis "
+              f"({'auto' if not ordering else 'the float32 ordering'}) and level schedule {prob.builder_s:.3f} s "
+              f"on the host")
+        if dtype == torch.float32:
+            p32 = prob
+            ordering = {"ordering": [prob.co.var_names[i] for i in prob.builder.sched.perm]}
+        else:
+            p64 = prob
+    sched, pattern = p32.builder.sched, p32.builder.pattern
+    n_levels = len(sched.level_tables)
+    check(pattern.d == 3 and sched.tail_k > 0 and n_levels > 1, "pgo2d: not a d = 3 head of levels and a tail")
+    check((len(p64.builder.sched.level_tables), p64.builder.sched.tail_k) == (n_levels, sched.tail_k),
+          "pgo2d: the float64 schedule differs from the float32 one")
+    print(f"[pgo2d] d={pattern.d}: {n_levels} head levels over {sched.n_head} columns, dense tail of "
+          f"{sched.tail_k} columns, nnz_L {sched.sym.nnz_l} blocks, longest column "
+          f"{int(sched.row_valid.sum(1).max())} block rows, longest update list {int(sched.upd_valid.sum(1).max())}, "
+          f"{sum(len(c) <= 4 for c in sched.sym.levels)} levels of at most 4 columns (one block a column at B=1)")
+    step("objectives and symbolic analyses")
+
+    # rows 2, 3, 4a and 4b against their twins at this graph's shapes
+    max_abs, lv32, sys32 = {}, None, None
+    for dn, prob in (("float32", p32), ("float64", p64)):
+        system = plain_system(prob)
+        padded = padded_blocks(prob)
+        got = _repeatable("assemble_blocks", lambda: assemble_blocks(pattern, padded), f"{dn} PGO2D {n}x1")
+        max_abs.setdefault("assemble_blocks", {})[dn] = _dev_report(
+            "assemble_blocks", dn, got, assemble_blocks_plain(pattern, padded),
+            "buckets K=" + ",".join(str(err.shape[0]) for _, err in padded))
+        lv = level_inputs(prob, *system[1:])
+        note = f"{len(lv)} levels, d=3, B=1"
+        for name, k, pl, idx in (("level_factor", level_factor, level_factor_plain, 0),
+                                 ("level_fwd_subst", level_fwd_subst, level_fwd_subst_plain, 1),
+                                 ("level_bwd_subst", level_bwd_subst, level_bwd_subst_plain, 2)):
+            max_abs.setdefault(name, {})[dn] = _dev_report(
+                name, dn, [k(*ops[idx]) for ops in lv], [pl(*ops[idx]) for ops in lv], note)
+        if dn == "float32":
+            lv32, sys32, padded32 = lv, system, padded
+    step("kernels against twins")
+
+    # the main path: the float32 forward, counters around it only
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    with mock.patch("torch.linalg.cholesky_ex", wraps=torch.linalg.cholesky_ex) as potrf:
+        t0 = time.perf_counter()
+        out, info = p32.layer.forward(p32.inputs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(_cuda.launches)
+    print(f"[pgo2d] {n}x1 float32 forward, {ITERS} LM iterations: {wall:.3f} s wall, error "
+          f"{float(info.err_history[0, 0]):.8e} -> {float(info.last_err[0]):.8e}, launches "
+          f"{ {k: v for k, v in launches.items() if v} }, cholesky_ex {potrf.call_count}")
+    expect = {k: 0 for k in launches}
+    expect.update({"assemble_blocks": ITERS, "level_factor": ITERS * n_levels,
+                   "level_fwd_subst": ITERS * n_levels, "level_bwd_subst": ITERS * n_levels})
+    for k, v in expect.items():
+        check(launches[k] == v, f"pgo2d: {k} {launches[k]} launches, expected {v}")
+    check(potrf.call_count == ITERS, f"pgo2d: {potrf.call_count} cholesky_ex calls for {ITERS} factorizations")
+    check(bool(torch.isfinite(info.last_err).all()), "pgo2d: non-finite final error")
+    check(all(tuple(t.shape) == (1, 4) and bool(torch.isfinite(t).all())
+              for k, t in out.items() if k.startswith("pose_")), "pgo2d: bad output poses")
+    step("float32 forward")
+
+    # float64: the plain twins on the card, then the kernels
+    _cuda.reset_launches()
+    with config.plain_path():
+        _, ref = p64.layer.forward(p64.inputs)
+    check(sum(_cuda.launches.values()) == 0, "the plain path launched a kernel")
+    _, info64 = p64.layer.forward(p64.inputs)
+    hist = ref.err_history[:, 0]
+    plateau = abs(float(hist[ITERS - 5]) - float(hist[ITERS])) / float(hist[ITERS])
+    print(f"[pgo2d] float64 plain twins: error {float(hist[0]):.8e} -> {float(hist[ITERS]):.12e}, converged at "
+          f"iteration {int(ref.converged_iter[0])}; change over the last 5 iterations {plateau:.3e} "
+          f"(plateau tol {PLATEAU_RTOL_F64:.0e})")
+    check(plateau <= PLATEAU_RTOL_F64, "pgo2d: the float64 solve is not on its plateau after ITERS iterations")
+    rel32, rel64 = float(_rel(info.last_err, ref.last_err).max()), float(_rel(info64.last_err, ref.last_err).max())
+    print(f"[pgo2d] float32 kernels vs float64 plain twins: rel dev of the final error {rel32:.3e} "
+          f"(tol {PLATEAU_RTOL_F32:.0e}); float64 kernels vs float64 plain twins {rel64:.3e} "
+          f"(tol {PLATEAU_RTOL_F64:.0e})")
+    check(rel32 <= PLATEAU_RTOL_F32, "pgo2d: float32 plateau off the float64 plateau")
+    check(rel64 <= PLATEAU_RTOL_F64, "pgo2d: float64 kernels off the float64 twins")
+    step("float64 twin and kernel solves")
+
+    gn = ggraph[0]
+    gobj, ginputs = pgo2d_objective(*ggraph, torch.float64, dev)
+    gprob = Problem(gobj, ginputs)
+    gout, ginfo = gprob.layer.forward(ginputs)
+    rel = abs(float(ginfo.last_err[0]) - float(golden["last_err"][0])) / float(golden["last_err"][0])
+    pose_dev = float(np.abs(np.stack([gout[f"pose_{i}"][0].cpu().numpy() for i in range(gn)]) - golden["poses"]).max())
+    print(f"[pgo2d] golden graph ({gn} poses, seed {int(golden['seed'])}) float64 kernels vs JAX float64 golden: "
+          f"final error {float(ginfo.last_err[0]):.12e} vs {float(golden['last_err'][0]):.12e}, rel {rel:.3e} "
+          f"(tol {PLATEAU_RTOL_F64:.0e}); max pose deviation {pose_dev:.3e}")
+    check(rel <= PLATEAU_RTOL_F64, "pgo2d: float64 off the JAX golden")
+    step("JAX golden")
+
+    # host cost and idle share of one LM iteration, float32
+    iter_ms = lm_iter_ms(p32, n_small=2, extra=10, reps=2)
+    pwall, busy, kernels, by_name = _profile_window(p32, 2)
+    idle = 1.0 - busy / pwall
+    print(f"[pgo2d] {n}x1 float32 LM iteration {iter_ms:.4f} ms (marginal window); profiler, 2 iterations: wall "
+          f"{pwall:.2f} ms, device busy {busy:.2f} ms (idle {100 * idle:.1f} %), {kernels / 2:.0f} device kernels "
+          f"an iteration, on {card}")
+    for name, (t, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"[pgo2d]   {t / 2:8.3f} ms an iteration  {k // 2:5d}x  {name[:90]}")
+    step("LM iteration and profile")
+    with torch.no_grad():
+        state, aux, opts = p32.state, p32.aux, p32.opt.opts
+        blocks = p32.co.linearize_blocks(state, aux)
+        ns = p32.builder.build(state, aux)
+        delta, _ = ns.solve(1e-3, opts.ellipsoidal_damping)
+        stages = {
+            "linearize": lambda: p32.co.linearize_blocks(state, aux),
+            "assemble": lambda: assemble(pattern, blocks),
+            "solve": lambda: ns.solve(1e-3, opts.ellipsoidal_damping),
+            "retract": lambda: p32.co.retract(state, delta),
+            "error": lambda: p32.co.error_metric(state, aux),
+        }
+        print(f"[pgo2d] stages (ms, each synced, mean of 3): "
+              + ", ".join(f"{k} {_synced_ms(f, reps=3):.3f}" for k, f in stages.items()) + f" on {card}")
+
+    # rows 2-4b at d = 3, float32: one assembly and one sweep of each level kernel
+    _, ata, lflat, y, x, b_perm = sys32
+    fns = {
+        "assemble_blocks": (lambda: assemble_blocks(pattern, padded32), lambda: assemble_blocks_plain(pattern, padded32)),
+        "level_factor": (lambda: [level_factor(*f) for f, _, _ in lv32],
+                         lambda: [level_factor_plain(*f) for f, _, _ in lv32]),
+        "level_fwd_subst": (lambda: [level_fwd_subst(*fw) for _, fw, _ in lv32],
+                            lambda: [level_fwd_subst_plain(*fw) for _, fw, _ in lv32]),
+        "level_bwd_subst": (lambda: [level_bwd_subst(*bw) for _, _, bw in lv32],
+                            lambda: [level_bwd_subst_plain(*bw) for _, _, bw in lv32]),
+    }
+    # few reps: a sweep is 92 launches, and the launch queue (about 1024
+    # entries) must hold every timed call behind device_ms's sleep kernel
+    times = {k: (cuda_ms(kern, reps=5), cuda_ms(plain, reps=3, warmup=1), device_ms(kern, reps=3, warmup=1))
+             for k, (kern, plain) in fns.items()}
+    bounds = {
+        "assemble_blocks": assembly_bound(pattern, padded32),
+        "level_factor": _bound(sum(_nbytes(*f) + _nbytes(f[0]) for f, _, _ in lv32), factor_flops(sched, 1, 3)),
+        "level_fwd_subst": _bound(sum(_nbytes(*fw) + _nbytes(fw[2]) for _, fw, _ in lv32),
+                                  subst_flops(sched, 1, 3, True)),
+        "level_bwd_subst": _bound(sum(_nbytes(*bw) + _nbytes(bw[2]) for _, _, bw in lv32),
+                                  subst_flops(sched, 1, 3, False)),
+    }
+    # where a sweep's device time goes: each level's launch alone
+    for name, kern, idx in (("level_factor", level_factor, 0), ("level_bwd_subst", level_bwd_subst, 2)):
+        per = [(device_ms(lambda ops=ops: kern(*ops[idx]), reps=3, warmup=1), ops[0][0].shape[0],
+                ops[0][0].shape[1], ops[0][1].shape[1]) for ops in lv32]
+        total = sum(p[0] for p in per)
+        top = sorted(per, reverse=True)[:5]
+        print(f"[pgo2d] {name} per level, device ms (C, rl, ul), the 5 slowest of {len(per)}: "
+              + ", ".join(f"{t:.4f} ({c}, {rl}, {ul})" for t, c, rl, ul in top)
+              + f"; they are {100 * sum(p[0] for p in top) / total:.1f} % of the {total:.4f} ms summed over levels")
+    # library yardsticks on the dense H (head and tail, 3 n x 3 n): timed here only
+    h = dense_h(pattern, ata)
+    l_dense = torch.linalg.cholesky_ex(h)[0]
+    rhs = p32.builder.flatten(b_perm[sched.on(dev)[1]])[..., None]
+    library = {
+        "level_factor": cuda_ms(lambda: torch.linalg.cholesky_ex(h), reps=3),
+        "level_fwd_subst": cuda_ms(lambda: torch.linalg.solve_triangular(l_dense, rhs, upper=False), reps=3),
+        "level_bwd_subst": cuda_ms(
+            lambda: torch.linalg.solve_triangular(l_dense.transpose(-1, -2), rhs, upper=True), reps=3),
+    }
+    del h, l_dense
+    for k, (ms, plain_ms, dev_ms) in times.items():
+        bms, by = bounds[k]
+        lib = f"{library[k]:.4f} ms" if k in library else "none"
+        print(f"[pgo2d] {k:<16} d=3 B=1 float32 ({'one call' if k == 'assemble_blocks' else f'one sweep, {n_levels} launches'}): "
+              f"kernel {ms:.4f} ms back to back, {dev_ms:.4f} ms device, plain twin {plain_ms:.4f} ms, "
+              f"bound {bms:.4f} ms ({by}), library {lib} on {card}")
+    step("timing")
+
+    # mini_2d.g2o on the default dense linearization, float64
+    m = read_2d_g2o(G2O_2D, dtype=torch.float64)
+    shift = torch.tensor(MINI_2D_SHIFT, dtype=torch.float64, device=m[1].device)
+    moved = torch.cat([m[1][:1], tt.lie.SE2.retract(m[1][1:], shift)])
+    mobj, minputs = pgo2d_objective(m[0], moved, m[2], m[3], m[4], torch.float64, dev)
+    mopt = tt.LevenbergMarquardt(mobj, max_iterations=15, adaptive_damping=True)
+    check(mopt.linearization == "dense" and m[1].device.type == "cuda", "mini_2d: not dense or not on the card")
+    _, minfo = tt.TheseusLayer(mopt).forward(minputs)
+    first, last = float(minfo.err_history[0, 0]), float(minfo.last_err[0])
+    print(f"[pgo2d] {G2O_2D.relative_to(ROOT)} (poses 1, 2 moved by {MINI_2D_SHIFT}) float64 dense LM on "
+          f"{m[1].device}: error {first:.6e} -> {last:.3e} (tol 1e-10)")
+    check(first > 1e-3 and last < 1e-10, "mini_2d: the graph did not solve to zero error")
+    step("mini_2d")
+
+    # rotation averaging on SO3 (dense), from rand_so3 with no device named
+    gen = torch.Generator().manual_seed(0)
+    gt = tt.rand_so3(SO3_ROT * SO3_BATCH, generator=gen, dtype=torch.float64).tensor
+    check(gt.device.type == "cuda", "rand_so3 did not land on the card")
+    gt = gt.reshape(SO3_ROT, SO3_BATCH, 3, 3)
+    pairs = [(i, i + 1) for i in range(SO3_ROT - 1)] + [(i, i + 2) for i in range(SO3_ROT - 2)]
+    e = torch.as_tensor(pairs, device=dev)
+    noise = lambda k, s: so3.exp(s * draw(True, (k, SO3_BATCH, 3), gen, torch.float64, dev))  # noqa: E731
+    rmeas = so3.compose(so3.compose(so3.inverse(gt[e[:, 0]]), gt[e[:, 1]]), noise(len(pairs), 0.05))
+    rinit = so3.compose(gt, noise(SO3_ROT, 0.3))
+
+    def rot_avg(dtype, plain):
+        obj = tt.Objective(dtype=dtype, device=dev)
+        fam = tt.SO3Family(SO3_ROT, name="rot")
+        obj.add(tt.Local(fam[0], gt[0], tt.ScaleCostWeight(10.0), name="anchor"))
+        for k, (i, j) in enumerate(pairs):
+            obj.add(tt.Between(fam[i], fam[j], rmeas[k], name=f"rel_{k}"))
+        layer = tt.TheseusLayer(tt.LevenbergMarquardt(obj, max_iterations=ITERS, adaptive_damping=True))
+        with config.plain_path() if plain else contextlib.nullcontext():
+            return layer.forward({"rot": rinit.to(dtype)})[1]
+
+    r32, r64 = rot_avg(torch.float32, False), rot_avg(torch.float64, True)
+    rel = float(_rel(r32.last_err, r64.last_err).max())
+    print(f"[pgo2d] SO3 rotation averaging ({SO3_ROT} rotations x batch {SO3_BATCH}, {len(pairs)} relative "
+          f"rotations, dense): float64 error {float(r64.err_history[0].mean()):.6e} -> "
+          f"{float(r64.last_err.mean()):.8e}; float32 vs float64 twin rel dev {rel:.3e} (tol {PLATEAU_RTOL_F32:.0e})")
+    check(float(r64.last_err.max()) < 0.1 * float(r64.err_history[0].min()), "SO3: the solve did not reduce the error")
+    check(rel <= PLATEAU_RTOL_F32, "SO3: float32 plateau off the float64 twin")
+    step("SO3")
+    print(f"[pgo2d] seconds: {json.dumps(steps)}")
+    stats = {"max_abs": max_abs, "times": times, "bounds": bounds, "library": library, "lm_iter_ms": iter_ms,
+             "idle": idle, "levels": n_levels}
+    return launches, stats
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timing
 # ---------------------------------------------------------------------------
 def lm_iter_ms(prob, n_small=5, extra=20, reps=3):
@@ -2161,7 +2538,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on an NVIDIA GPU", file=sys.stderr)
         return 2
-    if not (ROOT / "theseus_tpu_torch" / "__init__.py").exists() or not (GOLDEN.exists() and BA_GOLDEN.exists()):
+    if not (ROOT / "theseus_tpu_torch" / "__init__.py").exists() or not all(
+            p.exists() for p in (GOLDEN, BA_GOLDEN, PGO2D_GOLDEN, MANHATTAN)):
         print("chip_smoke: run from the root of a theseus_tpu checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
@@ -2191,6 +2569,7 @@ def main() -> int:
     timed("g2o", phase_g2o, dev)
     ik = timed("ik", phase_ik, dev, card)
     launches["dense_pgo"], dense_ms = timed("dense_pgo", phase_dense_pgo, dev)
+    launches["pgo2d"], pgo2d = timed("pgo2d", phase_pgo2d, dev, card)
     iters, times, dev_times, train_ms, bounds, library = timed("timing", phase_timing, dev, card, twin_ms)
     timed("profile", phase_profile, dev, card)
     check("jax" not in sys.modules and "theseus_tpu" not in sys.modules, "jax was imported")
@@ -2216,6 +2595,11 @@ def main() -> int:
             entry["ms_ba"], entry["plain_ms_ba"] = times["assemble_blocks ba"]
             entry["device_ms_ba"] = dev_times["assemble_blocks ba"]
             entry["bound_ms_ba"], entry["bound_by_ba"] = bounds["assemble_blocks ba"]
+        if name in pgo2d["times"]:  # the 2-D graph's d = 3, batch-1 shapes; one sweep for a level kernel
+            (entry["ms_pgo2d"], entry["plain_ms_pgo2d"], entry["device_ms_pgo2d"]) = pgo2d["times"][name]
+            entry["bound_ms_pgo2d"], entry["bound_by_pgo2d"] = pgo2d["bounds"][name]
+            entry["library_ms_pgo2d"] = pgo2d["library"].get(name)
+            entry["max_abs_err_pgo2d"] = pgo2d["max_abs"][name]["float32"]
         if name in ("level_factor", "level_bwd_subst", "whole_factor", "whole_fwd_subst",
                     "whole_bwd_subst"):  # the deep and narrow shape
             entry["ms_2048x8"], entry["plain_ms_2048x8"] = times[f"{name} 2048x8"]
@@ -2223,7 +2607,8 @@ def main() -> int:
             entry["bound_ms_2048x8"], _ = bounds[f"{name} 2048x8"]
         kernels.append(entry)
     print(json.dumps({"lm_iter_ms": iters, "train_step_ms": train_ms, "ba_train_step_ms": ba_train_ms,
-                      "dlm_step_ms": dlm_ms, "ik_serving": ik, "dense_lm_iter_ms_64x16": dense_ms}))
+                      "dlm_step_ms": dlm_ms, "ik_serving": ik, "dense_lm_iter_ms_64x16": dense_ms,
+                      "pgo2d_lm_iter_ms": pgo2d["lm_iter_ms"], "pgo2d_idle": pgo2d["idle"]}))
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; seconds a phase: {json.dumps(phase_s)}")
     print(json.dumps({"kernels": kernels}))
     print(card)

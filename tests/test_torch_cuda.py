@@ -1075,3 +1075,124 @@ def test_dense_run_scan_never_syncs_with_the_host(cuda_device, problem):
         torch.cuda.synchronize()
     assert host_s < 0.5, host_s
     assert torch.isfinite(carry["err"]).all()
+
+
+# ---------------------------------------------------------------------------
+# the 2-D pose graph: SE2 at block size 3, batch 1 (scripts/manhattan_g2o.py)
+# ---------------------------------------------------------------------------
+def _manhattan_graph(tmp_path, poses, device=None):
+    """scripts/manhattan_g2o.py's graph written to tmp_path and read back by
+    read_2d_g2o (device None: the card)."""
+    import importlib.util
+    from pathlib import Path
+
+    from theseus_tpu_torch.utils.examples.pose_graph import read_2d_g2o
+
+    spec = importlib.util.spec_from_file_location(
+        "manhattan_g2o", Path(__file__).resolve().parents[1] / "scripts" / "manhattan_g2o.py")
+    mg = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mg)
+    path = tmp_path / f"manhattan_{poses}.g2o"
+    mg.write_g2o(path, mg.generate(poses, 0))
+    return read_2d_g2o(path, dtype=torch.float64, device=device)
+
+
+def _se2_layer(graph, dtype, device, iters=30):
+    import theseus_tpu_torch as tt
+
+    n, poses, edges, meas, w = graph
+    w0 = w[0].double().cpu().numpy()
+    obj = tt.Objective(dtype=dtype, device=device)
+    xs = [tt.SE2(name=f"pose_{i}") for i in range(n)]
+    obj.add(tt.Local(xs[0], poses[0].cpu().numpy(), tt.ScaleCostWeight(10.0), name="prior"))
+    weight = tt.DiagonalCostWeight(np.sqrt(np.diag(w0.T @ w0))[None])
+    meas = meas.cpu().numpy()
+    for e, (i, j) in enumerate(edges):
+        obj.add(tt.Between(xs[i], xs[j], meas[e], cost_weight=weight, name=f"edge_{e}"))
+    opt = LevenbergMarquardt(obj, max_iterations=iters, adaptive_damping=True, linearization="sparse")
+    return tt.TheseusLayer(opt), {f"pose_{i}": poses[i] for i in range(n)}
+
+
+def test_read_2d_g2o_and_rand_se2_land_on_the_card(cuda_device, tmp_path):
+    import theseus_tpu_torch as tt
+
+    n, poses, edges, meas, w = _manhattan_graph(tmp_path, 40)
+    assert all(t.device.type == "cuda" for t in (poses, meas, w))
+    assert tuple(poses.shape) == (n, 1, 4) and tuple(w.shape) == (len(edges), 3, 3)
+    v = tt.rand_se2(3, generator=torch.Generator().manual_seed(0))
+    assert v.tensor.device.type == "cuda" and tuple(v.tensor.shape) == (3, 4)
+    assert bool(tt.lie.se2.check_group_tensor(v.tensor).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_se2_kernels_match_twins_at_block_size_3(cuda_device, dtype, tmp_path):
+    """The assembly and every level's three kernels against their twins at
+    the shapes a 500-pose Manhattan graph gives them (d = 3, B = 1)."""
+    from theseus_tpu_torch.sparse.assemble import _pad_jac
+    from theseus_tpu_torch.sparse.cholesky import (
+        backward_sweep, bwd_operands, factor_operands, forward_sweep, fwd_operands)
+
+    layer, inputs = _se2_layer(_manhattan_graph(tmp_path, 500, cuda_device), dtype, cuda_device)
+    co = layer.objective.compile()
+    values = layer.objective.default_values(inputs)
+    state, aux = co.pack(values, 1), co.build_aux(values, 1)
+    bld = layer.optimizer.normal_builder
+    assert bld.pattern.d == 3 and bld.sched.tail_k > 0
+    with config.plain_path():
+        blocks = co.linearize_blocks(state, aux)
+        ata, atb = assemble(bld.pattern, blocks)
+        lflat = factorize(bld.sched, ata)
+        perm, _, levels = bld.sched.on(ata.device)
+        y = forward_sweep(bld.sched, lflat, atb[perm])
+        x = backward_sweep(bld.sched, lflat, y)
+    padded = [([_pad_jac(j, 3) for j in jacs], err) for jacs, err in blocks]
+    _cuda.reset_launches()
+    got = assemble_blocks(bld.pattern, padded)
+    for g, want in zip(got, assemble_blocks_plain(bld.pattern, padded)):
+        _close(g, want, dtype, float(want.abs().max()))
+    for t in levels:
+        fact, fwd, bwd = factor_operands(t, ata, lflat), fwd_operands(t, lflat, y, atb[perm]), bwd_operands(t, lflat, x, y)
+        want = level_factor_plain(*fact)
+        _close(level_factor(*fact), want, dtype, float(want.abs().max()))
+        want = level_fwd_subst_plain(*fwd)
+        _close(level_fwd_subst(*fwd), want, dtype, float(want.abs().max()))
+        want = level_bwd_subst_plain(*bwd)
+        _close(level_bwd_subst(*bwd), want, dtype, float(want.abs().max()))
+    assert _cuda.launches["assemble_blocks"] == 1
+    assert _cuda.launches["level_factor"] == _cuda.launches["level_bwd_subst"] == len(levels)
+
+
+def test_se2_sparse_solve_runs_the_kernels(cuda_device, tmp_path):
+    """An 800-pose Manhattan graph through TheseusLayer.forward: the
+    counters show the assembly once an iteration and the level kernels once
+    a head level an iteration, no twin runs, and the float32 plateau and the
+    float64 one sit where the float64 twins' does (2e-3, 1e-8)."""
+    from unittest import mock
+
+    from theseus_tpu_torch.sparse import assemble_kernel, level_kernels
+
+    graph = _manhattan_graph(tmp_path, 800, cuda_device)
+    results = {}
+    for dtype in (torch.float32, torch.float64):
+        layer, inputs = _se2_layer(graph, dtype, cuda_device)
+        n_levels = len(layer.optimizer.normal_builder.sched.level_tables)
+        twins = [mock.patch.object(level_kernels, f"{k}_plain", wraps=getattr(level_kernels, f"{k}_plain"))
+                 for k in ("level_factor", "level_fwd_subst", "level_bwd_subst")]
+        twins.append(mock.patch.object(assemble_kernel, "assemble_blocks_plain",
+                                       wraps=assemble_kernel.assemble_blocks_plain))
+        _cuda.reset_launches()
+        with contextlib.ExitStack() as stack:
+            spies = [stack.enter_context(t) for t in twins]
+            _, info = layer.forward(inputs)
+            torch.cuda.synchronize()
+        assert [s.call_count for s in spies] == [0, 0, 0, 0]
+        assert _cuda.launches["assemble_blocks"] == 30 and _cuda.launches["between_se3"] == 0
+        for k in ("level_factor", "level_fwd_subst", "level_bwd_subst"):
+            assert _cuda.launches[k] == 30 * n_levels, k
+        results[dtype] = info.last_err
+    layer, inputs = _se2_layer(graph, torch.float64, cuda_device)
+    with config.plain_path():
+        _, ref = layer.forward(inputs)
+    rel = lambda a: float(((a.double() - ref.last_err).abs() / ref.last_err).max())  # noqa: E731
+    assert rel(results[torch.float32]) <= 2e-3
+    assert rel(results[torch.float64]) <= 1e-8

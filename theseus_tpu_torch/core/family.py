@@ -92,12 +92,28 @@ def SE3Family(count, name=None, tensor=None) -> VariableFamily:
     return VariableFamily(_groupmod.SE3, count, name, tensor)
 
 
+def SO3Family(count, name=None, tensor=None) -> VariableFamily:
+    return VariableFamily(_groupmod.SO3, count, name, tensor)
+
+
+def SE2Family(count, name=None, tensor=None) -> VariableFamily:
+    return VariableFamily(_groupmod.SE2, count, name, tensor)
+
+
+def SO2Family(count, name=None, tensor=None) -> VariableFamily:
+    return VariableFamily(_groupmod.SO2, count, name, tensor)
+
+
 def VectorFamily(dof, count, name=None, tensor=None) -> VariableFamily:
     return VariableFamily(_groupmod.euclidean(dof), count, name, tensor)
 
 
 def Point3Family(count, name=None, tensor=None) -> VariableFamily:
     return VectorFamily(3, count, name, tensor)
+
+
+def Point2Family(count, name=None, tensor=None) -> VariableFamily:
+    return VectorFamily(2, count, name, tensor)
 
 
 MemberRef = Union[Tuple[VariableFamily, np.ndarray], ManifoldVariable]

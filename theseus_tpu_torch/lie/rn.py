@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from .utils import draw
+
 
 def _eye_like(x: torch.Tensor) -> torch.Tensor:
     d = x.shape[-1]
@@ -18,6 +20,10 @@ def _eye_like(x: torch.Tensor) -> torch.Tensor:
 
 def exp(x):
     return x
+
+
+def jexp(x):
+    return [_eye_like(x)], x
 
 
 def log(g):
@@ -32,8 +38,18 @@ def compose(g1, g2):
     return g1 + g2
 
 
+def jcompose(g1, g2):
+    ret = g1 + g2
+    eye = _eye_like(ret)
+    return [eye, eye], ret
+
+
 def inverse(g):
     return -g
+
+
+def jinverse(g):
+    return [-_eye_like(g)], -g
 
 
 def adjoint(g):
@@ -47,3 +63,16 @@ def egrad_to_tangent(g, grad):
 
 def identity(dof: int, *batch, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.zeros(tuple(batch) + (dof,), dtype=dtype, device=device)
+
+
+def rand(dof: int, *batch, generator=None, dtype: torch.dtype, device) -> torch.Tensor:
+    """Uniform in [0, 1)^dof."""
+    return draw(False, tuple(batch) + (dof,), generator, dtype, device)
+
+
+def randn(dof: int, *batch, generator=None, dtype: torch.dtype, device) -> torch.Tensor:
+    return draw(True, tuple(batch) + (dof,), generator, dtype, device)
+
+
+def normalize(g):
+    return g

@@ -2,21 +2,24 @@
 
 Layout (..., 3, 4) with the rotation in [..., :3] and the translation in
 [..., 3]; tangents are [linear(3); angular(3)] with right perturbation
-g * exp(delta). The subset the PGO path needs: exp, log, jlog, compose,
-inverse, adjoint, with the JAX package's Taylor branches and eps, and the
-point action `transform` the bundle-adjustment data needs, and
-`left_project` for the DLM backward. `exp` and `log`
+g * exp(delta). The JAX module's functions, with its Taylor branches and
+eps: exp, log, compose, inverse and their jacobians, the adjoint, the
+point action (transform, untransform and their jacobians), hat/vee/lift/
+project, left_act and `left_project` (the DLM backward's), to_matrix,
+identity, rand, randn, normalize and check_group_tensor. `exp` and `log`
 carry the JAX package's custom JVP rules as autograd Functions (see
 lie/so3.py), taken whenever the call could be differentiated.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..config import get_eps, needs_grad
 from . import so3
-from .utils import antisym_project, eye, mvp, nz, outer, so3_hat, transpose
+from .utils import antisym_project, draw, eye, mvp, nz, outer, so3_hat, transpose
 
 DOF = 6
 SHAPE = (3, 4)
@@ -28,6 +31,29 @@ _D_TMS_NEAR_ZERO = -1.0 / 60.0
 
 def from_rot_trans(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.cat([r, t[..., None]], dim=-1)
+
+
+def hat(x: torch.Tensor) -> torch.Tensor:
+    """(..., 6) -> (..., 4, 4) se(3) matrix, [lin; ang] ordering."""
+    top = torch.cat([so3_hat(x[..., 3:]), x[..., :3, None]], dim=-1)
+    bottom = torch.zeros(x.shape[:-1] + (1, 4), dtype=x.dtype, device=x.device)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def vee(m: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 4) -> (..., 6)."""
+    ang = torch.stack([m[..., 2, 1], m[..., 0, 2], m[..., 1, 0]], dim=-1)
+    return torch.cat([m[..., :3, 3], ang], dim=-1)
+
+
+def lift(x: torch.Tensor) -> torch.Tensor:
+    """(..., 6) -> (..., 3, 4): [hat(ang) | lin]."""
+    return torch.cat([so3_hat(x[..., 3:]), x[..., :3, None]], dim=-1)
+
+
+def project(m: torch.Tensor) -> torch.Tensor:
+    """Adjoint of lift: (..., 3, 4) -> (..., 6) = [m[:, 3]; so3.project(m[:, :3])]."""
+    return torch.cat([m[..., 3], so3.project(m[..., :3])], dim=-1)
 
 
 def _exp_helper(x: torch.Tensor):
@@ -230,10 +256,21 @@ def compose(g1: torch.Tensor, g2: torch.Tensor) -> torch.Tensor:
     return from_rot_trans(r1 @ r2, mvp(r1, t2) + t1)
 
 
+def jcompose(g1: torch.Tensor, g2: torch.Tensor):
+    """J1 = Adj(g2^{-1}), J2 = I."""
+    b = torch.broadcast_shapes(g1.shape[:-2], g2.shape[:-2])
+    j1 = adjoint(inverse(g2)).expand(b + (6, 6))
+    return [j1, eye(6, g1).expand(b + (6, 6))], compose(g1, g2)
+
+
 def inverse(g: torch.Tensor) -> torch.Tensor:
     r, t = g[..., :3], g[..., 3]
     rt = transpose(r)
     return from_rot_trans(rt, -mvp(rt, t))
+
+
+def jinverse(g: torch.Tensor):
+    return [-adjoint(g)], inverse(g)
 
 
 def adjoint(g: torch.Tensor) -> torch.Tensor:
@@ -250,6 +287,39 @@ def transform(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return mvp(g[..., :3], p) + g[..., 3]
 
 
+def jtransform(g: torch.Tensor, p: torch.Tensor):
+    """([d/d tangent (..., 3, 6), d/d point (..., 3, 3)], R p + t)."""
+    r = g[..., :3]
+    b = torch.broadcast_shapes(g.shape[:-2], p.shape[:-1])
+    jg = torch.cat([r.expand(b + (3, 3)), r @ (-so3_hat(p))], dim=-1)
+    return [jg.expand(b + (3, 6)), r.expand(b + (3, 3))], transform(g, p)
+
+
+def untransform(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Apply the inverse pose to a point: R^T (p - t)."""
+    return mvp(transpose(g[..., :3]), p - g[..., 3])
+
+
+def juntransform(g: torch.Tensor, p: torch.Tensor):
+    ret = untransform(g, p)
+    b = torch.broadcast_shapes(g.shape[:-2], p.shape[:-1])
+    jg = torch.cat([-eye(3, g).expand(b + (3, 3)), so3_hat(ret).expand(b + (3, 3))], dim=-1)
+    return [jg, transpose(g[..., :3]).expand(b + (3, 3))], ret
+
+
+act = transform
+
+
+def left_act(g: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    return g[..., :3] @ m
+
+
+def to_matrix(g: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 4) -> homogeneous (..., 4, 4)."""
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=g.dtype, device=g.device).expand(g.shape[:-2] + (1, 4))
+    return torch.cat([g, bottom], dim=-2)
+
+
 def identity(*batch, dtype: torch.dtype, device) -> torch.Tensor:
     base = torch.zeros(3, 4, dtype=dtype, device=device)
     base[:, :3] = torch.eye(3, dtype=dtype, device=device)
@@ -261,3 +331,23 @@ def left_project(g: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     so3.project(R^T m_R)]."""
     rt = transpose(g[..., :3])
     return torch.cat([mvp(rt, m[..., 3]), so3.project(rt @ m[..., :3])], dim=-1)
+
+
+def rand(*batch, generator=None, dtype: torch.dtype, device) -> torch.Tensor:
+    """A uniform rotation and a translation uniform in [-1, 1)^3."""
+    r = so3.rand(*batch, generator=generator, dtype=dtype, device=device)
+    t = 2.0 * draw(False, tuple(batch) + (3,), generator, dtype, device) - 1.0
+    return from_rot_trans(r, t)
+
+
+def randn(*batch, generator=None, dtype: torch.dtype, device) -> torch.Tensor:
+    """exp of N(0, pi^2) tangents."""
+    return exp(math.pi * draw(True, tuple(batch) + (6,), generator, dtype, device))
+
+
+def normalize(g: torch.Tensor) -> torch.Tensor:
+    return from_rot_trans(so3.normalize(g[..., :3]), g[..., 3])
+
+
+def check_group_tensor(g: torch.Tensor, atol=None) -> torch.Tensor:
+    return so3.check_group_tensor(g[..., :3], atol)

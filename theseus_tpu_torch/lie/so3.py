@@ -1,9 +1,11 @@
 """Functional SO(3) ops on 3x3 rotation matrices (JAX counterpart: theseus_tpu/lie/so3.py).
 
-The subset the PGO path needs: exp, log, jlog, compose, inverse, adjoint;
-and for the DLM backward `left_project` (a Euclidean gradient to the right
-tangent) and `quaternion_to_rotation` (the g2o reader).
-Right-perturbation tangent convention, and the same Taylor branches and
+The JAX module's functions: exp, log and their jacobians, compose,
+inverse and theirs, the adjoint, the point action (rotate, unrotate and
+their jacobians), hat/vee/lift/project, left_act and `left_project` (a
+Euclidean gradient to the right tangent, the DLM backward's), the
+quaternion conversions (the g2o reader), identity, rand, randn, normalize
+and check_group_tensor. Right-perturbation tangent convention, and the same Taylor branches and
 per-dtype eps as the JAX package (exp near-zero Pade; log near-zero and
 near-pi branches; jlog coefficients on the wider derivative eps). All ops
 broadcast over leading batch dims. `exp` and `log` carry the JAX
@@ -17,16 +19,20 @@ transform).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..config import get_eps, needs_grad
-from .utils import antisym_project, eye, mvp, nz, outer, so3_hat, transpose
+from .utils import antisym_project, draw, eye, mvp, nz, outer, so3_hat, so3_vee, transpose
 
 DOF = 3
 SHAPE = (3, 3)
 NAME = "SO3"
 
 hat = so3_hat
+vee = so3_vee
+lift = so3_hat
 
 
 def _exp_helper(w: torch.Tensor):
@@ -200,11 +206,58 @@ def compose(g1: torch.Tensor, g2: torch.Tensor) -> torch.Tensor:
     return g1 @ g2
 
 
+def jcompose(g1: torch.Tensor, g2: torch.Tensor):
+    """J1 = Adj(g2^{-1}) = g2^T, J2 = I."""
+    b = torch.broadcast_shapes(g1.shape[:-2], g2.shape[:-2])
+    return [transpose(g2).expand(b + (3, 3)), eye(3, g1).expand(b + (3, 3))], g1 @ g2
+
+
 def inverse(g: torch.Tensor) -> torch.Tensor:
     return transpose(g)
 
 
+def jinverse(g: torch.Tensor):
+    """J = -Adj(g) = -g."""
+    return [-g], transpose(g)
+
+
 def adjoint(g: torch.Tensor) -> torch.Tensor:
+    return g
+
+
+def rotate(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Rotate point(s): (..., 3, 3), (..., 3) -> (..., 3)."""
+    return mvp(g, p)
+
+
+act = rotate
+
+
+def _bshape(g: torch.Tensor, p: torch.Tensor):
+    return torch.broadcast_shapes(g.shape, p.shape[:-1] + (3, 3))
+
+
+def jrotate(g: torch.Tensor, p: torch.Tensor):
+    """([d/d tangent, d/d point], R p)."""
+    return [g @ (-hat(p)), g.expand(_bshape(g, p))], mvp(g, p)
+
+
+def unrotate(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    return mvp(transpose(g), p)
+
+
+def junrotate(g: torch.Tensor, p: torch.Tensor):
+    ret = mvp(transpose(g), p)
+    return [hat(ret), transpose(g).expand(_bshape(g, p))], ret
+
+
+def left_act(g: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) @ (..., 3, K)."""
+    return g @ m
+
+
+def to_matrix(g: torch.Tensor) -> torch.Tensor:
+    """The storage is the rotation matrix itself."""
     return g
 
 
@@ -218,6 +271,20 @@ def left_project(g: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     return project(transpose(g) @ m)
 
 
+def identity(*batch, dtype: torch.dtype, device) -> torch.Tensor:
+    return torch.eye(3, dtype=dtype, device=device).expand(tuple(batch) + (3, 3))
+
+
+def rand(*batch, generator=None, dtype: torch.dtype, device) -> torch.Tensor:
+    """Uniform random rotations, from normalized Gaussian quaternions."""
+    return quaternion_to_rotation(draw(True, tuple(batch) + (4,), generator, dtype, device))
+
+
+def randn(*batch, generator=None, dtype: torch.dtype, device) -> torch.Tensor:
+    """exp of N(0, pi^2) tangents."""
+    return exp(math.pi * draw(True, tuple(batch) + (3,), generator, dtype, device))
+
+
 def quaternion_to_rotation(q: torch.Tensor) -> torch.Tensor:
     """(..., 4) wxyz quaternion, normalized here -> (..., 3, 3)."""
     q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
@@ -228,3 +295,46 @@ def quaternion_to_rotation(q: torch.Tensor) -> torch.Tensor:
         [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
     ]
     return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def rotation_to_quaternion(g: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> (..., 4) wxyz with w >= 0 (Shepperd: of four
+    constructions, the one with the largest pivot)."""
+    m00, m01, m02 = g[..., 0, 0], g[..., 0, 1], g[..., 0, 2]
+    m10, m11, m12 = g[..., 1, 0], g[..., 1, 1], g[..., 1, 2]
+    m20, m21, m22 = g[..., 2, 0], g[..., 2, 1], g[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def q_from(tw, tx, ty, tz, pivot):
+        s = torch.sqrt(torch.clamp(pivot, min=1e-12))
+        return torch.stack([tw / s, tx / s, ty / s, tz / s], dim=-1)
+
+    q0 = q_from(0.5 * (1 + tr), 0.5 * (m21 - m12), 0.5 * (m02 - m20), 0.5 * (m10 - m01), 1 + tr)
+    q1 = q_from(0.5 * (m21 - m12), 0.5 * (1 + m00 - m11 - m22), 0.5 * (m01 + m10), 0.5 * (m02 + m20),
+                1 + m00 - m11 - m22)
+    q2 = q_from(0.5 * (m02 - m20), 0.5 * (m01 + m10), 0.5 * (1 - m00 + m11 - m22), 0.5 * (m12 + m21),
+                1 - m00 + m11 - m22)
+    q3 = q_from(0.5 * (m10 - m01), 0.5 * (m02 + m20), 0.5 * (m12 + m21), 0.5 * (1 - m00 - m11 + m22),
+                1 - m00 - m11 + m22)
+    diag = torch.stack([m00, m11, m22], dim=-1)
+    case = torch.where(tr > 0, torch.zeros_like(tr, dtype=torch.long), torch.argmax(diag, dim=-1) + 1)
+    qs = torch.stack([q0, q1, q2, q3], dim=-2)
+    q = torch.gather(qs, -2, case[..., None, None].expand(case.shape + (1, 4)))[..., 0, :]
+    q = torch.where(q[..., 0:1] < 0, -q, q)
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def normalize(g: torch.Tensor) -> torch.Tensor:
+    """The nearest rotation of a (..., 3, 3) matrix, by SVD."""
+    u, _, vt = torch.linalg.svd(g)
+    d = torch.linalg.det(u @ vt)
+    s = torch.stack([torch.ones_like(d), torch.ones_like(d), d], dim=-1)
+    return (u * s[..., None, :]) @ vt
+
+
+def check_group_tensor(g: torch.Tensor, atol=None) -> torch.Tensor:
+    """(...,) bool: is each element orthonormal with determinant 1."""
+    if atol is None:
+        atol = get_eps("so3", "matrix", g.dtype)
+    err = torch.abs(transpose(g) @ g - eye(3, g)).amax(dim=(-2, -1))
+    return (err < atol) & (torch.abs(torch.linalg.det(g) - 1.0) < atol)

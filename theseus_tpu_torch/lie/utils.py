@@ -65,3 +65,16 @@ def transpose(m: torch.Tensor) -> torch.Tensor:
 
 def eye(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.eye(n, dtype=like.dtype, device=like.device)
+
+
+def draw(normal: bool, shape, generator, dtype: torch.dtype, device) -> torch.Tensor:
+    """Standard normal (`normal`) or uniform [0, 1) numbers of `shape`.
+
+    With a `generator` they are drawn on the generator's own device and then
+    moved to `device`, so one CPU generator gives the same numbers whatever
+    the target device; without one, on `device` from its default
+    generator."""
+    fn = torch.randn if normal else torch.rand
+    if generator is None:
+        return fn(tuple(shape), dtype=dtype, device=device)
+    return fn(tuple(shape), generator=generator, dtype=dtype, device=generator.device).to(device)

@@ -54,6 +54,9 @@ class NLSOptions:
     damping: float = 0.001
     adaptive_damping: bool = False
     ellipsoidal_damping: bool = False
+    # Read by no builder, as in the JAX package: the builders keep their own
+    # 1e-8; a dense solve takes another through
+    # `linear_solver=DenseCholeskySolver(damping_eps=...)`.
     damping_eps: float = 1e-8
     down_damping_ratio: float = 9.0
     up_damping_ratio: float = 11.0
@@ -109,19 +112,13 @@ class NonlinearLeastSquares:
         co = self.compiled
         if self._normal_builder is None or self._normal_builder.co is not co:
             if self.linearization == "dense":
-                self._normal_builder = DenseNormalBuilder(
-                    co, self.linear_solver or DenseCholeskySolver(damping_eps=self.opts.damping_eps)
-                )
+                self._normal_builder = DenseNormalBuilder(co, self.linear_solver or DenseCholeskySolver())
             elif self.linearization == "schur":
                 from .schur import SchurNormalBuilder, eliminate_points
 
-                self._normal_builder = SchurNormalBuilder(
-                    co, self.eliminate or eliminate_points, damping_eps=self.opts.damping_eps
-                )
+                self._normal_builder = SchurNormalBuilder(co, self.eliminate or eliminate_points)
             else:
-                self._normal_builder = SparseNormalBuilder(
-                    co, ordering=self.ordering, damping_eps=self.opts.damping_eps
-                )
+                self._normal_builder = SparseNormalBuilder(co, ordering=self.ordering)
         return self._normal_builder
 
     def _init_scalar_state(self, opts: NLSOptions) -> float:

@@ -10,7 +10,9 @@ with utils/convert.py.
 
 `read_3d_g2o` reads a g2o file of SE3 vertices and edges (the format of
 the public pose-graph datasets) into torch tensors on the card, or on the
-`device` given, ready for `build_pgo_objective`.
+`device` given, ready for `build_pgo_objective`; `read_2d_g2o` does the
+same for SE2 graphs (`VERTEX_SE2` / `EDGE_SE2`, the format of M3500 and
+the other 2-D benchmarks).
 """
 
 from __future__ import annotations
@@ -163,3 +165,39 @@ def read_3d_g2o(path, dtype: torch.dtype = torch.float64, device=None):
 
     weights = torch.as_tensor(np.stack([np.linalg.cholesky(i).T for i in infos]))
     return n, cast(to_se3([verts[i] for i in range(n)])), edges, cast(to_se3(meas)), cast(weights)
+
+
+def read_2d_g2o(path, dtype: torch.dtype = torch.float64, device=None):
+    """VERTEX_SE2 / EDGE_SE2 reader. Returns (num_poses, poses (N, 1, 4),
+    edges [(i, j)], measurements (E, 1, 4), weights (E, 3, 3)): elements
+    are (x, y, cos t, sin t) and the weights the upper-triangular
+    sqrt-information W = L^T of each info = L L^T. Parsed in float64 on the
+    host, then cast to (dtype, device); device None is the card
+    (config.default_device). A line with missing fields raises."""
+    device = resolve_device(device)
+    verts: Dict[int, List[float]] = {}
+    edges: List[Tuple[int, int]] = []
+    meas, infos = [], []
+    iu = np.triu_indices(3)
+    with open(path) as f:
+        for line in f:
+            tok = line.split()
+            if not tok:
+                continue
+            if tok[0] == "VERTEX_SE2":
+                x, y, th = map(float, tok[2:5])
+                verts[int(tok[1])] = [x, y, np.cos(th), np.sin(th)]
+            elif tok[0] == "EDGE_SE2":
+                edges.append((int(tok[1]), int(tok[2])))
+                x, y, th = map(float, tok[3:6])
+                meas.append([x, y, np.cos(th), np.sin(th)])
+                info = np.zeros((3, 3))
+                info[iu] = list(map(float, tok[6:12]))
+                infos.append(info + np.triu(info, 1).T)
+    n = len(verts)
+
+    def cast(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float64).to(dtype=dtype, device=device)
+
+    weights = np.stack([np.linalg.cholesky(i).T for i in infos])
+    return n, cast([verts[i] for i in range(n)])[:, None], edges, cast(meas)[:, None], cast(weights)
