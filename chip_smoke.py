@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""On-card check of theseus_tpu_torch: the batched SE3 pose-graph, bundle-adjustment, inverse-kinematics and 2-D SE2 pose-graph LM solves on one NVIDIA GPU.
+"""On-card check of theseus_tpu_torch: the batched SE3 pose-graph, bundle-adjustment, inverse-kinematics, 2-D SE2 pose-graph and motion-planning LM solves on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with one CUDA GPU and the CUDA
 toolkit (nvcc):
@@ -28,7 +28,10 @@ Between kernel. The 2-D path: an SE2 pose graph of M3500's size (3500
 poses, 5453 edges, batch 1; scripts/manhattan_g2o.py from a seed) read by
 `read_2d_g2o` onto the card and solved on the sparse level plan at block
 size 3, plus mini_2d.g2o and an SO3 rotation averaging on the dense
-linearization. In order:
+linearization. The planning path: GPMP2 motion planning (MotionPlanner,
+utils/examples/motion_planning.py) at the reference's size, 128 x 128 maps
+and 100 time steps (202 variables at block size 2), at batch 1 and 64 on
+the sparse level plan. In order:
 
 1. fails fast without a CUDA device or outside a checkout;
 2. builds the CUDA kernels from theseus_tpu_torch/csrc (nvcc, sm_90a, one
@@ -95,7 +98,20 @@ linearization. In order:
    iteration's ms and idle share, rows 2-4b's times and bounds at d = 3;
    mini_2d.g2o on the default dense linearization to below 1e-10; an SO3
    rotation averaging (SO3Family, from rand_so3 with no device named)
-   against its float64 twin (2e-3);
+   against its float64 twin (2e-3); planning: maps from synthetic_maps
+   (numpy seed 0), the assembly, level and whole-sweep kernels against their
+   twins at the planner's d = 2 shapes at batch 1 and 64 (f32, f64, each
+   launched twice for the same bits), the float32 forward at each batch
+   with the counters around it (the assembly once an iteration, the level
+   kernels once a head level an iteration), its plateau against the
+   float64 plain twins (held on map 0, the batch printed: nonconvex),
+   the float64 kernels, the float64 dense solve and the whole-sweep plan
+   against the twins (1e-8), Dogleg against its float64 twin solve,
+   compute_samples (16 samples, the backward sweep on the same y against
+   its twin), compute_covariances of every 10th pose sparse against dense
+   (1e-8), one learned-initialization step (its float32 gradient against
+   the float64 twins'), ms per planning call and plans/s on fresh maps,
+   the LM iteration's ms and idle share, rows 2-4b and 6-8 at d = 2;
 5. timing phase: ms per LM iteration (marginal window, as bench.py) for the
    level kernels, the whole-sweep kernels and the plain twins (PGO 64 x 16,
    256 x 128 and 2048 x 8, the grid; BA 16 x 200 x 16 and 128 x 4000 x 1), ms per
@@ -331,6 +347,43 @@ REPROJECTION_FLOPS = 200
 # torch.cuda._sleep spins for a number of SM clock cycles; the H100's boost
 # clock is at most 1.98 GHz, so this many cycles last at least one second
 SLEEP_CYCLES_PER_S = 2.0e9
+# The planning path (utils/examples/motion_planning.py, GPMP2): the size of
+# the reference's motion-planning experiment, 128 x 128 maps (cell 0.1 m,
+# origin 0) and 100 time steps over 10 s (101 Point2 poses and 101
+# Vector(2) velocities: 202 variables, block size 2), Qc^-1 = I, boundary
+# weight 100, collision weight 20, epsilon_dist 0.8 (safety distance 0.4 +
+# robot radius 0.4); maps from synthetic_maps (6 boxes, 4 discs, numpy seed
+# PLAN_SEED, start and goal kept free); LM with adaptive damping, 50
+# iterations, sparse, at each of PLAN_BATCHES through TheseusLayer.forward.
+PLAN_MAP, PLAN_CELL, PLAN_STEPS, PLAN_TIME = 128, 0.1, 100, 10.0
+PLAN_EPS, PLAN_CW, PLAN_ITERS, PLAN_SEED = 0.8, 20.0, 50, 0
+PLAN_BATCHES = (1, 64)
+PLAN_REQUESTS = 3  # timed planning calls at each batch, fresh maps each
+PLAN_SAMPLES = 16  # compute_samples at the largest batch
+PLAN_COV_EVERY = 10  # compute_covariances of every 10th pose
+# The float32 plateau. The planner's problem is nonconvex (the collision
+# hinge over a bilinear SDF) and ill-conditioned (cond(AtA) 2.5e5-1e7 at the
+# straight line: the GP prior's 12/dt^3 = 1.2e4 against the weak modes).
+# After 50 iterations a trajectory caught against an obstacle still creeps,
+# and float32's rounding sends it into another local minimum, lower or
+# higher: on these 64 maps float32 sat up to 8.0x from float64's final error,
+# and 4.0e-2 on an element whose float64 error had settled to 1e-6 over its
+# last 10 iterations (an NVIDIA H100 80GB HBM3 at 700 W; the port's CPU
+# twins do the same). PLATEAU_RTOL_F32 is held on map 0 (the batch-1
+# problem, converged in a few iterations); the batch is printed.
+# One outer step of examples/motion_planning_learned.py: the initial-
+# trajectory model (random weights from a torch.Generator) at batch
+# PLAN_LEARN_BATCH, LM with adaptive damping unrolled through
+# PLAN_LEARN_ITERS iterations on the sparse plan, loss the mean final
+# error. From the model's initialization (offsets up to 2.9 m, error 1.5e6)
+# the float32 steps carry the conditioning above: the float32 gradient sat
+# 0.131 (norm-relative) from float64's, cosine 0.991 (the port's CPU twins,
+# 16 maps); with fixed damping, as the JAX example has it, float32 and
+# float64 part ways entirely (cosine -0.33), so the step takes adaptive
+# damping. Held: norm-relative PLAN_GRAD_RTOL_F32 and cosine
+# PLAN_GRAD_COS_F32; float64 kernels against float64 twins GRAD_RTOL_F64.
+PLAN_LEARN_BATCH, PLAN_LEARN_ITERS = 16, 3
+PLAN_GRAD_RTOL_F32, PLAN_GRAD_COS_F32 = 0.5, 0.9
 
 
 class CheckFailed(AssertionError):
@@ -2001,6 +2054,516 @@ def phase_pgo2d(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# the planning path (GPMP2 motion planning, block size 2)
+# ---------------------------------------------------------------------------
+def planning_inputs(planner, maps, dtype, dev, lo=0, hi=None):
+    """The planner's inputs for maps[lo:hi] (sdf, start, goal numpy) on the
+    card: the straight-line initialization and the map inputs."""
+    import torch
+
+    sdf, start, goal = (m[lo:hi] for m in maps)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)  # noqa: E731
+    b = len(sdf)
+    inputs = dict(planner.straight_line_initialization(t(start), t(goal)))
+    inputs.update(start=t(start), goal=t(goal), sdf_origin=torch.zeros((b, 2), dtype=dtype, device=dev),
+                  sdf_data=t(sdf), cell_size=torch.full((b, 1), PLAN_CELL, dtype=dtype, device=dev))
+    return inputs
+
+
+def make_planner(dtype, cls="LevenbergMarquardt", iters=PLAN_ITERS, linearization="sparse"):
+    """The planner on the card (no device named: the default)."""
+    import numpy as np
+
+    import theseus_tpu_torch as tt
+    from theseus_tpu_torch.utils.examples.motion_planning import MotionPlanner
+
+    kw = {"adaptive_damping": True} if cls == "LevenbergMarquardt" else {}
+    return MotionPlanner(PLAN_MAP, PLAN_EPS, PLAN_TIME, PLAN_CW, np.eye(2), PLAN_STEPS,
+                         optimizer_cls=getattr(tt, cls), max_iterations=iters, dtype=dtype,
+                         linearization=linearization, **kw)
+
+
+def _plan(planner, inputs, plain=False, **kwargs):
+    from theseus_tpu_torch import config
+
+    with config.plain_path() if plain else contextlib.nullcontext():
+        return planner.layer.forward(inputs, optimizer_kwargs=kwargs)
+
+
+def _plateau_report(label, info32, ref, held=(0,)):
+    """Float32 final errors against a float64 reference, per element. The
+    planner's problem is nonconvex (the collision hinge over a bilinear
+    SDF) and ill-conditioned, and float32's rounding sends a trajectory
+    that is caught against obstacles into another local minimum, lower or
+    higher: PLATEAU_RTOL_F32 is held on the elements `held` (element 0 is
+    the batch-1 problem, map 0, whose solve converges in a few iterations),
+    the whole batch is printed: the share within the tolerance, the share
+    where float32 ends lower, the worst, and the batch means."""
+    import torch
+
+    check(bool(torch.isfinite(info32.last_err).all()), f"{label}: non-finite float32 error")
+    check(bool((info32.last_err <= info32.err_history[0]).all()), f"{label}: float32 ended above its start")
+    rel = _rel(info32.last_err, ref.last_err)
+    lower = info32.last_err.double().cpu() < ref.last_err.double().cpu()
+    idx = torch.as_tensor(held)
+    worst_held = float(rel[idx].max())
+    print(f"[planning] {label}: float32 kernels vs float64 twins, rel dev of the final error on elements "
+          f"{list(held)} {worst_held:.3e} (tol {PLATEAU_RTOL_F32:.0e}); over all {len(rel)}: "
+          f"{int((rel <= PLATEAU_RTOL_F32).sum())} within the tol, median {float(rel.median()):.3e}, max "
+          f"{float(rel.max()):.3e}, float32 lower on {int(lower.sum())}; mean final error float32 "
+          f"{float(info32.last_err.double().mean()):.6e}, float64 {float(ref.last_err.double().mean()):.6e}")
+    check(worst_held <= PLATEAU_RTOL_F32, f"{label}: float32 off the float64 plateau by {worst_held:.3e}")
+
+
+def _f64_report(label, info, ref, tol=PLATEAU_RTOL_F64):
+    rel = float(_rel(info.last_err, ref.last_err).max())
+    print(f"[planning] {label}: rel dev of the final error {rel:.3e} (tol {tol:.0e})")
+    check(rel <= tol, f"{label}: {rel:.3e} > {tol}")
+
+
+def _learn_grad(dtype, dev, maps, plain=False):
+    """One outer step: the initial-trajectory model's gradient of the mean
+    final error after PLAN_LEARN_ITERS unrolled LM iterations.
+    Returns (loss, flat gradient, forward launches, backward launches)."""
+    import torch
+
+    from theseus_tpu_torch import _cuda, config
+    from theseus_tpu_torch.utils.examples.motion_planning import InitialTrajectoryModel
+
+    planner = make_planner(dtype, iters=PLAN_LEARN_ITERS)
+    model = InitialTrajectoryModel(PLAN_STEPS, generator=torch.Generator().manual_seed(0), dtype=dtype, device=dev)
+    inputs = planning_inputs(planner, maps, dtype, dev, 0, PLAN_LEARN_BATCH)
+    with config.plain_path() if plain else contextlib.nullcontext():
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        inputs.update(model(inputs["start"], inputs["goal"], PLAN_TIME))
+        _, info = planner.layer.forward(inputs, optimizer_kwargs={"backward_mode": "unroll"})
+        loss = info.last_err.mean()
+        torch.cuda.synchronize()
+        fwd = dict(_cuda.launches)
+        _cuda.reset_launches()
+        loss.backward()
+        torch.cuda.synchronize()
+        bwd = dict(_cuda.launches)
+    grad = torch.cat([p.grad.reshape(-1).double() for p in model.parameters()])
+    return loss.item(), grad, fwd, bwd
+
+
+def _plan_cond(pattern, ata):
+    """The largest condition number over the batch of the block matrix
+    (diagonal blocks symmetrised), from its eigenvalues in float64."""
+    import torch
+
+    ev = torch.linalg.eigvalsh(dense_h(pattern, ata.double()))
+    return float((ev[:, -1] / ev[:, 0]).max())
+
+
+def _maybe_plain(plain, fn, *args):
+    from theseus_tpu_torch import config
+
+    with config.plain_path() if plain else contextlib.nullcontext():
+        return fn(*args)
+
+
+def _plan_report(name, dn, got, twin, ref, cond, note):
+    """A kernel at the planner's shapes against its twin. float64: the
+    default tolerance (_dev_report). float32: the planner's block matrix is
+    ill-conditioned (cond, printed, ~1e7), and two correct float32
+    implementations that round in another order differ by more than the
+    default (the factor's 2x2 pivots cancel): held to be as accurate as its
+    twin, its deviation from the twin evaluated in float64 on the same
+    inputs at most twice the float32 twin's plus the default tolerance,
+    relative to max(1, |twin|). Returns max |kernel - twin|."""
+    import torch
+
+    if ref is None:
+        print(f"[kernel] {name:<15} {dn} {note}: cond {cond:.3e}")
+        return _dev_report(name, dn, got, twin, note)
+    scale = max([1.0] + [float(w.abs().max()) for w in twin])
+    check(all(bool(torch.isfinite(g).all()) for g in got), f"{name} {dn} {note}: non-finite kernel output")
+    dev = max(float((g - w).abs().max()) for g, w in zip(got, twin))
+    default = KERNEL_TOL[dn]["default"]
+    ek = max(float((g.double() - r).abs().max()) for g, r in zip(got, ref)) / scale
+    et = max(float((w.double() - r).abs().max()) for w, r in zip(twin, ref)) / scale
+    ok = ek <= 2.0 * et + default
+    print(f"[kernel] {name:<15} {dn} {note:<12} cond {cond:.3e}: max_abs={dev:.3e} vs twin; relative to "
+          f"max(1,|twin|), error against the float64 twin: kernel {ek:.3e}, float32 twin {et:.3e} "
+          f"(held: kernel <= 2 x twin + {default:.0e}) {'ok' if ok else 'FAIL'}")
+    check(ok, f"{name} {dn} {note}: kernel error {ek:.3e} against float64 exceeds 2 x the twin's {et:.3e} + {default}")
+    return dev
+
+
+def phase_planning(dev, card):
+    """GPMP2 motion planning at the reference's size on the sparse level plan
+    at block size 2: kernels against twins at the planner's shapes, the
+    float32 forward at batch 1 and 64 with the counters around each, the
+    float32 and float64 plateaus, dense and whole-sweep plans, Dogleg,
+    compute_samples, compute_covariances, one learned-initialization step,
+    timings."""
+    import numpy as np
+    import torch
+
+    from theseus_tpu_torch import _cuda, config
+    from theseus_tpu_torch.sparse.assemble import assemble
+    from theseus_tpu_torch.sparse.assemble_kernel import assemble_blocks, assemble_blocks_plain
+    from theseus_tpu_torch.sparse.cholesky import factorize, sample_with_factor
+    from theseus_tpu_torch.sparse.level_kernels import (
+        level_bwd_subst, level_bwd_subst_plain, level_factor, level_factor_plain,
+        level_fwd_subst, level_fwd_subst_plain)
+    from theseus_tpu_torch.sparse.whole import whole_bwd_subst, whole_factor, whole_fwd_subst
+    from theseus_tpu_torch.utils.examples.motion_planning import synthetic_maps
+
+    steps, t_step = {}, [time.perf_counter()]
+
+    def step(name):  # seconds of each part of the phase, printed at its end
+        now = time.perf_counter()
+        steps[name] = round(now - t_step[0], 2)
+        t_step[0] = now
+
+    bmax = max(PLAN_BATCHES)
+    maps = synthetic_maps(bmax, PLAN_MAP, PLAN_CELL, seed=PLAN_SEED)
+    print(f"[planning] {bmax} maps {PLAN_MAP}x{PLAN_MAP} (cell {PLAN_CELL} m) from seed {PLAN_SEED}: "
+          f"{100 * float((maps[0] < 0).mean()):.1f} % occupied; start {maps[1][0].tolist()}, goal {maps[2][0].tolist()}")
+    planners = {}
+    for dtype in (torch.float32, torch.float64):
+        t0 = time.perf_counter()
+        pl = make_planner(dtype)
+        pl.objective.compile()
+        t1 = time.perf_counter()
+        _ = pl.optimizer.normal_builder
+        planners[dtype] = pl
+        print(f"[planning] {str(dtype)[6:]}: objective compiled in {t1 - t0:.3f} s; block pattern, symbolic "
+              f"analysis (auto ordering) and level schedule {time.perf_counter() - t1:.3f} s on the host")
+    p32, p64 = planners[torch.float32], planners[torch.float64]
+    bld = p32.optimizer.normal_builder
+    sched, pattern = bld.sched, bld.pattern
+    n_levels = len(sched.level_tables)
+    check(pattern.d == 2 and pattern.n_vars == 2 * (PLAN_STEPS + 1) and n_levels > 1,
+          "planning: not 202 variables at block size 2 over levels")
+    whole_ok = sched.tail_k == 0
+    print(f"[planning] d={pattern.d}, {pattern.n_vars} variables: {n_levels} head levels over {sched.n_head} "
+          f"columns, dense tail of {sched.tail_k} columns, nnz_L {sched.sym.nnz_l} blocks; (C, rl, ul) per level "
+          + " ".join(f"({len(t['cols'])},{t['row_valid'].shape[1]},{t['upd_valid'].shape[1]})"
+                     for t in sched.level_tables)
+          + f"; the whole-sweep plan {'takes' if whole_ok else 'does not take'} this schedule")
+    step("maps, objectives and symbolic analyses")
+
+    # every kernel at the planner's shapes against its twin, twice for the bits
+    max_abs, sys_by, lv_by, padded_by, probs = {}, {}, {}, {}, {}
+    for dn, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        for b in PLAN_BATCHES:
+            prob = Problem(planners[dtype].objective, planning_inputs(planners[dtype], maps, dtype, dev, 0, b),
+                           iters=PLAN_ITERS)
+            check(len(prob.builder.sched.level_tables) == n_levels, "planning: another schedule for the same graph")
+            pattern_b, sched_b = prob.builder.pattern, prob.builder.sched
+            system = plain_system(prob)
+            padded = padded_blocks(prob)
+            lv = level_inputs(prob, *system[1:])
+            _, ata, _, _, _, b_perm = system
+            atb = b_perm[sched_b.on(dev)[1]]
+            cond = _plan_cond(pattern_b, ata)
+            with config.plain_path():
+                lflat_p = whole_factor(sched_b, ata)
+                y_p = whole_fwd_subst(sched_b, lflat_p, atb)
+
+            def whole(fn, *args):
+                return lambda cast, plain: [_maybe_plain(plain, fn, sched_b, *[cast(a) for a in args])]
+
+            runs = {
+                "assemble_blocks": lambda cast, plain: list(
+                    (assemble_blocks_plain if plain else assemble_blocks)(
+                        pattern_b, [([cast(j) for j in jacs], cast(e)) for jacs, e in padded])),
+                **{name: (lambda cast, plain, k=k, pl=pl, idx=idx:
+                          [(pl if plain else k)(*[cast(t) for t in ops[idx]]) for ops in lv])
+                   for name, k, pl, idx in (("level_factor", level_factor, level_factor_plain, 0),
+                                            ("level_fwd_subst", level_fwd_subst, level_fwd_subst_plain, 1),
+                                            ("level_bwd_subst", level_bwd_subst, level_bwd_subst_plain, 2))},
+            }
+            if whole_ok:
+                runs.update({"whole_factor": whole(whole_factor, ata),
+                             "whole_fwd_subst": whole(whole_fwd_subst, lflat_p, atb),
+                             "whole_bwd_subst": whole(whole_bwd_subst, lflat_p, y_p)})
+            for name, run in runs.items():
+                got = _repeatable(name, lambda run=run: run(lambda t: t, False), f"{dn} plan B={b}")
+                twin = run(lambda t: t, True)
+                ref = run(lambda t: t.double(), True) if dtype == torch.float32 else None
+                e = _plan_report(name, dn, got, twin, ref, cond, f"plan d=2 B={b}")
+                max_abs.setdefault(name, {}).setdefault(dn, 0.0)
+                max_abs[name][dn] = max(max_abs[name][dn], e)
+            if dn == "float32":
+                sys_by[b], lv_by[b], padded_by[b], probs[b] = system, lv, padded, prob
+    step("kernels against twins")
+
+    # the main path: float32 forwards, the counters reset just before and read just after each
+    launches = {k: 0 for k in _cuda.launches}
+    outs, infos = {}, {}
+    expect = {k: 0 for k in _cuda.launches}
+    expect.update({"assemble_blocks": PLAN_ITERS, "level_factor": PLAN_ITERS * n_levels,
+                   "level_fwd_subst": PLAN_ITERS * n_levels, "level_bwd_subst": PLAN_ITERS * n_levels})
+    for b in PLAN_BATCHES:
+        inputs = planning_inputs(p32, maps, torch.float32, dev, 0, b)
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        outs[b], infos[b] = p32.solve(inputs["start"], inputs["goal"], inputs["sdf_origin"], inputs["sdf_data"],
+                                      inputs["cell_size"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = dict(_cuda.launches)
+        for k in launches:
+            launches[k] += got[k]
+        traj = p32.trajectory(outs[b])
+        print(f"[planning] B={b} float32 forward, {PLAN_ITERS} LM iterations (level plan): {wall:.3f} s wall, mean "
+              f"error {float(infos[b].err_history[0].mean()):.6e} -> {float(infos[b].last_err.mean()):.6e}, "
+              f"launches { {k: v for k, v in got.items() if v} }")
+        for k, v in expect.items():
+            check(got[k] == v, f"planning B={b}: {k} {got[k]} launches, expected {v}")
+        check(tuple(traj.shape) == (b, PLAN_STEPS + 1, 2) and bool(torch.isfinite(traj).all()),
+              f"planning B={b}: bad trajectory")
+    step("float32 forwards")
+
+    # float64: the plain twins on the card, the kernels, dense, whole
+    _cuda.reset_launches()
+    in64 = planning_inputs(p64, maps, torch.float64, dev)
+    _, ref = _plan(p64, in64, plain=True)
+    check(sum(_cuda.launches.values()) == 0, "planning: the plain path launched a kernel")
+    hist = ref.err_history.double().cpu()
+    print(f"[planning] B={bmax} float64 plain twins: mean error {float(hist[0].mean()):.8e} -> "
+          f"{float(hist[-1].mean()):.12e}; per element {np.array2string(hist[-1].numpy(), precision=4)}")
+    _plateau_report(f"B={bmax}", infos[bmax], ref)
+    one = type(ref)(*(None if t is None else t[..., :1] for t in ref))  # element 0 is the B=1 problem
+    _plateau_report("B=1", infos[1], one)
+    out64, info64 = _plan(p64, in64)
+    _f64_report(f"B={bmax} float64 kernels vs float64 twins", info64, ref)
+    dense = make_planner(torch.float64, linearization="dense")
+    _, dinfo = _plan(dense, planning_inputs(dense, maps, torch.float64, dev))
+    _f64_report(f"B={bmax} float64 dense vs float64 sparse twins", dinfo, ref)
+    step("float64 twins, kernels, dense")
+    whole_launches, whole_s = {}, None
+    if whole_ok:
+        config.set_whole_sweep(True)
+        try:
+            inputs = planning_inputs(p32, maps, torch.float32, dev)
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            _, winfo = _plan(p32, inputs)
+            torch.cuda.synchronize()
+            whole_s = time.perf_counter() - t0
+            whole_launches = dict(_cuda.launches)
+            _, winfo64 = _plan(p64, in64)
+        finally:
+            config.set_whole_sweep(False)
+        print(f"[planning] B={bmax} float32 forward on the whole-sweep plan: {whole_s:.3f} s wall, launches "
+              f"{ {k: v for k, v in whole_launches.items() if v} }")
+        wexpect = {k: 0 for k in whole_launches}
+        wexpect.update({"assemble_blocks": PLAN_ITERS, "whole_factor": PLAN_ITERS, "whole_fwd_subst": PLAN_ITERS,
+                        "whole_bwd_subst": PLAN_ITERS})
+        for k, v in wexpect.items():
+            check(whole_launches[k] == v, f"planning whole plan: {k} {whole_launches[k]} launches, expected {v}")
+        _plateau_report(f"B={bmax} whole plan", winfo, ref)
+        _f64_report(f"B={bmax} float64 whole-sweep kernels vs float64 twins", winfo64, ref)
+    step("whole-sweep plan")
+
+    # Dogleg on the sparse path against its own float64 twin solve
+    dl32, dl64 = make_planner(torch.float32, "Dogleg"), make_planner(torch.float64, "Dogleg")
+    _cuda.reset_launches()
+    _, dinfo32 = _plan(dl32, planning_inputs(dl32, maps, torch.float32, dev))
+    dl_launches = dict(_cuda.launches)
+    _, dref = _plan(dl64, in64, plain=True)
+    _, dinfo64 = _plan(dl64, in64)
+    print(f"[planning] Dogleg B={bmax}: float64 twins mean error {float(dref.last_err.mean()):.8e}, launches "
+          f"(float32) { {k: v for k, v in dl_launches.items() if v} }")
+    check(dl_launches["level_factor"] == PLAN_ITERS * n_levels, "Dogleg: level kernels not launched")
+    _plateau_report(f"Dogleg B={bmax}", dinfo32, dref)
+    _f64_report(f"Dogleg B={bmax} float64 kernels vs float64 twins", dinfo64, dref)
+    step("Dogleg")
+
+    # compute_samples on the float32 solution; the row-4b kernel on the same y
+    gen = torch.Generator().manual_seed(PLAN_SEED)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    samples, s_ms = once_ms(lambda: p32.layer.compute_samples(values=outs[bmax], n_samples=PLAN_SAMPLES,
+                                                             generator=gen))
+    s_launches = dict(_cuda.launches)
+    st = samples[f"pose_{PLAN_STEPS // 2}"]
+    check(tuple(st.shape) == (bmax, PLAN_SAMPLES, 2) and bool(torch.isfinite(st).all()), "compute_samples: bad samples")
+    check(s_launches["level_bwd_subst"] == 2 * n_levels and s_launches["level_factor"] == 2 * n_levels,
+          f"compute_samples: launches {s_launches}")
+    print(f"[planning] compute_samples ({PLAN_SAMPLES} samples, B={bmax}, float32): {s_ms:.3f} ms, launches "
+          f"{ {k: v for k, v in s_launches.items() if v} } (one solve for the mean, one factorization and one "
+          f"backward sweep for all samples); mid-trajectory pose sample spread {float(st.std(dim=1).mean()):.4e} m")
+    for dn, dtype, planner in (("float32", torch.float32, p32), ("float64", torch.float64, p64)):
+        vals = outs[bmax] if dtype == torch.float32 else out64
+        co = planner.objective.compile()
+        v = planner.objective.default_values(vals)
+        state, aux = co.pack(v, bmax), co.build_aux(v, bmax)
+        nb = planner.optimizer.normal_builder
+        ns = nb.build(state, aux)
+        lflat = factorize(nb.sched, ns.ata).repeat(1, PLAN_SAMPLES, 1, 1)
+        y = torch.randn((pattern.n_vars, PLAN_SAMPLES * bmax, 2), generator=gen, dtype=dtype).to(dev)
+        got = _repeatable("level_bwd_subst", lambda: [sample_with_factor(nb.sched, lflat, y)],
+                          f"{dn} samples B={bmax}x{PLAN_SAMPLES}")
+        with config.plain_path():
+            twin = [sample_with_factor(nb.sched, lflat, y)]
+            ref = [sample_with_factor(nb.sched, lflat.double(), y.double())] if dtype == torch.float32 else None
+        e = _plan_report("level_bwd_subst", dn, got, twin, ref, _plan_cond(nb.pattern, ns.ata),
+                         f"samples S={PLAN_SAMPLES}")
+        max_abs["level_bwd_subst"][dn] = max(max_abs["level_bwd_subst"][dn], e)
+    step("compute_samples")
+
+    # compute_covariances of every 10th pose: sparse (the level kernels) against dense, float64
+    names = [f"pose_{i}" for i in range(0, PLAN_STEPS + 1, PLAN_COV_EVERY)]
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    cov, c_ms = once_ms(lambda: p64.layer.compute_covariances(values=out64, var_names=names))
+    c_launches = dict(_cuda.launches)
+    dcov = dense.layer.compute_covariances(values=out64, var_names=names)
+    worst = max(float((cov[n] - dcov[n]).abs().max()) / float(dcov[n].abs().max()) for n in names)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    _, c32_ms = once_ms(lambda: p32.layer.compute_covariances(values=outs[bmax], var_names=names))
+    print(f"[planning] compute_covariances of {len(names)} poses at B={bmax}: float64 sparse {c_ms:.3f} ms "
+          f"(float32 {c32_ms:.3f} ms), launches { {k: v for k, v in c_launches.items() if v} }; sparse vs dense "
+          f"max rel dev {worst:.3e} (tol {PLATEAU_RTOL_F64:.0e})")
+    check(c_launches["level_factor"] == n_levels and c_launches["level_fwd_subst"] == len(names) * n_levels
+          and c_launches["level_bwd_subst"] == len(names) * n_levels, f"compute_covariances: launches {c_launches}")
+    check(worst <= PLATEAU_RTOL_F64, f"compute_covariances: sparse off dense by {worst:.3e}")
+    step("compute_covariances")
+
+    # one outer step of the learned initialization
+    t0 = time.perf_counter()
+    l32, g32, fwd_l, bwd_l = _learn_grad(torch.float32, dev, maps)
+    learn_s = time.perf_counter() - t0
+    l64p, g64p, _, _ = _learn_grad(torch.float64, dev, maps, plain=True)
+    l64, g64, _, _ = _learn_grad(torch.float64, dev, maps)
+    rel32 = float((g32 - g64p).norm() / g64p.norm())
+    cos32 = float((g32 * g64p).sum() / (g32.norm() * g64p.norm()))
+    rel64 = float((g64 - g64p).norm() / g64p.norm())
+    print(f"[planning] learned initialization, B={PLAN_LEARN_BATCH}, {PLAN_LEARN_ITERS} unrolled LM iterations: "
+          f"float32 step {learn_s:.3f} s, loss {l32:.6e} (float64 twins {l64p:.6e}); forward launches "
+          f"{ {k: v for k, v in fwd_l.items() if v} }, backward() launches { {k: v for k, v in bwd_l.items() if v} }; "
+          f"float32 gradient vs float64 twins: norm-rel {rel32:.3e} (tol {PLAN_GRAD_RTOL_F32}), cosine {cos32:.6f} "
+          f"(min {PLAN_GRAD_COS_F32}); float64 kernels vs twins {rel64:.3e} (tol {GRAD_RTOL_F64:.0e})")
+    check(bool(torch.isfinite(g32).all()) and float(g32.norm()) > 0, "learned step: bad float32 gradient")
+    check(fwd_l["level_factor"] == PLAN_LEARN_ITERS * n_levels and fwd_l["assemble_blocks"] == PLAN_LEARN_ITERS,
+          f"learned step: forward launches {fwd_l}")
+    check(rel32 <= PLAN_GRAD_RTOL_F32 and cos32 >= PLAN_GRAD_COS_F32, "learned step: float32 gradient off")
+    check(rel64 <= GRAD_RTOL_F64, f"learned step: float64 kernels off the twins by {rel64:.3e}")
+    step("learned initialization")
+
+    # ms per planning call and plans/s, fresh maps per call, a sync at the end of each
+    serving = {}
+    for b in PLAN_BATCHES:
+        fresh = [synthetic_maps(b, PLAN_MAP, PLAN_CELL, seed=PLAN_SEED + 1 + r) for r in range(PLAN_REQUESTS + 1)]
+        ms = []
+        for r, m in enumerate(fresh):
+            inputs = planning_inputs(p32, m, torch.float32, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, info = p32.solve(inputs["start"], inputs["goal"], inputs["sdf_origin"], inputs["sdf_data"],
+                                inputs["cell_size"])
+            float(info.last_err.sum())  # the answer on the host
+            if r:  # the first call warms the per-shape tables
+                ms.append((time.perf_counter() - t0) * 1e3)
+        serving[b] = {"ms_per_call": ms, "plans_per_s": b * 1e3 / (sum(ms) / len(ms))}
+        print(f"[planning] serving B={b}: ms per call {', '.join(f'{x:.3f}' for x in ms)} "
+              f"({serving[b]['plans_per_s']:.2f} plans/s) on {card}")
+    step("serving")
+
+    # one LM iteration: marginal ms and the device's idle share, each batch
+    iter_ms, idle = {}, {}
+    for b in PLAN_BATCHES:
+        iter_ms[b] = lm_iter_ms(probs[b], n_small=2, extra=10, reps=2)
+        pwall, busy, kernels, by_name = _profile_window(probs[b], 2)
+        idle[b] = 1.0 - busy / pwall
+        print(f"[planning] B={b} float32 LM iteration {iter_ms[b]:.4f} ms (marginal window); profiler, 2 "
+              f"iterations: wall {pwall:.2f} ms, device busy {busy:.2f} ms (idle {100 * idle[b]:.1f} %), "
+              f"{kernels / 2:.0f} device kernels an iteration, on {card}")
+        for name, (t, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]:
+            print(f"[planning]   {t / 2:8.3f} ms an iteration  {k // 2:5d}x  {name[:90]}")
+    prob = probs[bmax]
+    with torch.no_grad():
+        state, aux, opts = prob.state, prob.aux, prob.opt.opts
+        blocks = prob.co.linearize_blocks(state, aux)
+        ns = prob.builder.build(state, aux)
+        delta, _ = ns.solve(1e-3, False)
+        stages = {
+            "linearize": lambda: prob.co.linearize_blocks(state, aux),
+            "assemble": lambda: assemble(pattern, blocks),
+            "solve": lambda: ns.solve(1e-3, False),
+            "retract": lambda: prob.co.retract(state, delta),
+            "error": lambda: prob.co.error_metric(state, aux),
+        }
+        print(f"[planning] B={bmax} stages (ms, each synced, mean of 3): "
+              + ", ".join(f"{k} {_synced_ms(f, reps=3):.3f}" for k, f in stages.items()) + f" on {card}")
+    step("LM iteration and profile")
+
+    # rows 2-4b (and 6-8) at d = 2, float32, at each batch
+    times, bounds, library = {}, {}, {}
+    for b in PLAN_BATCHES:
+        _, ata, lflat, y, x, b_perm = sys_by[b]
+        lv, padded = lv_by[b], padded_by[b]
+        sched, pattern = probs[b].builder.sched, probs[b].builder.pattern
+        fns = {
+            "assemble_blocks": (lambda: assemble_blocks(pattern, padded), lambda: assemble_blocks_plain(pattern, padded)),
+            "level_factor": (lambda: [level_factor(*f) for f, _, _ in lv], lambda: [level_factor_plain(*f) for f, _, _ in lv]),
+            "level_fwd_subst": (lambda: [level_fwd_subst(*fw) for _, fw, _ in lv],
+                                lambda: [level_fwd_subst_plain(*fw) for _, fw, _ in lv]),
+            "level_bwd_subst": (lambda: [level_bwd_subst(*bw) for _, _, bw in lv],
+                                lambda: [level_bwd_subst_plain(*bw) for _, _, bw in lv]),
+        }
+        atb = b_perm[sched.on(dev)[1]]
+        bounds[b] = {
+            "assemble_blocks": assembly_bound(pattern, padded),
+            "level_factor": _bound(sum(_nbytes(*f) + _nbytes(f[0]) for f, _, _ in lv), factor_flops(sched, b, 2)),
+            "level_fwd_subst": _bound(sum(_nbytes(*fw) + _nbytes(fw[2]) for _, fw, _ in lv),
+                                      subst_flops(sched, b, 2, True)),
+            "level_bwd_subst": _bound(sum(_nbytes(*bw) + _nbytes(bw[2]) for _, _, bw in lv),
+                                      subst_flops(sched, b, 2, False)),
+        }
+        if whole_ok:
+            fns.update({
+                "whole_factor": (lambda: whole_factor(sched, ata), None),
+                "whole_fwd_subst": (lambda: whole_fwd_subst(sched, lflat, atb), None),
+                "whole_bwd_subst": (lambda: whole_bwd_subst(sched, lflat, y), None),
+            })
+            bounds[b].update({
+                "whole_factor": _bound(_nbytes(ata, lflat), factor_flops(sched, b, 2)),
+                "whole_fwd_subst": _bound(_nbytes(lflat, atb, y), subst_flops(sched, b, 2, True)),
+                "whole_bwd_subst": _bound(_nbytes(lflat, y, x), subst_flops(sched, b, 2, False)),
+            })
+        times[b] = {}
+        for k, (kern, plain) in fns.items():
+            if plain is None:  # the whole kernels' twin is the per-column plan
+                def plain(kern=kern):
+                    with config.plain_path():
+                        return kern()
+            times[b][k] = (cuda_ms(kern, reps=5), cuda_ms(plain, reps=3, warmup=1), device_ms(kern, reps=5, warmup=1))
+        h = dense_h(pattern, ata)
+        l_dense = torch.linalg.cholesky_ex(h)[0]
+        rhs = probs[b].builder.flatten(atb)[..., None]
+        chol = cuda_ms(lambda: torch.linalg.cholesky_ex(h), reps=5)
+        lower = cuda_ms(lambda: torch.linalg.solve_triangular(l_dense, rhs, upper=False), reps=5)
+        upper = cuda_ms(lambda: torch.linalg.solve_triangular(l_dense.transpose(-1, -2), rhs, upper=True), reps=5)
+        library[b] = {"level_factor": chol, "whole_factor": chol, "level_fwd_subst": lower, "whole_fwd_subst": lower,
+                      "level_bwd_subst": upper, "whole_bwd_subst": upper}
+        for k, (ms, plain_ms, dev_ms) in times[b].items():
+            bms, by = bounds[b][k]
+            lib = library[b].get(k)
+            what = "one call" if k == "assemble_blocks" or k.startswith("whole") else f"one sweep, {n_levels} launches"
+            print(f"[planning] {k:<16} d=2 B={b} float32 ({what}): kernel {ms:.4f} ms back to back, {dev_ms:.4f} ms "
+                  f"device, plain twin {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), library "
+                  f"{'none' if lib is None else f'{lib:.4f} ms'} on {card}")
+    step("timing")
+    print(f"[planning] seconds: {json.dumps(steps)}")
+    stats = {"max_abs": max_abs, "times": times, "bounds": bounds, "library": library, "lm_iter_ms": iter_ms,
+             "idle": idle, "levels": n_levels, "serving": serving, "whole_launches": whole_launches,
+             "samples_ms": s_ms, "covariances_ms": c_ms}
+    return launches, stats
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timing
 # ---------------------------------------------------------------------------
 def lm_iter_ms(prob, n_small=5, extra=20, reps=3):
@@ -2570,6 +3133,9 @@ def main() -> int:
     ik = timed("ik", phase_ik, dev, card)
     launches["dense_pgo"], dense_ms = timed("dense_pgo", phase_dense_pgo, dev)
     launches["pgo2d"], pgo2d = timed("pgo2d", phase_pgo2d, dev, card)
+    launches["planning"], plan = timed("planning", phase_planning, dev, card)
+    if plan["whole_launches"]:
+        launches["planning_whole"] = plan["whole_launches"]
     iters, times, dev_times, train_ms, bounds, library = timed("timing", phase_timing, dev, card, twin_ms)
     timed("profile", phase_profile, dev, card)
     check("jax" not in sys.modules and "theseus_tpu" not in sys.modules, "jax was imported")
@@ -2600,6 +3166,13 @@ def main() -> int:
             entry["bound_ms_pgo2d"], entry["bound_by_pgo2d"] = pgo2d["bounds"][name]
             entry["library_ms_pgo2d"] = pgo2d["library"].get(name)
             entry["max_abs_err_pgo2d"] = pgo2d["max_abs"][name]["float32"]
+        for b, tb in plan["times"].items():  # the planner's d = 2 shapes at each batch; a level kernel: one sweep
+            if name in tb:
+                entry[f"ms_plan{b}"], entry[f"plain_ms_plan{b}"], entry[f"device_ms_plan{b}"] = tb[name]
+                entry[f"bound_ms_plan{b}"], entry[f"bound_by_plan{b}"] = plan["bounds"][b][name]
+                entry[f"library_ms_plan{b}"] = plan["library"][b].get(name)
+        if name in plan["max_abs"]:
+            entry["max_abs_err_plan"] = plan["max_abs"][name]["float32"]
         if name in ("level_factor", "level_bwd_subst", "whole_factor", "whole_fwd_subst",
                     "whole_bwd_subst"):  # the deep and narrow shape
             entry["ms_2048x8"], entry["plain_ms_2048x8"] = times[f"{name} 2048x8"]
@@ -2608,7 +3181,10 @@ def main() -> int:
         kernels.append(entry)
     print(json.dumps({"lm_iter_ms": iters, "train_step_ms": train_ms, "ba_train_step_ms": ba_train_ms,
                       "dlm_step_ms": dlm_ms, "ik_serving": ik, "dense_lm_iter_ms_64x16": dense_ms,
-                      "pgo2d_lm_iter_ms": pgo2d["lm_iter_ms"], "pgo2d_idle": pgo2d["idle"]}))
+                      "pgo2d_lm_iter_ms": pgo2d["lm_iter_ms"], "pgo2d_idle": pgo2d["idle"],
+                      "planning_lm_iter_ms": plan["lm_iter_ms"], "planning_idle": plan["idle"],
+                      "planning_serving": plan["serving"], "planning_samples_ms": plan["samples_ms"],
+                      "planning_covariances_ms": plan["covariances_ms"]}))
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; seconds a phase: {json.dumps(phase_s)}")
     print(json.dumps({"kernels": kernels}))
     print(card)

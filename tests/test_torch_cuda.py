@@ -1196,3 +1196,125 @@ def test_se2_sparse_solve_runs_the_kernels(cuda_device, tmp_path):
     rel = lambda a: float(((a.double() - ref.last_err).abs() / ref.last_err).max())  # noqa: E731
     assert rel(results[torch.float32]) <= 2e-3
     assert rel(results[torch.float64]) <= 1e-8
+
+
+# ---------------------------------------------------------------------------
+# GPMP2 motion planning: Point2 / Vector(2) variables, block size 2
+# ---------------------------------------------------------------------------
+def _planner_inputs(planner, b, dtype, device, map_size=128, cell=0.1, seed=0):
+    from theseus_tpu_torch.utils.examples.motion_planning import synthetic_maps
+
+    sdf, start, goal = synthetic_maps(b, map_size, cell, seed=seed)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
+    inputs = dict(planner.straight_line_initialization(t(start), t(goal)))
+    inputs.update(start=t(start), goal=t(goal), sdf_origin=torch.zeros((b, 2), dtype=dtype, device=device),
+                  sdf_data=t(sdf), cell_size=torch.full((b, 1), cell, dtype=dtype, device=device))
+    return inputs
+
+
+def _planner(dtype, device, steps=100, iters=50, **kw):
+    from theseus_tpu_torch.utils.examples.motion_planning import MotionPlanner
+
+    if kw.get("optimizer_cls") is None:
+        kw["adaptive_damping"] = True
+    return MotionPlanner(128, 0.8, 10.0, 20.0, np.eye(2), steps, max_iterations=iters, dtype=dtype, device=device,
+                         linearization="sparse", **kw)
+
+
+def _as_accurate_as_twin(kernel, twin, inputs, dtype):
+    """float64: within the file's tolerance of the twin. float32: the
+    planner's block matrix is ill-conditioned (cond ~1e7) and the factor's
+    2x2 pivots cancel, so two correct float32 implementations that round in
+    another order differ by more than that (2.9e-5 of the largest entry on
+    an H100); the kernel's error against the twin evaluated in float64 on
+    the same inputs is held to at most twice the float32 twin's, plus
+    2e-5, relative to max(1, |twin|)."""
+    got, want = kernel(*inputs), twin(*inputs)
+    got, want = (got,) if isinstance(got, torch.Tensor) else got, (want,) if isinstance(want, torch.Tensor) else want
+    scale = max([1.0] + [float(w.abs().max()) for w in want])
+    if dtype == torch.float64:
+        for g, w in zip(got, want):
+            _close(g, w, dtype, scale)
+        return
+    ref = twin(*[t.double() for t in inputs])
+    ref = (ref,) if isinstance(ref, torch.Tensor) else ref
+    ek = max(float((g.double() - r).abs().max()) for g, r in zip(got, ref))
+    et = max(float((w.double() - r).abs().max()) for w, r in zip(want, ref))
+    assert ek <= 2 * et + 2e-5 * scale, (ek, et, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("batch", [1, 8])
+def test_planner_kernels_match_twins_at_block_size_2(cuda_device, dtype, batch):
+    """The assembly and every level's three kernels against their twins at
+    the shapes the planner at its full size (128 x 128, 100 steps) gives
+    them (d = 2), and sample_with_factor's backward sweep on the same y
+    (_as_accurate_as_twin)."""
+    from theseus_tpu_torch.sparse.assemble import _pad_jac
+    from theseus_tpu_torch.sparse.cholesky import (
+        backward_sweep, bwd_operands, factor_operands, forward_sweep, fwd_operands, sample_with_factor)
+
+    planner = _planner(dtype, cuda_device)
+    co = planner.objective.compile()
+    values = planner.objective.default_values(_planner_inputs(planner, batch, dtype, cuda_device))
+    state, aux = co.pack(values, batch), co.build_aux(values, batch)
+    bld = planner.optimizer.normal_builder
+    assert bld.pattern.d == 2 and bld.sched.tail_k == 0
+    with config.plain_path():
+        blocks = co.linearize_blocks(state, aux)
+        ata, atb = assemble(bld.pattern, blocks)
+        ata = ata.clone()
+        ata[1:bld.pattern.n_vars + 1] += 1e-3 * torch.eye(2, dtype=dtype, device=cuda_device)
+        lflat = factorize(bld.sched, ata)
+        perm, _, levels = bld.sched.on(ata.device)
+        y = forward_sweep(bld.sched, lflat, atb[perm])
+        x = backward_sweep(bld.sched, lflat, y)
+    ys = torch.randn((bld.pattern.n_vars, batch, 2), dtype=dtype, device=cuda_device)
+
+    def plain(fn):
+        def run(*args):
+            with config.plain_path():
+                return fn(*args)
+        return run
+
+    padded = [([_pad_jac(j, 2) for j in jacs], err) for jacs, err in blocks]
+    _cuda.reset_launches()
+    for g, want in zip(assemble_blocks(bld.pattern, padded), assemble_blocks_plain(bld.pattern, padded)):
+        _close(g, want, dtype, float(want.abs().max()))
+    for t in levels:
+        for k, pl, ops in ((level_factor, level_factor_plain, factor_operands(t, ata, lflat)),
+                           (level_fwd_subst, level_fwd_subst_plain, fwd_operands(t, lflat, y, atb[perm])),
+                           (level_bwd_subst, level_bwd_subst_plain, bwd_operands(t, lflat, x, y))):
+            _as_accurate_as_twin(k, pl, ops, dtype)
+    assert _cuda.launches["assemble_blocks"] == 1
+    assert _cuda.launches["level_factor"] == _cuda.launches["level_bwd_subst"] == len(levels)
+    _as_accurate_as_twin(lambda l_, y_: sample_with_factor(bld.sched, l_, y_),
+                         plain(lambda l_, y_: sample_with_factor(bld.sched, l_, y_)), (lflat, ys), dtype)
+    assert _cuda.launches["level_bwd_subst"] == 2 * len(levels)
+
+
+@pytest.mark.parametrize("optimizer", ["LevenbergMarquardt", "Dogleg"])
+def test_small_planner_on_card_matches_cpu(cuda_device, optimizer):
+    """A 128 x 128, 20-step planner at batch 2 in float64 on the sparse
+    plan: the card (kernels) against the CPU (twins), 1e-8 on the final
+    errors and trajectories; compute_samples and compute_covariances run
+    on the card."""
+    import theseus_tpu_torch as tt
+
+    kw = {} if optimizer == "LevenbergMarquardt" else {"optimizer_cls": tt.Dogleg}
+    results = {}
+    for device in (cuda_device, torch.device("cpu")):
+        planner = _planner(torch.float64, device, steps=20, iters=30, **kw)
+        _cuda.reset_launches()
+        values, info = planner.layer.forward(_planner_inputs(planner, 2, torch.float64, device))
+        torch.cuda.synchronize()
+        if device.type == "cuda":
+            n_levels = len(planner.optimizer.normal_builder.sched.level_tables)
+            assert _cuda.launches["assemble_blocks"] == 30 and _cuda.launches["level_factor"] == 30 * n_levels
+            covs = planner.layer.compute_covariances(values=values, var_names=["pose_10"])
+            samples = planner.layer.compute_samples(values=values, n_samples=4, generator=torch.Generator().manual_seed(0))
+            assert covs["pose_10"].device.type == "cuda" and bool(torch.isfinite(covs["pose_10"]).all())
+            assert tuple(samples["pose_10"].shape) == (2, 4, 2) and bool(torch.isfinite(samples["pose_10"]).all())
+        results[device.type] = (info.last_err.cpu(), planner.trajectory(values).cpu())
+    torch.testing.assert_close(results["cuda"][0], results["cpu"][0], rtol=1e-8, atol=0.0)
+    torch.testing.assert_close(results["cuda"][1], results["cpu"][1], rtol=1e-8, atol=1e-8)

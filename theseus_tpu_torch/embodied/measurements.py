@@ -1,9 +1,12 @@
-"""Measurement cost functions: Between and Reprojection (JAX counterpart: theseus_tpu/embodied/measurements.py).
+"""Measurement cost functions: Between, MovingFrameBetween and Reprojection (JAX counterpart: theseus_tpu/embodied/measurements.py).
 
 Between: residual = log(measurement^{-1} (v1^{-1} v2)), the PGO workhorse,
 with analytic jacobians J2 = jlog(m^{-1} d), J1 = -J2 Adj(d^{-1}),
 d = v1^{-1} v2. For SE3 the whole bucket goes through the fused
 linearization (ops/between_se3.py).
+
+MovingFrameBetween: a Between of two poses each seen from its own moving
+frame (tactile estimation), jacobians chained through jlog.
 
 Reprojection: the bundle-adjustment residual (pinhole camera with 2-term
 radial distortion, BAL convention). Its whole bucket goes through the fused
@@ -81,6 +84,39 @@ class Between(CostFunction):
         if self.group.name != "SE3":
             return self.error_impl(xs, aux)
         return self.fused_linearize(xs, aux)[1]
+
+
+class MovingFrameBetween(CostFunction):
+    """residual = log(m^{-1} B) with B = (f1^{-1} p1)^{-1} (f2^{-1} p2); the
+    jacobians chain through jlog (the JAX package's choice)."""
+
+    has_analytic_jacobians = True
+
+    def __init__(self, frame1, frame2, pose1, pose2, measurement, cost_weight=None, name=None):
+        if len({v.group.name for v in (frame1, frame2, pose1, pose2)}) > 1:
+            raise ValueError("Inconsistent variable types.")
+        super().__init__([frame1, frame2, pose1, pose2], [as_variable(measurement)], cost_weight, name)
+        self.group = frame1.group
+
+    def dim(self):
+        return self.group.dof
+
+    def error_impl(self, optim, aux):
+        f1, f2, p1, p2 = optim
+        (meas,) = aux
+        g = self.group
+        return g.local(meas, g.between(g.between(f1, p1), g.between(f2, p2)))
+
+    def jacobians_impl(self, optim, aux):
+        f1, f2, p1, p2 = optim
+        (meas,) = aux
+        g = self.group
+        (jb1_f1, jb1_p1), b1 = g.jbetween(f1, p1)
+        (jb2_f2, jb2_p2), b2 = g.jbetween(f2, p2)
+        (jo_b1, jo_b2), diff = g.jbetween(b1, b2)
+        (jl,), res = g.jlog(g.compose(g.inverse(meas), diff))
+        j1, j2 = jl @ jo_b1, jl @ jo_b2
+        return [j1 @ jb1_f1, j2 @ jb2_f2, j1 @ jb1_p1, j2 @ jb2_p2], res
 
 
 class Reprojection(CostFunction):

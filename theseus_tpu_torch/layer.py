@@ -21,6 +21,12 @@ weights) by the backward mode the caller picks:
 
 Each solve goes through `sparse_block_solve` or the Schur solve, whose
 backward reuses the forward's factor.
+
+Beyond the solve: `compute_samples` (posterior samples around a solution,
+the sparse path's backward sweep only), `compute_covariances` (exact
+marginal covariances: unit-column solves with the block factor, or one
+dense inverse) and `verify_jacobians` (every analytic cost against
+autodiff).
 """
 
 from __future__ import annotations
@@ -63,7 +69,6 @@ class TheseusLayer:
             raise ValueError(f"backward_mode must be one of {BACKWARD_MODES}")
         bwd_iters = int(optimizer_kwargs.pop("backward_num_iterations", 5))
         keep_step = bool(optimizer_kwargs.pop("__keep_final_step_size__", False))
-        optimizer_kwargs.pop("verbose", None)
         ignore_mask = optimizer_kwargs.pop("batch_ignore_mask", None)
         opts = (
             dataclasses.replace(self.optimizer.opts, **optimizer_kwargs)
@@ -90,6 +95,12 @@ class TheseusLayer:
         state carries autograd history back to `state` and `aux` as `mode`
         defines."""
         opt = self.optimizer
+        supported = getattr(opt, "supported_modes", BACKWARD_MODES)
+        if mode not in supported:
+            raise ValueError(
+                f"{type(opt).__name__} supports backward modes {supported}, "
+                f"got '{mode}' (gradient-based modes need a linearization)"
+            )
         mask = batch_ignore_mask
         if mode == "unroll":
             carry = opt.init_carry(state, aux, opts, mask)
@@ -136,6 +147,130 @@ class TheseusLayer:
         out["state"] = new_state
         out["err"] = co.error_metric(new_state, aux)
         return out
+
+
+    # ------------------------------------------------------------------
+    def _packed(self, values, input_tensors):
+        co = self.objective.compile()
+        values = values or self.objective.default_values(input_tensors)
+        bsz = co.resolve_batch_size(values)
+        return co, bsz, co.pack(values, bsz), co.build_aux(values, bsz)
+
+    def _dense_normal(self, co, ns, state, aux):
+        """ns itself if it holds a dense AtA, else the dense system (the
+        Schur path's samples and covariances)."""
+        if hasattr(ns, "AtA"):
+            return ns
+        from .optim.linear import DenseCholeskySolver
+        from .optim.normal import DenseNormalBuilder
+
+        return DenseNormalBuilder(co, self.optimizer.linear_solver or DenseCholeskySolver()).build(state, aux)
+
+    def compute_samples(self, values=None, input_tensors=None, n_samples: int = 10,
+                        temperature: float = 1.0, generator: Optional[torch.Generator] = None):
+        """Posterior samples around the current solution (no gradient):
+        x ~ N(x + delta, temperature (AtA)^{-1}), drawn as
+        delta + sqrt(T) L^{-T} y with AtA = L L^T and y standard normal from
+        `generator` (drawn on its device, moved to the problem's). The
+        sparse path factors the block AtA with the level kernels and runs
+        the backward sweep only (`sample_with_factor`), all samples folded
+        into the batch: one sweep of launches; the dense and Schur paths
+        take the dense AtA's `cholesky_ex` and one triangular solve.
+        Returns {name: (B, n_samples, *shape)}."""
+        from .lie.utils import draw
+        from .optim.normal import SparseNormal
+        from .sparse.cholesky import factorize, sample_with_factor
+
+        co, bsz, state, aux = self._packed(values, input_tensors)
+        sqrt_t = float(temperature) ** 0.5
+        dev = co.device
+        with torch.no_grad():
+            ns = self.optimizer.normal_builder.build(state, aux)
+            if isinstance(ns, SparseNormal):
+                bld = ns.builder
+                delta, _ = ns.solve(0.0, False)  # (B, D)
+                lflat = factorize(bld.sched, ns.ata)
+                n_blk, d = bld.pattern.n_vars, bld.pattern.d
+                ys = draw(True, (n_samples, n_blk, bsz, d), generator, delta.dtype, dev)
+                # samples folded into the batch, sample-major: s * B + b
+                y = ys.movedim(0, 1).reshape(n_blk, n_samples * bsz, d)
+                x = sample_with_factor(bld.sched, lflat.repeat(1, n_samples, 1, 1), y)
+                pert = bld.flatten(x).reshape(n_samples, bsz, -1).permute(1, 2, 0)  # (B, D, S)
+            else:
+                ns = self._dense_normal(co, ns, state, aux)
+                delta, _ = ns.solve(0.0, False)
+                chol, info = torch.linalg.cholesky_ex(ns.AtA)
+                chol = torch.where((info != 0)[:, None, None], torch.nan, chol)
+                y = draw(True, (bsz, co.total_dof, n_samples), generator, delta.dtype, dev)
+                # L^T x = y: x ~ N(0, (L L^T)^{-1})
+                pert = torch.linalg.solve_triangular(chol.mT, y, upper=True)
+            deltas = delta[..., None] + sqrt_t * pert  # (B, D, S)
+            # every sample retracted at once: batch b * S + s
+            rep = {tk: t.repeat_interleave(n_samples, dim=1) for tk, t in state.items()}
+            flat = deltas.permute(0, 2, 1).reshape(bsz * n_samples, -1)
+            sampled = co.retract(rep, flat)
+            sampled = {tk: t.reshape((t.shape[0], bsz, n_samples) + tuple(t.shape[2:])) for tk, t in sampled.items()}
+        return co.unpack(sampled)
+
+    def compute_covariances(self, values=None, input_tensors=None, var_names=None, damping: float = 0.0):
+        """Exact marginal covariances of the Gauss-Newton posterior at
+        `values`: cov_i = (H^{-1})_{ii}, H = J^T W J + damping I (no
+        gradient). The sparse path factors the damped block H once and
+        solves H x = e for the dof unit columns of each requested variable
+        (folded into the batch: one factor-reusing solve, both level sweeps,
+        per variable); the dense and Schur paths invert H once. Returns
+        {name: (B, dof, dof)}."""
+        if getattr(self.optimizer, "method", None) == "gbp":
+            raise NotImplementedError("compute_covariances: Gaussian belief propagation is not ported")
+        from .optim.normal import SparseNormal
+        from .sparse.assemble import apply_block_damping
+        from .sparse.cholesky import factorize, solve_with_factor
+
+        co, bsz, state, aux = self._packed(values, input_tensors)
+        names = list(var_names) if var_names else list(co.var_names)
+        var_index = {n: i for i, n in enumerate(co.var_names)}
+        out = {}
+        with torch.no_grad():
+            ns = self.optimizer.normal_builder.build(state, aux)
+            if isinstance(ns, SparseNormal):
+                bld = ns.builder
+                ata = apply_block_damping(bld.pattern, ns.ata, damping, False, bld.damping_eps)
+                lflat = factorize(bld.sched, ata)
+                n_blk, d = bld.pattern.n_vars, bld.pattern.d
+                for name in names:
+                    i, dv = var_index[name], co.var_groups[name].dof
+                    # unit column c of variable i in batch slot c * B + b
+                    rhs = torch.zeros((n_blk, dv, bsz, d), dtype=ata.dtype, device=ata.device)
+                    rhs[i, torch.arange(dv), :, torch.arange(dv)] = 1.0
+                    x = solve_with_factor(bld.sched, lflat.repeat(1, dv, 1, 1), rhs.reshape(n_blk, dv * bsz, d))
+                    cov = x[i].reshape(dv, bsz, d)[..., :dv].movedim(0, 1)  # (B, column, row)
+                    out[name] = 0.5 * (cov + cov.mT)
+                return out
+            h = self._dense_normal(co, ns, state, aux).AtA
+            if damping:
+                h = h + damping * torch.eye(h.shape[-1], dtype=h.dtype, device=h.device)
+            cov_full, _ = torch.linalg.inv_ex(h)
+            for name in names:
+                o, dv = co.col_offset[name], co.var_groups[name].dof
+                out[name] = cov_full[:, o:o + dv, o:o + dv]
+        return out
+
+    def verify_jacobians(self, num_checks: int = 1, tol: float = 1e-3) -> bool:
+        """Check the analytic jacobians of every cost function (cost
+        families excepted) against autodiff; prints each failure."""
+        from .core.cost_function import CostFunction
+        from .utils.checks import check_jacobians
+
+        ok = True
+        for cf in self.objective.cost_functions.values():
+            if not isinstance(cf, CostFunction):
+                continue
+            try:
+                check_jacobians(cf, num_checks=num_checks, tol=tol, device=self.objective.device)
+            except RuntimeError as e:
+                print(f"Jacobian check failed for {cf.name}: {e}")
+                ok = False
+        return ok
 
 
 def _rebuild_aux(layout, leaves):

@@ -1,8 +1,10 @@
-"""Optimizers and the normal-equation system (JAX counterpart: theseus_tpu/optim/__init__.py)."""
+"""Optimizers, the elimination ordering and the normal-equation system (JAX counterpart: theseus_tpu/optim/__init__.py)."""
 
 from .nonlinear import (
+    Dogleg,
     GaussNewton,
     LevenbergMarquardt,
+    LinearOptimizer,
     NLSOptions,
     NonlinearLeastSquares,
     NonlinearOptimizerStatus,
@@ -17,11 +19,14 @@ from .normal import (
     SparseNormal,
     SparseNormalBuilder,
 )
+from .ordering import VariableOrdering
 from .schur import SchurNormal, SchurNormalBuilder, eliminate_points
 
 __all__ = [
+    "Dogleg",
     "GaussNewton",
     "LevenbergMarquardt",
+    "LinearOptimizer",
     "NLSOptions",
     "NonlinearLeastSquares",
     "NonlinearOptimizerStatus",
@@ -37,4 +42,5 @@ __all__ = [
     "SchurNormal",
     "SchurNormalBuilder",
     "eliminate_points",
+    "VariableOrdering",
 ]

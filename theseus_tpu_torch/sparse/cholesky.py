@@ -505,6 +505,16 @@ def solve_with_factor(sched: NumericSchedule, lflat: torch.Tensor, atb: torch.Te
     return solve_levels(sched, lflat, atb)
 
 
+def sample_with_factor(sched: NumericSchedule, lflat: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """y (n, B, d) iid N(0, 1) in elimination order -> x = P^T L^{-T} y,
+    original variable order, whose covariance is H^{-1} (H = P^T L L^T P).
+    The backward sweep only: the dense tail's transposed solve, then one
+    `level_bwd_subst` launch per head level, whichever plan factored L (both
+    give the same layout)."""
+    _, iperm, _ = sched.on(y.device)
+    return backward_sweep(sched, lflat, y)[iperm]
+
+
 def _refine_with_factor(sched, lflat, ata_flat, b, x0):
     """config.REFINE_STEPS mixed-precision refinement sweeps reusing the
     factor (a no-op unless the high-precision tier is active)."""

@@ -1,4 +1,4 @@
-"""Carry a JAX-package PGO or BA problem into the port (JAX counterpart: scripts/dump_problem_npz.py, the writer of the PGO arrays).
+"""Carry a JAX-package PGO or BA problem, or an MLP's parameters, into the port (JAX counterpart: scripts/dump_problem_npz.py, the writer of the PGO arrays).
 
 The port's analog of converting weights: the JAX package's problem arrives
 as numpy arrays and comes out as the port's problem, so both packages solve
@@ -11,6 +11,10 @@ the identical problem.
   `points` (P,B,3), `focals`, `k1`, `k2` (C,B,1), `obs_cam`, `obs_pt` (O,),
   `obs_img` (O,B,2), optionally `gt_poses`, `gt_points`; out comes the
   port's BAProblem (build its objective with `build_ba_objective`).
+- An MLP of the JAX package's `utils/checks.py` `build_mlp`: its params, a
+  list of {"w": (n_in, n_out), "b": (n_out,)} arrays, become the port's
+  `utils.checks.MLP` with the same layout (the motion-planning models take
+  it as `mlp=`).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 from ..config import resolve_device
 from ..core import Objective
+from .checks import MLP
 from .examples.bundle_adjustment import BAProblem
 from .examples.pose_graph import build_pgo_objective, pose_values
 
@@ -71,3 +76,14 @@ def load_ba_npz(path, dtype: torch.dtype = torch.float32, device=None) -> BAProb
     with np.load(path) as f:
         arrays = {k: f[k] for k in BA_KEYS + ("gt_poses", "gt_points") if k in f}
     return ba_problem_from_arrays(arrays, dtype=dtype, device=device)
+
+
+def mlp_from_params(params, dtype: torch.dtype = torch.float32, device=None, activation=torch.relu) -> MLP:
+    """The JAX package's build_mlp params (a list of {"w", "b"} arrays) as
+    the port's MLP module."""
+    device = resolve_device(device)
+
+    def t(a):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    return MLP([t(p["w"]) for p in params], [t(p["b"]) for p in params], activation)
