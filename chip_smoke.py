@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""On-card check of theseus_tpu_torch: the batched SE3 pose-graph, bundle-adjustment, inverse-kinematics, 2-D SE2 pose-graph and motion-planning LM solves on one NVIDIA GPU.
+"""On-card check of theseus_tpu_torch: the batched SE3 pose-graph, bundle-adjustment, inverse-kinematics, 2-D SE2 pose-graph, motion-planning and tactile LM solves, block-Jacobi PCG, DCEM and Gaussian belief propagation on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with one CUDA GPU and the CUDA
 toolkit (nvcc):
@@ -31,7 +31,15 @@ size 3, plus mini_2d.g2o and an SO3 rotation averaging on the dense
 linearization. The planning path: GPMP2 motion planning (MotionPlanner,
 utils/examples/motion_planning.py) at the reference's size, 128 x 128 maps
 and 100 time steps (202 variables at block size 2), at batch 1 and 64 on
-the sparse level plan. In order:
+the sparse level plan. The tactile path: tactile pose estimation (the
+Theseus paper's Fig. 4 workload, utils/examples/tactile_pose_estimation.py)
+at 100 steps with moving-frame windows 10..40 step 5 (200 SE2 variables at
+block size 3, 758 costs) at batch 64, its measurement and weight models
+trained through the sparse level plan in every backward mode. Three solver
+paths: PGO 256 x 128 on sparse_solver="pcg" (block-Jacobi PCG, the Between
+and assembly kernels), DCEM on the 7-dof IK at batch 256 (no kernel of the
+table), and Gaussian belief propagation on PGO 256 x 128 (the Between
+kernel). In order:
 
 1. fails fast without a CUDA device or outside a checkout;
 2. builds the CUDA kernels from theseus_tpu_torch/csrc (nvcc, sm_90a, one
@@ -112,6 +120,27 @@ the sparse level plan. In order:
    (1e-8), one learned-initialization step (its float32 gradient against
    the float64 twins'), ms per planning call and plans/s on fresh maps,
    the LM iteration's ms and idle share, rows 2-4b and 6-8 at d = 2;
+   tactile: the schedule (levels, tail, nnz_L), the assembly and level
+   kernels against their twins at its d = 3, batch-64 shapes, one float32
+   implicit forward and its backward() with the counters around each (the
+   assembly once a solve, the level kernels once a head level a solve, one
+   cholesky_ex a solve for the dense tail), the loss gradient of every
+   backward mode (unroll, implicit, truncated 5 and 10, dlm) in float64
+   kernels against float64 twins and in float32 against float64 (cosine
+   and norm-relative), the committed JAX float64 golden (T = 12, batch 4:
+   poses, loss, gradients), ms per forward and backward() of every mode at
+   3 and 10 inner iterations, three implicit SGD steps, the LM iteration's
+   ms and idle share, rows 2-4b's times at d = 3 beside their bound and
+   library call; pcg: the float32 forward with the counters around it
+   (Between and assembly launches, no level or whole kernel), its plateau,
+   ms per LM iteration beside the level and whole plans, the float64 PCG
+   delta against the direct delta and the implicit gradient against the
+   direct solve's; dcem: ms per iteration and the pose residuals, float64
+   on the card against the CPU fed the same noise, one unroll gradient the
+   same way; gbp: the float32 forward with the counters around it, ms per
+   sweep and per outer iteration, the final error beside LM's, float64
+   kernels against twins, compute_covariances on a tree against the sparse
+   path's;
 5. timing phase: ms per LM iteration (marginal window, as bench.py) for the
    level kernels, the whole-sweep kernels and the plain twins (PGO 64 x 16,
    256 x 128 and 2048 x 8, the grid; BA 16 x 200 x 16 and 128 x 4000 x 1), ms per
@@ -384,6 +413,58 @@ PLAN_COV_EVERY = 10  # compute_covariances of every 10th pose
 # PLAN_GRAD_COS_F32; float64 kernels against float64 twins GRAD_RTOL_F64.
 PLAN_LEARN_BATCH, PLAN_LEARN_ITERS = 16, 3
 PLAN_GRAD_RTOL_F32, PLAN_GRAD_COS_F32 = 0.5, 0.9
+# The tactile path (utils/examples/tactile_pose_estimation.py, the Theseus
+# paper's Fig. 4 workload): T = TAC_STEPS steps with moving-frame windows
+# TAC_WINDOWS (min, max, step; taken to be the reference's tactile settings,
+# whose config is not in this repository): 200 SE2 variables (d = 3) and
+# 758 costs; the episode from synthetic_push (numpy seed TAC_SEED) at batch
+# TAC_BATCH with features of dim TAC_FEATURES; LM on the sparse plan, inner
+# iterations TAC_INNER, the backward modes TAC_MODES (mode, backward
+# iterations), TAC_SGD_STEPS implicit SGD steps at TAC_LR. The problem is
+# nonsmooth (the contact hinge), so the float32 gradient is held to
+# float64's by cosine and norm-relative error: at 3 inner iterations
+# norm-rel 1.416e-3 (unroll, truncated) and 1.310e-4 (implicit), 1.952e-4
+# (dlm), cosine at least 0.99999914, on an NVIDIA H100 80GB HBM3 at 700 W:
+# TAC_GRAD_RTOL_F32 1e-2 and TAC_GRAD_COS_F32 0.9999. Float64 kernels
+# against float64 twins GRAD_RTOL_F64 (8.6e-12 measured; DLM 2.1e-8: its
+# reference runs the twins on the CPU, as the card twins' atomic sums move
+# a DLM gradient by ~1e-7 between runs).
+TAC_STEPS, TAC_WINDOWS, TAC_BATCH, TAC_FEATURES, TAC_SEED = 100, (10, 40, 5), 64, 8, 0
+TAC_INNER = (3, 10)
+TAC_MODES = (("unroll", 5), ("implicit", 5), ("truncated", 5), ("truncated", 10), ("dlm", 5))
+TAC_SGD_STEPS, TAC_LR = 3, 1e-3
+TAC_GRAD_RTOL_F32, TAC_GRAD_COS_F32 = 1e-2, 0.9999
+TACTILE_GOLDEN = ROOT / "tests" / "fixtures" / "tactile_12x4_jax_f64.npz"
+# The PCG path: PGO TRAIN (256 x 128) on sparse_solver="pcg" with
+# PCG_ITERS CG iterations (the JAX default). Held in float64: the PCG delta
+# against the direct delta on the same normal system at PCG_CHECK_ITERS
+# (rtol 1e-6, atol 1e-8, tests/optim/test_pcg.py's tolerances) under LM
+# damping PCG_CHECK_DAMPING (on this 256-pose chain CG at 200 iterations is
+# 18 % off undamped and 1.4e-3 off at damping 1e-3: the port's CPU, B = 2;
+# printed), and the implicit gradient against the direct solve's, rtol 1e-3,
+# at PCG_GRAD_ITERS (the final undamped step and its adjoint: 85 % off at
+# 100 iterations, 2.1e-2 at 400, 1.4e-4 at 800 on the same CPU run; at
+# batch 128 on an H100 80GB HBM3 at 700 W 48 % off at 100 and 2.3e-3 at
+# 800; the gradient at PCG_ITERS is printed).
+PCG_ITERS, PCG_CHECK_ITERS, PCG_CHECK_DAMPING, PCG_GRAD_ITERS = 100, 200, 1e-2, 1600
+# The DCEM path: the 7-dof IK (utils/examples/inverse_kinematics.py) at
+# batch DCEM_BATCH, DCEM's defaults (100 samples, 5 elites, temp 1, sigma
+# 1), DCEM_ITERS iterations from zero; float64 on the card against the CPU
+# fed the same noise (a CPU generator seeded DCEM_SEED) at DCEM_CHECK
+# (batch, iterations), and one unroll gradient with respect to the targets
+# at DCEM_GRAD (batch, iterations), each 1e-8 / GRAD_RTOL_F64.
+DCEM_BATCH, DCEM_ITERS, DCEM_SEED = 256, 50, 0
+DCEM_CHECK, DCEM_GRAD = (256, 50), (16, 10)
+DCEM_F64_TOL = 1e-8
+# The GBP path: GaussianBeliefPropagation on PGO TRAIN, GBP_MSG_ITERS sweeps
+# a linearization at message damping GBP_DAMPING, GBP_OUTER outer
+# iterations; float64 kernels against twins 1e-10; compute_covariances on
+# the chain without loop closures GBP_TREE (poses, batch), where GBP is
+# exact with enough sweeps (GBP_TREE_SWEEPS, no message damping, no ridge:
+# a ridge of 1e-12 moves the far end's covariances by 3.2e-8, on the card
+# and on the CPU alike), against the sparse path's, PLATEAU_RTOL_F64.
+GBP_MSG_ITERS, GBP_DAMPING, GBP_OUTER = 40, 0.3, 20
+GBP_TREE, GBP_TREE_SWEEPS = (64, 16), 70
 
 
 class CheckFailed(AssertionError):
@@ -430,13 +511,14 @@ class Problem:
         self.builder_s = time.perf_counter() - t0  # block pattern, symbolic analysis, schedule
 
 
-def synthetic_problem(n, b, dtype, dev, seed=0):
+def synthetic_problem(n, b, dtype, dev, seed=0, extra_loop_closures=True, **opt_kwargs):
     from theseus_tpu_torch.utils.examples.pose_graph import (
         build_pgo_objective, pose_values, synthetic_pose_graph)
 
-    gt, edges, meas, init = synthetic_pose_graph(n, b, seed=seed, dtype=dtype, device=dev)
+    gt, edges, meas, init = synthetic_pose_graph(n, b, seed=seed, dtype=dtype, device=dev,
+                                                 extra_loop_closures=extra_loop_closures)
     obj, _ = build_pgo_objective(n, edges, meas, gt[0], dtype=dtype, device=dev)
-    return Problem(obj, pose_values(init))
+    return Problem(obj, pose_values(init), **opt_kwargs)
 
 
 def grid_prob(dtype, dev):
@@ -2425,7 +2507,7 @@ def phase_planning(dev, card):
     _, c32_ms = once_ms(lambda: p32.layer.compute_covariances(values=outs[bmax], var_names=names))
     print(f"[planning] compute_covariances of {len(names)} poses at B={bmax}: float64 sparse {c_ms:.3f} ms "
           f"(float32 {c32_ms:.3f} ms), launches { {k: v for k, v in c_launches.items() if v} }; sparse vs dense "
-          f"max rel dev {worst:.3e} (tol {PLATEAU_RTOL_F64:.0e})")
+          f"max rel dev {worst:.3e} (tol {PLATEAU_RTOL_F64:.0e}), no ridge")
     check(c_launches["level_factor"] == n_levels and c_launches["level_fwd_subst"] == len(names) * n_levels
           and c_launches["level_bwd_subst"] == len(names) * n_levels, f"compute_covariances: launches {c_launches}")
     check(worst <= PLATEAU_RTOL_F64, f"compute_covariances: sparse off dense by {worst:.3e}")
@@ -2561,6 +2643,524 @@ def phase_planning(dev, card):
              "idle": idle, "levels": n_levels, "serving": serving, "whole_launches": whole_launches,
              "samples_ms": s_ms, "covariances_ms": c_ms}
     return launches, stats
+
+
+# ---------------------------------------------------------------------------
+# the tactile, PCG, DCEM and GBP paths
+# ---------------------------------------------------------------------------
+def _counted(fn):
+    """(fn(), launches during it, cholesky_ex calls during it), synced."""
+    import torch
+
+    from theseus_tpu_torch import _cuda
+
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    with mock.patch("torch.linalg.cholesky_ex", wraps=torch.linalg.cholesky_ex) as chol:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, dict(_cuda.launches), chol.call_count
+
+
+def _nonzero(launches):
+    return {k: v for k, v in launches.items() if v}
+
+
+def _grad_compare(label, g, ref, rtol, cos_min=None):
+    """Norm-relative error and cosine of a flat gradient against a
+    reference; held to rtol (and cos_min when given)."""
+    import torch
+
+    g, ref = g.double().cpu(), ref.double().cpu()
+    rel = float((g - ref).norm() / ref.norm())
+    cos = float((g * ref).sum() / (g.norm() * ref.norm()))
+    held = f"(tol {rtol:.0e}" + (f", cosine min {cos_min})" if cos_min is not None else ")")
+    print(f"[{label.split()[0]}] {label}: norm-rel {rel:.3e}, cosine {cos:.8f} {held}")
+    check(bool(torch.isfinite(g).all()) and rel <= rtol and (cos_min is None or cos >= cos_min),
+          f"{label}: gradient off (norm-rel {rel:.3e}, cosine {cos:.6f})")
+    return rel, cos
+
+
+def tactile_trainer(dtype, dev, inner, mode="implicit", steps=None, windows=None, batch=None, models=None):
+    """(trainer, base inputs, features, obj_gt) on `dev`: the estimator at
+    `steps` (TAC_STEPS) with `windows` (TAC_WINDOWS) on the sparse plan, the
+    episode of synthetic_push at `batch` (TAC_BATCH), the models drawn from
+    a CPU generator seeded 0 (the same weights in every dtype and on every
+    device) or `models`."""
+    import functools
+
+    import torch
+
+    import theseus_tpu_torch as tt
+    from theseus_tpu_torch.models import tactile
+
+    steps, windows, batch = steps or TAC_STEPS, windows or TAC_WINDOWS, batch or TAC_BATCH
+
+    est = tactile.TactilePoseEstimator(steps, *windows, max_iterations=inner, dtype=dtype, device=dev,
+                                       optimizer_cls=functools.partial(tt.LevenbergMarquardt,
+                                                                       linearization="sparse"))
+    base, obj_gt, _, feats = tactile.synthetic_push(est, batch=batch, feature_dim=TAC_FEATURES, seed=TAC_SEED)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)  # noqa: E731
+    trainer = tactile.TactileTrainer(est, TAC_FEATURES, generator=torch.Generator().manual_seed(0), lr=TAC_LR,
+                                     backward_mode=mode, models=models, dtype=dtype, device=dev)
+    return trainer, {k: t(v) for k, v in base.items()}, {i: t(v) for i, v in feats.items()}, t(obj_gt)
+
+
+def _tac_grad(trainer, base, feats, obj_gt, mode, bwd_iters, plain=False):
+    """(loss, flat gradient over both models, forward s, backward() s)."""
+    import torch
+
+    from theseus_tpu_torch import config
+
+    trainer.backward_mode = mode
+    params = trainer.parameters()
+    with config.plain_path() if plain else contextlib.nullcontext():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = trainer.loss(base, feats, obj_gt, bwd_iters)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return float(loss), torch.cat([g.reshape(-1) for g in grads]).detach(), t1 - t0, t2 - t1
+
+
+def phase_tactile(dev, card):
+    """Tactile pose estimation at the Fig. 4 size: the schedule, rows 2-4b
+    against their twins at its d = 3 shapes, the float32 implicit forward and
+    backward() with the counters around each, ms per forward and backward()
+    for every mode at both inner iteration counts, every mode's gradient
+    (float64 kernels against float64 twins, float32 against float64), the
+    JAX golden, three SGD steps, rows 2-4b's times."""
+    import numpy as np
+    import torch
+
+    from theseus_tpu_torch.models import tactile
+    from theseus_tpu_torch.sparse.assemble import assemble
+    from theseus_tpu_torch.sparse.assemble_kernel import assemble_blocks, assemble_blocks_plain
+    from theseus_tpu_torch.sparse.level_kernels import (
+        level_bwd_subst, level_bwd_subst_plain, level_factor, level_factor_plain,
+        level_fwd_subst, level_fwd_subst_plain)
+    from theseus_tpu_torch.utils.convert import tactile_models_from_params, tactile_params_from_arrays
+
+    steps, t_step = {}, [time.perf_counter()]
+
+    def step(name):
+        now = time.perf_counter()
+        steps[name] = round(now - t_step[0], 2)
+        t_step[0] = now
+
+    inner0 = TAC_INNER[0]
+    tr32, base32, feats32, gt32 = tactile_trainer(torch.float32, dev, inner0)
+    est = tr32.estimator
+    t0 = time.perf_counter()
+    bld = est.optimizer.normal_builder
+    sym_s = time.perf_counter() - t0
+    sched, pattern = bld.sched, bld.pattern
+    n_levels = len(sched.level_tables)
+    n_costs = len(est.objective.cost_functions)
+    check(pattern.d == 3 and pattern.n_vars == 2 * TAC_STEPS and n_costs == 3 * TAC_STEPS - 1 + len(est.pairs),
+          "tactile: not 2 T SE2 variables and 3 T - 1 + pairs costs")
+    print(f"[tactile] T={TAC_STEPS}, windows {TAC_WINDOWS}: {len(est.pairs)} moving-frame pairs, {pattern.n_vars} "
+          f"SE2 variables, {n_costs} costs; d={pattern.d}: {n_levels} head levels over {sched.n_head} columns, "
+          f"dense tail of {sched.tail_k} columns, nnz_L {sched.sym.nnz_l} blocks; (C, rl, ul) per level "
+          + " ".join(f"({len(t['cols'])},{t['row_valid'].shape[1]},{t['upd_valid'].shape[1]})"
+                     for t in sched.level_tables)
+          + f"; block pattern, symbolic analysis and schedule {sym_s:.3f} s on the host; the whole-sweep plan "
+          f"{'takes' if sched.tail_k == 0 else 'does not take'} this schedule")
+    step("objective and symbolic analysis")
+
+    # rows 2-4b at the tactile shapes against their twins (the ground-truth measurements, weights 1)
+    max_abs, systems = {}, {}
+    for dn, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        tr, base, _, _ = (tr32, base32, None, None) if dtype == torch.float32 else tactile_trainer(dtype, dev, inner0)
+        e = tr.estimator
+        _, obj_gt, eff_gt, _ = tactile.synthetic_push(e, batch=TAC_BATCH, feature_dim=TAC_FEATURES, seed=TAC_SEED)
+        meas = {k: torch.as_tensor(v, dtype=dtype, device=dev)
+                for k, v in tactile.relative_measurements(e, obj_gt, eff_gt).items()}
+        prob = Problem(e.objective, dict(base, **meas), iters=inner0)
+        system = plain_system(prob)
+        padded = padded_blocks(prob)
+        lv = level_inputs(prob, *system[1:])
+        cond = _plan_cond(prob.builder.pattern, system[1])
+        runs = {
+            "assemble_blocks": lambda cast, plain, padded=padded, pb=prob.builder.pattern: list(
+                (assemble_blocks_plain if plain else assemble_blocks)(
+                    pb, [([cast(j) for j in jacs], cast(err)) for jacs, err in padded])),
+            **{name: (lambda cast, plain, k=k, pl=pl, idx=idx, lv=lv:
+                      [(pl if plain else k)(*[cast(t) for t in ops[idx]]) for ops in lv])
+               for name, k, pl, idx in (("level_factor", level_factor, level_factor_plain, 0),
+                                        ("level_fwd_subst", level_fwd_subst, level_fwd_subst_plain, 1),
+                                        ("level_bwd_subst", level_bwd_subst, level_bwd_subst_plain, 2))},
+        }
+        for name, run in runs.items():
+            got = _repeatable(name, lambda run=run: run(lambda t: t, False), f"{dn} tactile B={TAC_BATCH}")
+            twin = run(lambda t: t, True)
+            ref = run(lambda t: t.double(), True) if dtype == torch.float32 else None
+            max_abs.setdefault(name, {})[dn] = _plan_report(name, dn, got, twin, ref, cond, "tactile d=3")
+        systems[dn] = (prob, system, padded, lv)
+    step("kernels against twins")
+
+    # the main path: one float32 implicit forward and its backward(), counters around each
+    params = tr32.parameters()
+    loss, fwd, chol_f = _counted(lambda: tr32.loss(base32, feats32, gt32))
+    _, bwd, chol_b = _counted(lambda: torch.autograd.grad(loss, params))
+    print(f"[tactile] float32 implicit forward ({inner0} LM iterations, B={TAC_BATCH}): loss {float(loss.detach()):.6e}, "
+          f"launches {_nonzero(fwd)}, cholesky_ex {chol_f}; backward(): launches {_nonzero(bwd)}, cholesky_ex {chol_b}")
+    solves = fwd["assemble_blocks"]
+    check(solves >= 2 and all(fwd[k] == n_levels * solves for k in LEVEL_KERNELS) and chol_f == solves
+          and fwd["between_se3"] == 0, f"tactile forward: launches {fwd}, cholesky_ex {chol_f}")
+    check(bwd["level_fwd_subst"] == n_levels and bwd["level_bwd_subst"] == n_levels and bwd["level_factor"] == 0,
+          f"tactile backward(): launches {bwd}")
+    launches = {k: fwd[k] + bwd[k] for k in fwd}
+    step("main path forward and backward()")
+
+    # every mode: float64 kernels against float64 twins, float32 against float64
+    grads = {}
+    tr64, base64, feats64, gt64 = tactile_trainer(torch.float64, dev, inner0)
+    trc, basec, featsc, gtc = tactile_trainer(torch.float64, torch.device("cpu"), inner0)
+    for mode, k in TAC_MODES:
+        label = f"{mode}-{k}" if mode == "truncated" else mode
+        l32, g32, _, _ = _tac_grad(tr32, base32, feats32, gt32, mode, k)
+        l64, g64, _, _ = _tac_grad(tr64, base64, feats64, gt64, mode, k)
+        if mode == "dlm":
+            lref, gref, _, _ = _tac_grad(trc, basec, featsc, gtc, mode, k, plain=True)
+        else:
+            lref, gref, _, _ = _tac_grad(tr64, base64, feats64, gt64, mode, k, plain=True)
+        print(f"[tactile] {label}: loss float32 {l32:.8e}, float64 kernels {l64:.12e}, float64 twins "
+              f"({'CPU' if mode == 'dlm' else 'card'}) {lref:.12e}")
+        _grad_compare(f"tactile {label} float64 kernels vs float64 twins", g64, gref, GRAD_RTOL_F64)
+        grads[label] = _grad_compare(f"tactile {label} float32 vs float64", g32, g64, TAC_GRAD_RTOL_F32,
+                                     TAC_GRAD_COS_F32)
+    step("gradients")
+
+    # the JAX float64 golden (T = 12, batch 4), float64 kernels on the card
+    with np.load(TACTILE_GOLDEN) as f:
+        g = {k: f[k] for k in f.files}
+    models = tactile_models_from_params(tactile_params_from_arrays(g), dtype=torch.float64, device=dev)
+    gt_t, gb = int(g["time_steps"]), int(g["batch"])
+    for mode in ("unroll", "implicit"):
+        trg, _, _, _ = tactile_trainer(torch.float64, dev, int(g["iters"]), mode, steps=gt_t, windows=(1, 3, 1),
+                                       batch=gb, models=models)
+        gbase = {k[3:]: torch.as_tensor(v, device=dev) for k, v in g.items() if k.startswith("in_")}
+        gfeats = {i: torch.as_tensor(g["features"][i], device=dev) for i in range(gt_t)}
+        sol = trg.solve(gbase, gfeats)
+        poses = torch.stack([sol[f"obj_pose_{i}"] for i in range(gt_t)], dim=1)
+        gl = torch.mean((poses[..., :2] - torch.as_tensor(g["obj_gt"], device=dev)[None, :, :2]) ** 2)
+        gg = torch.autograd.grad(gl, [p for m in (trg.meas_model.mlp, trg.weight_model.mlp)
+                                      for pair in zip(m.weights, m.biases) for p in pair])
+        names = [f"{part}_{k}{i}" for part, n in (("meas", 3), ("weight", 2)) for i in range(n) for k in ("w", "b")]
+        dpose = float((poses.detach().cpu() - torch.as_tensor(g[f"sol_{mode}"])).abs().max())
+        dloss = abs(float(gl) - float(g[f"loss_{mode}"])) / abs(float(g[f"loss_{mode}"]))
+        dgrad = max(float((x.cpu() - torch.as_tensor(g[f"grad_{mode}_{n}"])).abs().max())
+                    / max(float(np.abs(g[f"grad_{mode}_{n}"]).max()), 1e-12) for x, n in zip(gg, names))
+        print(f"[tactile] JAX golden T={gt_t} B={gb} {mode}: float64 kernels, poses max abs dev {dpose:.3e} (tol "
+              f"{PLATEAU_RTOL_F64:.0e}), loss rel dev {dloss:.3e} (tol 1e-10), gradients max rel dev {dgrad:.3e} "
+              f"(tol {GRAD_RTOL_F64:.0e})")
+        check(dpose <= PLATEAU_RTOL_F64 and dloss <= 1e-10 and dgrad <= GRAD_RTOL_F64,
+              f"tactile: off the JAX golden ({mode})")
+    step("JAX golden")
+
+    # ms per forward and backward() for every mode, float32, at each inner iteration count
+    times = {}
+    for inner in TAC_INNER:
+        tr, base, feats, gt = (tr32, base32, feats32, gt32) if inner == inner0 else tactile_trainer(
+            torch.float32, dev, inner)
+        _tac_grad(tr, base, feats, gt, "implicit", 5)  # warm-up at this inner count
+        for mode, k in TAC_MODES:
+            label = f"{mode}-{k}" if mode == "truncated" else mode
+            _, _, f_s, b_s = _tac_grad(tr, base, feats, gt, mode, k)
+            times[f"{label} inner {inner}"] = (f_s * 1e3, b_s * 1e3)
+            print(f"[tactile] inner {inner:>2} {label:<12} float32 B={TAC_BATCH}: forward {f_s * 1e3:9.3f} ms, "
+                  f"backward() {b_s * 1e3:9.3f} ms on {card}")
+    step("mode timings")
+
+    # three implicit SGD steps of the trainer
+    losses = [tr32.step(base32, feats32, gt32) for _ in range(TAC_SGD_STEPS)]
+    print(f"[tactile] {TAC_SGD_STEPS} implicit SGD steps (lr {TAC_LR}), float32: losses "
+          + ", ".join(f"{x:.8e}" for x in losses))
+    check(all(np.isfinite(losses)), "tactile SGD: non-finite loss")
+    step("SGD steps")
+
+    # one LM iteration's ms and idle share, rows 2-4b at d = 3
+    prob, system, padded, lv = systems["float32"]
+    iter_ms = lm_iter_ms(prob, n_small=2, extra=5, reps=2)
+    pwall, busy, kernels, by_name = _profile_window(prob, 2)
+    idle = 1.0 - busy / pwall
+    print(f"[tactile] float32 LM iteration {iter_ms:.4f} ms (marginal window); profiler, 2 iterations: wall "
+          f"{pwall:.2f} ms, device busy {busy:.2f} ms (idle {100 * idle:.1f} %), {kernels / 2:.0f} device kernels "
+          f"an iteration, on {card}")
+    for name, (t, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]:
+        print(f"[tactile]   {t / 2:8.3f} ms an iteration  {k // 2:5d}x  {name[:90]}")
+    with torch.no_grad():
+        blocks = prob.co.linearize_blocks(prob.state, prob.aux)
+        ns = prob.builder.build(prob.state, prob.aux)
+        delta, _ = ns.solve(1e-3, False)
+        stages = {
+            "linearize": lambda: prob.co.linearize_blocks(prob.state, prob.aux),
+            "assemble": lambda: assemble(pattern, blocks),
+            "solve": lambda: ns.solve(1e-3, False),
+            "retract": lambda: prob.co.retract(prob.state, delta),
+            "error": lambda: prob.co.error_metric(prob.state, prob.aux),
+        }
+        print(f"[tactile] B={TAC_BATCH} stages (ms, each synced, mean of 3): "
+              + ", ".join(f"{k} {_synced_ms(f, reps=3):.3f}" for k, f in stages.items()) + f" on {card}")
+    _, ata, lflat, y, x, b_perm = system
+    fns = {
+        "assemble_blocks": (lambda: assemble_blocks(pattern, padded), lambda: assemble_blocks_plain(pattern, padded)),
+        "level_factor": (lambda: [level_factor(*f) for f, _, _ in lv], lambda: [level_factor_plain(*f) for f, _, _ in lv]),
+        "level_fwd_subst": (lambda: [level_fwd_subst(*fw) for _, fw, _ in lv],
+                            lambda: [level_fwd_subst_plain(*fw) for _, fw, _ in lv]),
+        "level_bwd_subst": (lambda: [level_bwd_subst(*bw) for _, _, bw in lv],
+                            lambda: [level_bwd_subst_plain(*bw) for _, _, bw in lv]),
+    }
+    bounds = {
+        "assemble_blocks": assembly_bound(pattern, padded),
+        "level_factor": _bound(sum(_nbytes(*f) + _nbytes(f[0]) for f, _, _ in lv),
+                               factor_flops(sched, TAC_BATCH, 3)),
+        "level_fwd_subst": _bound(sum(_nbytes(*fw) + _nbytes(fw[2]) for _, fw, _ in lv),
+                                  subst_flops(sched, TAC_BATCH, 3, True)),
+        "level_bwd_subst": _bound(sum(_nbytes(*bw) + _nbytes(bw[2]) for _, _, bw in lv),
+                                  subst_flops(sched, TAC_BATCH, 3, False)),
+    }
+    h = dense_h(pattern, ata)
+    l_dense = torch.linalg.cholesky_ex(h)[0]
+    rhs = prob.builder.flatten(b_perm[sched.on(dev)[1]])[..., None]
+    library = {"level_factor": cuda_ms(lambda: torch.linalg.cholesky_ex(h), reps=5),
+               "level_fwd_subst": cuda_ms(lambda: torch.linalg.solve_triangular(l_dense, rhs, upper=False), reps=5),
+               "level_bwd_subst": cuda_ms(lambda: torch.linalg.solve_triangular(l_dense.mT, rhs, upper=True), reps=5)}
+    ktimes = {}
+    for k, (kern, plain) in fns.items():
+        ktimes[k] = (cuda_ms(kern, reps=5), cuda_ms(plain, reps=3, warmup=1), device_ms(kern, reps=5, warmup=1))
+        ms, plain_ms, dev_ms = ktimes[k]
+        bms, by = bounds[k]
+        lib = library.get(k)
+        what = "one call" if k == "assemble_blocks" else f"one sweep, {n_levels} launches"
+        print(f"[tactile] {k:<16} d=3 B={TAC_BATCH} float32 ({what}): kernel {ms:.4f} ms back to back, {dev_ms:.4f} "
+              f"ms device, plain twin {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), library "
+              f"{'none' if lib is None else f'{lib:.4f} ms'} on {card}")
+    step("LM iteration, profile, kernel times")
+    print(f"[tactile] seconds: {json.dumps(steps)}")
+    return launches, {"max_abs": max_abs, "times": ktimes, "bounds": bounds, "library": library,
+                      "lm_iter_ms": iter_ms, "idle": idle, "mode_ms": times, "sgd_losses": losses,
+                      "grads_f32": grads}
+
+
+def _pcg_grad(dtype, dev, **opt_kwargs):
+    """d loss / d theta of one implicit training step at TRAIN on the given
+    sparse solver."""
+    import torch
+
+    import theseus_tpu_torch as tt
+    from theseus_tpu_torch.utils.examples.pose_graph import (
+        build_pgo_objective, mean_sq_local, pose_values, synthetic_pose_graph, training_weights)
+
+    gt, edges, meas, init = synthetic_pose_graph(*TRAIN, seed=0, dtype=dtype, device=dev)
+    w_odo, w_loop = training_weights()
+    obj, _ = build_pgo_objective(TRAIN[0], edges, meas, gt[0], dtype=dtype, device=dev, edge_weight=w_odo,
+                                 loop_weight=w_loop)
+    layer = tt.TheseusLayer(tt.LevenbergMarquardt(obj, max_iterations=ITERS, adaptive_damping=True,
+                                                  linearization="sparse", **opt_kwargs))
+    theta = torch.tensor(THETA0, dtype=dtype, device=dev, requires_grad=True)
+    out, _ = layer.forward(dict(pose_values(init), w_loop=theta.reshape(1, 1)),
+                           optimizer_kwargs={"backward_mode": "implicit"})
+    (g,) = torch.autograd.grad(mean_sq_local(out, gt), theta)
+    return float(g)
+
+
+def phase_pcg(dev, card):
+    """PGO 256 x 128 on the block-Jacobi PCG: the float32 forward with the
+    counters around it (Between and assembly, no level or whole kernel),
+    its plateau, ms per LM iteration beside the direct level and whole
+    plans, the PCG delta against the direct delta, the implicit gradient
+    against the direct solve's."""
+    import torch
+
+    from theseus_tpu_torch import config
+    from theseus_tpu_torch.optim.normal import SparseNormalBuilder
+
+    n, b = TRAIN
+    pcg32 = synthetic_problem(n, b, torch.float32, dev, sparse_solver="pcg", pcg_iters=PCG_ITERS)
+    (out, info), fwd, chol = _counted(lambda: pcg32.layer.forward(pcg32.inputs))
+    print(f"[pcg] PGO {n}x{b} float32 forward, {ITERS} LM iterations, {PCG_ITERS} CG iterations a solve: mean error "
+          f"{float(info.err_history[0].mean()):.6e} -> {float(info.last_err.mean()):.6e}; launches {_nonzero(fwd)}")
+    check(fwd["assemble_blocks"] == ITERS and fwd["between_se3"] > 0 and chol == 0
+          and all(fwd[k] == 0 for k in LEVEL_KERNELS + ("whole_factor", "whole_fwd_subst", "whole_bwd_subst")),
+          f"pcg forward: launches {fwd}, cholesky_ex {chol}")
+    with config.plain_path():
+        _, ref = synthetic_problem(n, b, torch.float64, dev).layer.forward(pcg32.inputs)
+    rel = float(_rel(info.last_err, ref.last_err).max())
+    print(f"[pcg] float32 PCG vs float64 direct twins: final error max rel dev {rel:.3e} (tol {PLATEAU_RTOL_F32:.0e})")
+    check(rel <= PLATEAU_RTOL_F32, f"pcg: float32 plateau off by {rel:.3e}")
+
+    level = synthetic_problem(n, b, torch.float32, dev)
+    ms = {"pcg": lm_iter_ms(pcg32, n_small=2, extra=5, reps=2), "level": lm_iter_ms(level, n_small=2, extra=5, reps=2)}
+    config.set_whole_sweep(True)
+    try:
+        ms["whole"] = lm_iter_ms(level, n_small=2, extra=5, reps=2)
+    finally:
+        config.set_whole_sweep(False)
+    pwall, busy, kernels, _ = _profile_window(pcg32, 2)
+    idle = 1.0 - busy / pwall
+    print(f"[pcg] float32 LM iteration: PCG {ms['pcg']:.4f} ms, direct level plan {ms['level']:.4f} ms, whole "
+          f"plan {ms['whole']:.4f} ms (marginal windows); PCG: {fwd['between_se3'] / ITERS:.2f} Between and "
+          f"{fwd['assemble_blocks'] / ITERS:.0f} assembly launches an iteration, {kernels / 2:.0f} device kernels "
+          f"an iteration, idle {100 * idle:.1f} %, on {card}")
+
+    # float64: the PCG delta against the direct delta on one normal system
+    p64 = synthetic_problem(n, b, torch.float64, dev)
+    ns_d = p64.builder.build(p64.state, p64.aux)
+    for iters in (PCG_ITERS, PCG_CHECK_ITERS):
+        ns_p = SparseNormalBuilder(p64.co, solver="pcg", pcg_iters=iters).build(p64.state, p64.aux)
+        for damping in (0.0, 1e-3, PCG_CHECK_DAMPING):
+            dd, _ = ns_d.solve(damping, False)
+            dp, _ = ns_p.solve(damping, False)
+            viol = float(((dp - dd).abs() - (1e-8 + 1e-6 * dd.abs())).max())
+            relv = float((dp - dd).norm() / dd.norm())
+            held = iters == PCG_CHECK_ITERS and damping == PCG_CHECK_DAMPING
+            print(f"[pcg] float64 delta, {iters} CG iterations, damping {damping:g}: norm-rel {relv:.3e} from the "
+                  f"direct delta, worst excess over rtol 1e-6 + atol 1e-8 {viol:.3e}" + (" (held)" if held else ""))
+            if held:
+                check(viol <= 0.0, f"pcg: delta off the direct delta by {viol:.3e} beyond its tolerance")
+    g_direct = _pcg_grad(torch.float64, dev)
+    g_pcg = _pcg_grad(torch.float64, dev, sparse_solver="pcg", pcg_iters=PCG_GRAD_ITERS)
+    g_default = _pcg_grad(torch.float64, dev, sparse_solver="pcg", pcg_iters=PCG_ITERS)
+    rel_g = abs(g_pcg - g_direct) / abs(g_direct)
+    print(f"[pcg] float64 implicit gradient d loss / d theta: direct {g_direct:.10e}, PCG {PCG_GRAD_ITERS} "
+          f"iterations {g_pcg:.10e} (rel dev {rel_g:.3e}, tol 1e-3), PCG {PCG_ITERS} iterations {g_default:.10e} "
+          f"(rel dev {abs(g_default - g_direct) / abs(g_direct):.3e}, printed)")
+    check(rel_g <= 1e-3, f"pcg: implicit gradient off the direct solve's by {rel_g:.3e}")
+    return fwd, {"lm_iter_ms": ms, "idle": idle}
+
+
+def phase_dcem(dev, card):
+    """DCEM on the 7-dof IK: ms per iteration and the pose residuals at
+    batch DCEM_BATCH; float64 on the card against the CPU fed the same
+    noise; one unroll gradient with respect to the targets, the same way."""
+    import torch
+
+    import theseus_tpu_torch as tt
+    from theseus_tpu_torch.utils.examples.inverse_kinematics import build_ik_layer, ik_targets
+
+    def dcem(dtype, device, iters, generator=None):
+        layer, fk, robot = build_ik_layer(dtype, device)
+        return tt.DCEM(layer.objective, max_iterations=iters, generator=generator), fk, robot
+
+    opt, fk, robot = dcem(torch.float32, dev, DCEM_ITERS)
+    targets = ik_targets(fk, robot.dof, DCEM_BATCH, torch.float32, dev)
+    inputs = {"theta": torch.zeros((DCEM_BATCH, robot.dof), device=dev), "target": targets}
+    gen = torch.Generator(device=dev).manual_seed(DCEM_SEED)
+    opt.optimize(input_tensors=inputs, generator=gen, max_iterations=2)  # warm-up
+    t0 = time.perf_counter()
+    (out, info), fwd, _ = _counted(lambda: opt.optimize(input_tensors=inputs, generator=gen))
+    wall = time.perf_counter() - t0
+    res = ik_residual_norm(fk, out["theta"], targets)
+    print(f"[dcem] IK B={DCEM_BATCH}, {opt.opts.n_sample} samples, {opt.opts.n_elite} elites, {DCEM_ITERS} "
+          f"iterations, float32: {wall * 1e3 / DCEM_ITERS:.3f} ms an iteration ({DCEM_BATCH * opt.opts.n_sample} "
+          f"FK evaluations each), pose residual median {float(res.median()):.4e}, worst {float(res.max()):.4e}; "
+          f"mean error {float(info.err_history[0].mean()):.4e} -> {float(info.last_err.mean()):.4e}; launches "
+          f"{_nonzero(fwd) or 'none (no kernel of the table on this path)'}, on {card}")
+    check(bool(torch.isfinite(out["theta"]).all()) and float(info.last_err.mean()) < float(info.err_history[0].mean()),
+          "dcem: the solve did not descend")
+
+    # float64: the card against the CPU on the same targets and noise (a CPU generator)
+    cpu = torch.device("cpu")
+    _, fk_cpu, _ = dcem(torch.float64, cpu, 1)
+    b, iters = DCEM_CHECK
+    sols = {}
+    for key, where in (("card", dev), ("cpu", cpu)):
+        o, _, _ = dcem(torch.float64, where, iters, torch.Generator().manual_seed(DCEM_SEED))
+        tg = ik_targets(fk_cpu, robot.dof, b, torch.float64, cpu)
+        sols[key], _ = o.optimize(input_tensors={
+            "theta": torch.zeros((b, robot.dof), dtype=torch.float64, device=where), "target": tg.to(where)})
+    dev_f64 = float((sols["card"]["theta"].cpu() - sols["cpu"]["theta"]).abs().max())
+    print(f"[dcem] float64 B={b}, {iters} iterations, card vs CPU on the same targets and noise: joint angles max "
+          f"abs dev {dev_f64:.3e} (tol {DCEM_F64_TOL:.0e})")
+    check(dev_f64 <= DCEM_F64_TOL, f"dcem: card off the CPU by {dev_f64:.3e}")
+    b, iters = DCEM_GRAD
+    grads = {}
+    for key, where in (("card", dev), ("cpu", cpu)):
+        o, _, _ = dcem(torch.float64, where, iters, torch.Generator().manual_seed(DCEM_SEED))
+        tg = ik_targets(fk_cpu, robot.dof, b, torch.float64, cpu).to(where)
+        tg.requires_grad_(True)
+        out64, _ = tt.TheseusLayer(o).forward({"theta": torch.zeros((b, robot.dof), dtype=torch.float64,
+                                                                     device=where), "target": tg})
+        grads[key] = torch.autograd.grad(torch.sum(out64["theta"] ** 2), tg)[0].reshape(-1)
+    _grad_compare(f"dcem unroll gradient d sum(theta^2) / d targets, B={b}, {iters} iterations, float64 card vs CPU",
+                  grads["card"], grads["cpu"], GRAD_RTOL_F64)
+    return fwd, {"ms_per_iter": wall * 1e3 / DCEM_ITERS, "residual_median": float(res.median()),
+                 "residual_worst": float(res.max())}
+
+
+def phase_gbp(dev, card):
+    """Gaussian belief propagation on PGO 256 x 128: the float32 forward with
+    the counters around it (the Between kernel, no assembly or level
+    kernel), ms per sweep and per outer iteration, the final error beside
+    LM's; float64 kernels against twins; compute_covariances on a tree
+    against the sparse path's."""
+    import torch
+
+    import theseus_tpu_torch as tt
+    from theseus_tpu_torch import config
+
+    n, b = TRAIN
+    kw = dict(max_iterations=GBP_OUTER, msg_iters=GBP_MSG_ITERS, msg_damping=GBP_DAMPING)
+
+    def gbp_problem(dtype, **extra):
+        prob = synthetic_problem(n, b, dtype, dev)
+        prob.layer = tt.TheseusLayer(tt.GaussianBeliefPropagation(prob.obj, **kw, **extra))
+        prob.opt = prob.layer.optimizer
+        prob.builder = prob.opt.normal_builder
+        return prob
+
+    g32 = gbp_problem(torch.float32)
+    (out, info), fwd, chol = _counted(lambda: g32.layer.forward(g32.inputs))
+    lm = synthetic_problem(n, b, torch.float32, dev, iters=GBP_OUTER)
+    _, lm_info = lm.layer.forward(lm.inputs)
+    print(f"[gbp] PGO {n}x{b} float32, {GBP_OUTER} outer iterations of {GBP_MSG_ITERS} sweeps (message damping "
+          f"{GBP_DAMPING}): mean error {float(info.err_history[0].mean()):.6e} -> {float(info.last_err.mean()):.6e} "
+          f"(LM on the same graph, {GBP_OUTER} iterations: {float(lm_info.last_err.mean()):.6e}); launches "
+          f"{_nonzero(fwd)}")
+    check(bool(torch.isfinite(info.last_err).all()) and fwd["between_se3"] > 0 and fwd["assemble_blocks"] == 0 and chol == 0
+          and all(fwd[k] == 0 for k in LEVEL_KERNELS), f"gbp forward: launches {fwd}")
+    check(float(info.last_err.mean()) < float(info.err_history[0].mean()), "gbp: the solve did not descend")
+
+    with torch.no_grad():
+        ns = g32.builder.build(g32.state, g32.aux)
+        prior_lam, prior_eta = ns._priors(0.0, None)
+        msgs = tuple(tuple((torch.zeros_like(e), torch.zeros_like(lam_b[s][0])) for s, e in enumerate(eta_b))
+                     for eta_b, lam_b in zip(ns.etas, ns.lams))
+        sweep_ms = _synced_ms(lambda: ns._sweep(msgs, prior_lam, prior_eta, GBP_DAMPING), reps=5)
+    iter_ms = lm_iter_ms(g32, n_small=1, extra=2, reps=2)
+    pwall, busy, kernels, _ = _profile_window(g32, 1)
+    idle = 1.0 - busy / pwall
+    print(f"[gbp] float32: one sweep {sweep_ms:.3f} ms (synced), one outer iteration {iter_ms:.3f} ms (marginal "
+          f"window); profiler, 1 outer iteration: {kernels:.0f} device kernels, idle {100 * idle:.1f} %, on {card}")
+
+    g64 = gbp_problem(torch.float64)
+    _, i64 = g64.layer.forward(g64.inputs)
+    with config.plain_path():
+        _, i64p = g64.layer.forward(g64.inputs)
+    rel = float(_rel(i64.last_err, i64p.last_err).max())
+    print(f"[gbp] float64 kernels vs float64 twins: final error max rel dev {rel:.3e} (tol 1e-10)")
+    check(rel <= 1e-10, f"gbp: float64 kernels off the twins by {rel:.3e}")
+
+    tn, tb = GBP_TREE
+    tree = synthetic_problem(tn, tb, torch.float64, dev, extra_loop_closures=False)
+    sol, _ = tree.layer.forward(tree.inputs)
+    names = [f"pose_{i}" for i in range(0, tn, 8)]
+    want = tree.layer.compute_covariances(values=sol, var_names=names)
+    gbp_tree = tt.TheseusLayer(tt.GaussianBeliefPropagation(tree.obj, msg_iters=GBP_TREE_SWEEPS, msg_damping=0.0,
+                                                            gbp_ridge=0.0))
+    (got, ms), cfwd, _ = _counted(lambda: once_ms(lambda: gbp_tree.compute_covariances(values=sol, var_names=names)))
+    worst = max(float((got[k] - want[k]).abs().max()) / float(want[k].abs().max()) for k in names)
+    print(f"[gbp] compute_covariances of {len(names)} poses on the {tn}x{tb} chain (a tree), float64, "
+          f"{GBP_TREE_SWEEPS} sweeps: {ms:.3f} ms, launches {_nonzero(cfwd)}; against the sparse path's max rel "
+          f"dev {worst:.3e} (tol {PLATEAU_RTOL_F64:.0e}), no ridge")
+    check(worst <= PLATEAU_RTOL_F64, f"gbp: tree covariances off the sparse path's by {worst:.3e}")
+    return fwd, {"sweep_ms": sweep_ms, "outer_iter_ms": iter_ms, "idle": idle,
+                 "final_err": float(info.last_err.mean()), "lm_final_err": float(lm_info.last_err.mean())}
 
 
 # ---------------------------------------------------------------------------
@@ -3102,7 +3702,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs only on an NVIDIA GPU", file=sys.stderr)
         return 2
     if not (ROOT / "theseus_tpu_torch" / "__init__.py").exists() or not all(
-            p.exists() for p in (GOLDEN, BA_GOLDEN, PGO2D_GOLDEN, MANHATTAN)):
+            p.exists() for p in (GOLDEN, BA_GOLDEN, PGO2D_GOLDEN, MANHATTAN, TACTILE_GOLDEN)):
         print("chip_smoke: run from the root of a theseus_tpu checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
@@ -3136,6 +3736,10 @@ def main() -> int:
     launches["planning"], plan = timed("planning", phase_planning, dev, card)
     if plan["whole_launches"]:
         launches["planning_whole"] = plan["whole_launches"]
+    launches["tactile"], tac = timed("tactile", phase_tactile, dev, card)
+    launches["pcg"], pcg = timed("pcg", phase_pcg, dev, card)
+    launches["dcem"], dcem = timed("dcem", phase_dcem, dev, card)
+    launches["gbp"], gbp = timed("gbp", phase_gbp, dev, card)
     iters, times, dev_times, train_ms, bounds, library = timed("timing", phase_timing, dev, card, twin_ms)
     timed("profile", phase_profile, dev, card)
     check("jax" not in sys.modules and "theseus_tpu" not in sys.modules, "jax was imported")
@@ -3173,6 +3777,11 @@ def main() -> int:
                 entry[f"library_ms_plan{b}"] = plan["library"][b].get(name)
         if name in plan["max_abs"]:
             entry["max_abs_err_plan"] = plan["max_abs"][name]["float32"]
+        if name in tac["times"]:  # the tactile d = 3, batch-64 shapes; a level kernel: one sweep
+            entry["ms_tactile"], entry["plain_ms_tactile"], entry["device_ms_tactile"] = tac["times"][name]
+            entry["bound_ms_tactile"], entry["bound_by_tactile"] = tac["bounds"][name]
+            entry["library_ms_tactile"] = tac["library"].get(name)
+            entry["max_abs_err_tactile"] = tac["max_abs"][name]["float32"]
         if name in ("level_factor", "level_bwd_subst", "whole_factor", "whole_fwd_subst",
                     "whole_bwd_subst"):  # the deep and narrow shape
             entry["ms_2048x8"], entry["plain_ms_2048x8"] = times[f"{name} 2048x8"]
@@ -3184,7 +3793,10 @@ def main() -> int:
                       "pgo2d_lm_iter_ms": pgo2d["lm_iter_ms"], "pgo2d_idle": pgo2d["idle"],
                       "planning_lm_iter_ms": plan["lm_iter_ms"], "planning_idle": plan["idle"],
                       "planning_serving": plan["serving"], "planning_samples_ms": plan["samples_ms"],
-                      "planning_covariances_ms": plan["covariances_ms"]}))
+                      "planning_covariances_ms": plan["covariances_ms"], "tactile_lm_iter_ms": tac["lm_iter_ms"],
+                      "tactile_idle": tac["idle"], "tactile_mode_ms": tac["mode_ms"],
+                      "tactile_sgd_losses": tac["sgd_losses"], "pcg_lm_iter_ms": pcg["lm_iter_ms"],
+                      "pcg_idle": pcg["idle"], "dcem": dcem, "gbp": gbp}))
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; seconds a phase: {json.dumps(phase_s)}")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1318,3 +1318,94 @@ def test_small_planner_on_card_matches_cpu(cuda_device, optimizer):
         results[device.type] = (info.last_err.cpu(), planner.trajectory(values).cpu())
     torch.testing.assert_close(results["cuda"][0], results["cpu"][0], rtol=1e-8, atol=0.0)
     torch.testing.assert_close(results["cuda"][1], results["cpu"][1], rtol=1e-8, atol=1e-8)
+
+
+@pytest.mark.parametrize("mode", ["unroll", "implicit", "dlm"])
+def test_tactile_trainer_on_card_matches_cpu(cuda_device, mode):
+    """The tactile trainer (T = 12, windows 1..3, batch 4, float64, sparse
+    plan) in three backward modes: the loss and every parameter's gradient,
+    the card (the assembly and level kernels, counted) against the CPU
+    (twins): 1e-9 and 1e-7 relative."""
+    import functools
+
+    import theseus_tpu_torch as tt
+    from theseus_tpu_torch.models import tactile
+
+    results = {}
+    for device in (cuda_device, torch.device("cpu")):
+        est = tactile.TactilePoseEstimator(12, device=device, optimizer_cls=functools.partial(
+            tt.LevenbergMarquardt, linearization="sparse"))
+        base, obj_gt, _, feats = tactile.synthetic_push(est, batch=4, seed=0)
+        t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)  # noqa: E731
+        tr = tactile.TactileTrainer(est, 8, generator=torch.Generator().manual_seed(0), backward_mode=mode,
+                                    dtype=torch.float64, device=device)
+        _cuda.reset_launches()
+        loss = tr.loss({k: t(v) for k, v in base.items()}, {i: t(v) for i, v in feats.items()}, t(obj_gt))
+        grads = torch.autograd.grad(loss, tr.parameters())
+        torch.cuda.synchronize()
+        if device.type == "cuda":
+            n_levels = len(est.optimizer.normal_builder.sched.level_tables)
+            assert _cuda.launches["assemble_blocks"] >= 1
+            assert _cuda.launches["level_factor"] >= n_levels * _cuda.launches["assemble_blocks"]
+        results[device.type] = (loss.detach().cpu(), torch.cat([g.reshape(-1) for g in grads]).cpu())
+    torch.testing.assert_close(results["cuda"][0], results["cpu"][0], rtol=1e-9, atol=0.0)
+    g, ref = results["cuda"][1], results["cpu"][1]
+    assert float((g - ref).norm() / ref.norm()) <= 1e-7
+
+
+def test_pcg_on_card_matches_cpu(cuda_device):
+    """PGO 24 x 4 in float64 on sparse_solver="pcg": the LM solution on the
+    card (the Between and assembly kernels, no level kernel) against the
+    CPU, 1e-9."""
+    from theseus_tpu_torch.layer import TheseusLayer
+
+    sols = {}
+    for device in (cuda_device, torch.device("cpu")):
+        gt, edges, meas, init = synthetic_pose_graph(24, 4, seed=0, dtype=torch.float64, device=device)
+        obj, _ = build_pgo_objective(24, edges, meas, gt[0], dtype=torch.float64, device=device)
+        layer = TheseusLayer(LevenbergMarquardt(obj, max_iterations=10, linearization="sparse",
+                                                sparse_solver="pcg", pcg_iters=100))
+        _cuda.reset_launches()
+        out, _ = layer.forward(pose_values(init))
+        torch.cuda.synchronize()
+        if device.type == "cuda":
+            assert _cuda.launches["assemble_blocks"] == 10 and _cuda.launches["between_se3"] > 0
+            assert _cuda.launches["level_factor"] == 0 and _cuda.launches["whole_factor"] == 0
+        sols[device.type] = torch.stack([out[f"pose_{i}"] for i in range(24)]).cpu()
+    torch.testing.assert_close(sols["cuda"], sols["cpu"], rtol=1e-9, atol=1e-9)
+
+
+def test_dcem_on_card_matches_cpu(cuda_device):
+    """DCEM on the 7-dof IK (batch 8, 10 iterations, float64), the same
+    noise from a CPU generator: the card against the CPU, 1e-9."""
+    import theseus_tpu_torch as tt
+
+    thetas = {}
+    for device in (cuda_device, torch.device("cpu")):
+        layer, inputs = _ik_layer(device, torch.float64, 8)
+        opt = tt.DCEM(layer.objective, max_iterations=10, generator=torch.Generator().manual_seed(0))
+        out, info = opt.optimize(input_tensors=inputs)
+        thetas[device.type] = out["theta"].cpu()
+    torch.testing.assert_close(thetas["cuda"], thetas["cpu"], rtol=1e-9, atol=1e-9)
+
+
+def test_gbp_on_card_matches_cpu(cuda_device):
+    """Gaussian belief propagation on PGO 16 x 4 in float64 (the Between
+    kernel on the card): the solution and compute_covariances against the
+    CPU, 1e-10 and 1e-8."""
+    import theseus_tpu_torch as tt
+
+    res = {}
+    for device in (cuda_device, torch.device("cpu")):
+        gt, edges, meas, init = synthetic_pose_graph(16, 4, seed=0, dtype=torch.float64, device=device)
+        obj, _ = build_pgo_objective(16, edges, meas, gt[0], dtype=torch.float64, device=device)
+        layer = tt.TheseusLayer(tt.GaussianBeliefPropagation(obj, max_iterations=8, msg_iters=20, msg_damping=0.3))
+        _cuda.reset_launches()
+        out, _ = layer.forward(pose_values(init))
+        torch.cuda.synchronize()
+        if device.type == "cuda":
+            assert _cuda.launches["between_se3"] > 0 and _cuda.launches["assemble_blocks"] == 0
+        cov = layer.compute_covariances(values=out, var_names=["pose_5"])["pose_5"]
+        res[device.type] = (torch.stack([out[f"pose_{i}"] for i in range(16)]).cpu(), cov.cpu())
+    torch.testing.assert_close(res["cuda"][0], res["cpu"][0], rtol=1e-10, atol=1e-10)
+    torch.testing.assert_close(res["cuda"][1], res["cpu"][1], rtol=1e-8, atol=1e-10)

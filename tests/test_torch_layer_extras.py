@@ -4,8 +4,9 @@
   tests/core/test_covariances.py, solved by Gauss-Newton, on the sparse
   path (the block factor and unit-column solves) and the dense path (one
   inverse), against the JAX package's on the same values: 1e-10; a subset
-  of variables; the Schur path; a Gaussian-belief-propagation optimizer
-  raises.
+  of variables; the Schur path; a Gaussian-belief-propagation optimizer's
+  belief covariances against the JAX package's (1e-8), every variable and
+  one variable under damping.
 - `sample_with_factor`: the same standard-normal y through both packages'
   backward sweeps on the same factor layout (the same natural ordering):
   1e-10.
@@ -93,11 +94,25 @@ def test_covariances_schur_path_and_gbp_error():
     for n, c in schur.compute_covariances(values=out).items():
         np.testing.assert_allclose(c.numpy(), dense[n].numpy(), rtol=TOL, atol=TOL)
 
-    class FakeGBP(tt.GaussNewton):
-        method = "gbp"
-
-    with pytest.raises(NotImplementedError, match="belief propagation"):
-        tt.TheseusLayer(FakeGBP(obj)).compute_covariances(values=out)
+    # GBP: each variable's belief precision inverted, against the JAX
+    # package's on the same values (the loopy chain: GBP's beliefs are not
+    # the exact marginals there, and both packages give the same ones)
+    jobj = _chain(jt)
+    kw = dict(max_iterations=8, msg_iters=20, msg_damping=0.2)
+    jgbp = jt.GaussianBeliefPropagation(jobj, **kw)
+    jout, _ = jgbp.optimize()
+    names = [f"x{i}" for i in range(5)]
+    vals = _values(jout, names)
+    want = jt.TheseusLayer(jgbp).compute_covariances(values=dict(jobj.default_values(), **jout))
+    layer = tt.TheseusLayer(tt.GaussianBeliefPropagation(obj, **kw))
+    got = layer.compute_covariances(values=obj.default_values(vals))
+    assert set(got) == set(names)
+    for n in names:
+        np.testing.assert_allclose(got[n].numpy(), np.asarray(want[n]), rtol=1e-8, atol=1e-10)
+    sub = layer.compute_covariances(values=obj.default_values(vals), var_names=["x3"], damping=1e-3)
+    jsub = jt.TheseusLayer(jgbp).compute_covariances(values=dict(jobj.default_values(), **jout), var_names=["x3"],
+                                                     damping=1e-3)
+    np.testing.assert_allclose(sub["x3"].numpy(), np.asarray(jsub["x3"]), rtol=1e-8, atol=1e-10)
 
 
 def test_sample_with_factor_matches_jax():

@@ -174,6 +174,7 @@ class CompiledObjective:
             )
         self._index_cache: Dict[Tuple[int, str], torch.Tensor] = {}
         self._dense = None  # dense_A_b's tables, built on first use
+        self._raw = None  # flatten_raw's column tables, built on first use
 
     def _index(self, arr: np.ndarray, device) -> torch.Tensor:
         """A static numpy index table as a long tensor on `device`, cached so
@@ -439,6 +440,60 @@ class CompiledObjective:
 
     def batch_size(self, state):
         return next(iter(state.values())).shape[1]
+
+    # -- raw-coordinate flattening (for sampling-based optimizers) -------
+    @property
+    def total_raw_dim(self) -> int:
+        return sum(int(np.prod(self.var_groups[n].shape)) for n in self.var_names)
+
+    def _raw_tables(self):
+        """The type-major layout (each type's stack (N_t, *shape) flattened,
+        types in type_members order) against the raw layout (variables in
+        insertion order): `perm` takes type-major to raw, `inv` back."""
+        if self._raw is None:
+            start, off = {}, 0
+            for tk, members in self.type_members.items():
+                size = int(np.prod(self.groups_by_type[tk].shape))
+                for i, n in enumerate(members):
+                    start[n] = off + i * size
+                off += len(members) * size
+            perm = np.concatenate([start[n] + np.arange(int(np.prod(self.var_groups[n].shape)))
+                                   for n in self.var_names])
+            self._raw = (perm, np.argsort(perm))
+        return self._raw
+
+    def flatten_raw(self, state):
+        """state -> (B, total_raw_dim), variables in insertion order."""
+        b = self.batch_size(state)
+        perm, _ = self._raw_tables()
+        flat = torch.cat([state[tk].movedim(0, 1).reshape(b, -1) for tk in self.type_members], dim=1)
+        return flat[:, self._index(perm, flat.device)]
+
+    def unflatten_raw(self, vec):
+        """(B, total_raw_dim) -> state (no manifold projection applied)."""
+        b = vec.shape[0]
+        _, inv = self._raw_tables()
+        flat = vec[:, self._index(inv, vec.device)]
+        state, off = {}, 0
+        for tk, members in self.type_members.items():
+            shape = tuple(self.groups_by_type[tk].shape)
+            size = len(members) * int(np.prod(shape))
+            state[tk] = flat[:, off:off + size].reshape((b, len(members)) + shape).movedim(1, 0)
+            off += size
+        return state
+
+    def repeat_aux(self, aux, n: int):
+        """aux with every leaf's batch axis repeated n times, sample-major
+        (batch s * B + b): n states stacked on the batch axis evaluate
+        against it in one call."""
+        def rep(slots, leaves):
+            out = []
+            for s, a in zip(slots, leaves):
+                axis = 0 if (s.shared and not s.stacked) else 1
+                out.append(a if a.dim() <= axis else a.repeat(*[n if i == axis else 1 for i in range(a.dim())]))
+            return tuple(out)
+
+        return tuple((rep(bk.aux_slots, cf), rep(bk.weight_slots, w)) for bk, (cf, w) in zip(self.buckets, aux))
 
 
 def _family_bucket(fam_cf, bucket_i: int, row_offset: int, type_index, col_offset) -> BucketSpec:

@@ -77,15 +77,29 @@ class CostFunction:
         Lie exp/log inside take their analytic JVP rule, as under the JAX
         package's custom_jvp."""
         groups = tuple(v.group for v in self.optim_vars)
-        jac_op = torch.func.jacrev if getattr(self, "autograd_mode", "fwd") == "rev" else torch.func.jacfwd
+        fwd = getattr(self, "autograd_mode", "fwd") != "rev"
+        jac_op = torch.func.jacfwd if fwd else torch.func.jacrev
 
         def jfn(optim, aux):
+            # torch.func.jvp gives a 0-d float32 tensor combined with a Python
+            # scalar (0.5 * theta) a float64 tangent, and a float32 cost then
+            # mixes dtypes inside (an SE2 retract's theta is 0-d per
+            # instance): forward mode below float64 runs in float64 and
+            # rounds its results back
+            dtype = optim[0].dtype
+            up = fwd and dtype != torch.float64
+            if up:
+                optim = tuple(x.double() for x in optim)
+                aux = tuple(a.double() if a.is_floating_point() else a for a in aux)
+
             def at(*deltas):
                 err = self.error_impl(tuple(g.retract(x, d) for g, x, d in zip(groups, optim, deltas)), aux)
                 return err, err
 
             zeros = tuple(optim[0].new_zeros(g.dof) for g in groups)
             jacs, err = jac_op(at, argnums=tuple(range(len(groups))), has_aux=True)(*zeros)
+            if up:
+                return [j.to(dtype) for j in jacs], err.to(dtype)
             return list(jacs), err
 
         return jfn

@@ -24,9 +24,9 @@ backward reuses the forward's factor.
 
 Beyond the solve: `compute_samples` (posterior samples around a solution,
 the sparse path's backward sweep only), `compute_covariances` (exact
-marginal covariances: unit-column solves with the block factor, or one
-dense inverse) and `verify_jacobians` (every analytic cost against
-autodiff).
+marginal covariances: unit-column solves with the block factor, one dense
+inverse, or a GBP optimizer's belief blocks inverted) and
+`verify_jacobians` (every analytic cost against autodiff).
 """
 
 from __future__ import annotations
@@ -186,7 +186,7 @@ class TheseusLayer:
         dev = co.device
         with torch.no_grad():
             ns = self.optimizer.normal_builder.build(state, aux)
-            if isinstance(ns, SparseNormal):
+            if isinstance(ns, SparseNormal) and ns.builder.sched is not None:  # not PCG
                 bld = ns.builder
                 delta, _ = ns.solve(0.0, False)  # (B, D)
                 lflat = factorize(bld.sched, ns.ata)
@@ -218,10 +218,9 @@ class TheseusLayer:
         gradient). The sparse path factors the damped block H once and
         solves H x = e for the dof unit columns of each requested variable
         (folded into the batch: one factor-reusing solve, both level sweeps,
-        per variable); the dense and Schur paths invert H once. Returns
-        {name: (B, dof, dof)}."""
-        if getattr(self.optimizer, "method", None) == "gbp":
-            raise NotImplementedError("compute_covariances: Gaussian belief propagation is not ported")
+        per variable); a Gaussian-belief-propagation optimizer inverts each
+        variable's belief precision (exact on trees); the dense, Schur and
+        PCG paths invert H once. Returns {name: (B, dof, dof)}."""
         from .optim.normal import SparseNormal
         from .sparse.assemble import apply_block_damping
         from .sparse.cholesky import factorize, solve_with_factor
@@ -232,7 +231,14 @@ class TheseusLayer:
         out = {}
         with torch.no_grad():
             ns = self.optimizer.normal_builder.build(state, aux)
-            if isinstance(ns, SparseNormal):
+            if hasattr(ns, "marginals"):  # GBP: each variable's belief
+                _, lam_v = ns.marginals(damping)
+                for name in names:
+                    i, dv = var_index[name], co.var_groups[name].dof
+                    cov, info = torch.linalg.inv_ex(lam_v[i][:, :dv, :dv])
+                    out[name] = torch.where((info != 0)[:, None, None], torch.nan, cov)
+                return out
+            if isinstance(ns, SparseNormal) and ns.builder.sched is not None:  # not PCG
                 bld = ns.builder
                 ata = apply_block_damping(bld.pattern, ns.ata, damping, False, bld.damping_eps)
                 lflat = factorize(bld.sched, ata)

@@ -116,6 +116,10 @@ class NonlinearLeastSquares:
         # schur: predicate(name, group) -> True for the variables to eliminate
         # (default optim.schur.eliminate_points: every Euclidean variable)
         self.eliminate = opt_kwargs.pop("eliminate", None)
+        # the sparse linearization's solve: "direct" (block Cholesky) or
+        # "pcg" (block-Jacobi PCG, sparse/pcg.py, pcg_iters iterations)
+        self.sparse_solver = opt_kwargs.pop("sparse_solver", "direct")
+        self.pcg_iters = opt_kwargs.pop("pcg_iters", 100)
         # called as cb(optimizer, err (B,), delta (B, D), iteration)
         self.end_iter_callback = opt_kwargs.pop("end_iter_callback", None)
         self._normal_builder = None
@@ -142,7 +146,8 @@ class NonlinearLeastSquares:
 
                 self._normal_builder = SchurNormalBuilder(co, self.eliminate or eliminate_points)
             else:
-                self._normal_builder = SparseNormalBuilder(co, ordering=self.ordering)
+                self._normal_builder = SparseNormalBuilder(co, ordering=self.ordering, solver=self.sparse_solver,
+                                                           pcg_iters=self.pcg_iters)
         return self._normal_builder
 
     def _init_scalar_state(self, opts: NLSOptions) -> float:

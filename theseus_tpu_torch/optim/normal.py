@@ -9,7 +9,8 @@ the AtA diagonal.
   (`config.full_precision`), solved by optim/linear.py.
 - `SparseNormalBuilder` owns the static symbolic state (block pattern,
   elimination ordering, level schedule, flatten tables) and assembles AtA
-  blocks for the block Cholesky. `BlockNormal` / `BlockNormalBuilder` hold
+  blocks for the block Cholesky, or (solver="pcg") for the block-Jacobi
+  PCG of sparse/pcg.py. `BlockNormal` / `BlockNormalBuilder` hold
   what the sparse and the Schur backend (optim/schur.py) share.
 """
 
@@ -22,6 +23,7 @@ from .. import config
 from ..core.compiled import CompiledObjective
 from ..sparse.assemble import apply_block_damping, assemble, build_block_pattern
 from ..sparse.cholesky import NumericSchedule, sparse_block_solve
+from ..sparse.pcg import PCGSchedule, pcg_block_solve
 from .linear import DenseCholeskySolver, finite_or_zero
 from .ordering import symbolic_for
 
@@ -96,7 +98,10 @@ class SparseNormal(BlockNormal):
         rhs = self.atb_blocks
         if rhs_shift is not None:
             rhs = rhs - bld.unflatten(rhs_shift)
-        x = sparse_block_solve(bld.sched, ata, rhs)
+        if bld.solver == "pcg":
+            x = pcg_block_solve(bld.pcg_sched, ata, rhs, bld.pcg_iters, bld.pcg_tol)
+        else:
+            x = sparse_block_solve(bld.sched, ata, rhs)
         return finite_or_zero(bld.flatten(x))
 
 
@@ -168,11 +173,23 @@ class BlockNormalBuilder:
 
 
 class SparseNormalBuilder(BlockNormalBuilder):
-    """Adds the symbolic state: elimination ordering and level schedule."""
+    """Adds the solver's static state: for solver="direct" the elimination
+    ordering and level schedule, for solver="pcg" the block-Jacobi PCG's
+    matvec tables (no symbolic analysis; `sym` and `sched` are None)."""
 
     normal_cls = SparseNormal
 
-    def __init__(self, co: CompiledObjective, ordering="auto", damping_eps: float = 1e-8):
+    def __init__(self, co: CompiledObjective, ordering="auto", damping_eps: float = 1e-8,
+                 solver: str = "direct", pcg_iters: int = 100, pcg_tol: float = 1e-10):
         super().__init__(co, damping_eps)
-        self.sym = symbolic_for(self.pattern, ordering, co.var_names)
-        self.sched = NumericSchedule(self.sym, self.pattern)
+        if solver not in ("direct", "pcg"):
+            raise ValueError("sparse_solver must be 'direct' or 'pcg'")
+        self.solver = solver
+        self.pcg_iters = pcg_iters
+        self.pcg_tol = pcg_tol
+        if solver == "pcg":
+            self.sym = self.sched = None
+            self.pcg_sched = PCGSchedule(self.pattern)
+        else:
+            self.sym = symbolic_for(self.pattern, ordering, co.var_names)
+            self.sched = NumericSchedule(self.sym, self.pattern)

@@ -14,7 +14,8 @@ the identical problem.
 - An MLP of the JAX package's `utils/checks.py` `build_mlp`: its params, a
   list of {"w": (n_in, n_out), "b": (n_out,)} arrays, become the port's
   `utils.checks.MLP` with the same layout (the motion-planning models take
-  it as `mlp=`).
+  it as `mlp=`); the tactile trainer's {"meas", "weight"} params become its
+  two models (`tactile_models_from_params`).
 """
 
 from __future__ import annotations
@@ -87,3 +88,25 @@ def mlp_from_params(params, dtype: torch.dtype = torch.float32, device=None, act
         return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
     return MLP([t(p["w"]) for p in params], [t(p["b"]) for p in params], activation)
+
+
+def tactile_models_from_params(params, dtype: torch.dtype = torch.float32, device=None):
+    """The JAX package's `create_tactile_models` params {"meas", "weight"}
+    as the port's (TactileMeasurementModel, TactileWeightModel), for
+    `TactileTrainer(..., models=...)`."""
+    from .examples.tactile_pose_estimation import TactileMeasurementModel, TactileWeightModel
+
+    meas = mlp_from_params(params["meas"], dtype=dtype, device=device)
+    feature_dim = meas.weights[0].shape[0] // 2
+    return (TactileMeasurementModel(feature_dim, mlp=meas),
+            TactileWeightModel(mlp=mlp_from_params(params["weight"], dtype=dtype, device=device)))
+
+
+def tactile_params_from_arrays(arrays: Mapping[str, np.ndarray]):
+    """The {"meas", "weight"} params from flat arrays `meas_w0`, `meas_b0`,
+    ..., `weight_w0`, ... (scripts/make_tactile_golden.py writes them so)."""
+    def layers(part):
+        n = sum(1 for k in arrays if k.startswith(f"{part}_w"))
+        return [{"w": np.asarray(arrays[f"{part}_w{i}"]), "b": np.asarray(arrays[f"{part}_b{i}"])} for i in range(n)]
+
+    return {"meas": layers("meas"), "weight": layers("weight")}
