@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""On-card check of theseus_tpu_torch: the batched SE3 pose-graph, bundle-adjustment, inverse-kinematics, 2-D SE2 pose-graph, motion-planning and tactile LM solves, block-Jacobi PCG, DCEM and Gaussian belief propagation on one NVIDIA GPU.
+"""On-card check of theseus_tpu_torch: the batched SE3 pose-graph, bundle-adjustment, inverse-kinematics, 2-D SE2 pose-graph, motion-planning and tactile LM solves, block-Jacobi PCG, DCEM, Gaussian belief propagation and the learned-feature homography task on one NVIDIA GPU.
 
-Run from the root of a checkout, on a machine with one CUDA GPU and the CUDA
-toolkit (nvcc):
+Run from the root of a checkout, on a machine with one CUDA GPU, the CUDA
+toolkit (nvcc) and g++:
 
     python3 chip_smoke.py
 
@@ -43,7 +43,8 @@ kernel). In order:
 
 1. fails fast without a CUDA device or outside a checkout;
 2. builds the CUDA kernels from theseus_tpu_torch/csrc (nvcc, sm_90a, one
-   process per source, in parallel) and prints the build time and each
+   process per source, in parallel) and the native symbolic analysis from
+   theseus_tpu_torch/native (g++), and prints the build times and each
    kernel's registers and spills;
 3. kernel phase: every kernel against its plain PyTorch twin on the card, at
    the shapes the main paths give it (PGO: Between at K=257, B=128, the
@@ -140,7 +141,19 @@ kernel). In order:
    same way; gbp: the float32 forward with the counters around it, ms per
    sweep and per outer iteration, the final error beside LM's, float64
    kernels against twins, compute_covariances on a tree against the sparse
-   path's;
+   path's; homography: the learned-feature task (48 x 64 images, 4
+   channels, patch stride 4, 12 LM iterations, truncated backward over 2,
+   Adam 2e-3) trained 30 steps at batch 64 in float32 with the counters
+   around the steps (no kernel of the table lies on this path), forward and
+   backward() ms a step, the losses (finite, the least below the first),
+   one profiled step's idle share, 3 steps each at patch stride 1 and in
+   both autograd modes, the float32 step-0 gradient against float64's (as
+   trained, reported; with fixed damping and no stopping tests, held), and
+   the dense photometric fit at 60 x 80 (60 LM iterations) at batch 1
+   (h_true, the JAX example's 0.2 assertion) and 64 (float32 corner error
+   against float64's) with its ms per LM iteration; and in pgo2d the
+   native (g++) symbolic analysis of the 3500-pose graph timed against its
+   pure-Python twin, their tables equal;
 5. timing phase: ms per LM iteration (marginal window, as bench.py) for the
    level kernels, the whole-sweep kernels and the plain twins (PGO 64 x 16,
    256 x 128 and 2048 x 8, the grid; BA 16 x 200 x 16 and 128 x 4000 x 1), ms per
@@ -172,6 +185,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import math
 import re
 import subprocess
 import sys
@@ -465,6 +479,28 @@ DCEM_F64_TOL = 1e-8
 # and on the CPU alike), against the sparse path's, PLATEAU_RTOL_F64.
 GBP_MSG_ITERS, GBP_DAMPING, GBP_OUTER = 40, 0.3, 20
 GBP_TREE, GBP_TREE_SWEEPS = (64, 16), 70
+# The homography path (utils/examples/homography.py): the learned-feature
+# task at the JAX example's widths, 48 x 64 images, 4 feature channels,
+# patch stride 4 (468 points, 1872 residual rows), 12 LM iterations with
+# adaptive damping, a backward truncated to the last 2, Adam at 2e-3, at
+# batch 64 (the config's batch of 4 raised to a training run's) for the
+# config's 30 steps; then HOMOG_EXTRA steps each at patch stride 1 and in
+# both autograd modes. The float32 gradient at step 0 against the float64
+# gradient of the same step on the card: reported as trained, held
+# (HOMOG_GRAD_RTOL, HOMOG_GRAD_COS) with fixed damping and no stopping
+# tests (norm-relative error at batch 64 on an H100 80GB HBM3 at 700 W:
+# 1.3e-1, cosine 0.993, as trained; on a CPU at batch 32: 4.5e-1 as
+# trained, 9.0e-6 with fixed damping and no stopping tests). The dense photometric fit at 60 x 80, 60 LM
+# iterations, batch 1 (the JAX example's h_true; its 0.2 entrywise
+# assertion) and 64 (RandomGeoAug homographies; the float32 corner error
+# against the float64 solve's, FIT_CORNER_TOL pixels), and its ms per LM
+# iteration in the window (t(N + K) - t(N)) / K, FIT_WINDOW = (N, K).
+HOMOG_HW, HOMOG_CHANNELS, HOMOG_STRIDE, HOMOG_ITERS, HOMOG_BWD = (48, 64), 4, 4, 12, 2
+HOMOG_BATCH, HOMOG_STEPS, HOMOG_EXTRA, HOMOG_LR, HOMOG_SEED = 64, 30, 3, 2e-3, 0
+HOMOG_GRAD_RTOL, HOMOG_GRAD_COS = 1e-3, 0.99999
+FIT_HW, FIT_ITERS, FIT_BATCHES, FIT_WINDOW = (60, 80), 60, (1, 64), (10, 20)
+FIT_H_TRUE = (1.02, 0.01, 1.5, -0.02, 0.98, -1.0, 1e-4, -5e-5)
+FIT_ASSERT, FIT_CORNER_TOL = 0.2, 0.05
 
 
 class CheckFailed(AssertionError):
@@ -591,6 +627,13 @@ def phase_build():
     _cuda.lib()
     print(f"[build] {path.relative_to(ROOT)} ready in {time.perf_counter() - t0:.2f} s "
           f"(nvcc time {_cuda.build_seconds:.2f} s; 0 means a cached build was reused)")
+    from theseus_tpu_torch import native
+
+    t0 = time.perf_counter()
+    npath = native.build()
+    native.lib()
+    print(f"[build] native symbolic analysis {npath.relative_to(ROOT)} ready in {time.perf_counter() - t0:.2f} s "
+          f"(g++ time {native.build_seconds:.2f} s; 0 means a cached build was reused)")
     # the -Xptxas -v report for the d = 6 instantiations the PGO path runs
     log = _cuda.build_log().splitlines()
     for i, line in enumerate(log):
@@ -1935,6 +1978,27 @@ def phase_pgo2d(dev, card):
           f"{sum(len(c) <= 4 for c in sched.sym.levels)} levels of at most 4 columns (one block a column at B=1)")
     step("objectives and symbolic analyses")
 
+    # the symbolic analysis of this graph (AMD), through the g++-built
+    # native/ library and through its pure-Python twin: seconds of each and
+    # equal tables, slot for slot
+    from theseus_tpu_torch import native
+    from theseus_tpu_torch.sparse.structure import symbolic_factor
+
+    sym_s, tables = {}, {}
+    for label, use_native in (("native", True), ("python", False)):
+        t0 = time.perf_counter()
+        sf = symbolic_factor(pattern.n_vars, pattern.pairs, pattern.d, "amd", native=use_native)
+        sym_s[label] = time.perf_counter() - t0
+        tables[label] = (sf.perm.tolist(), [c.tolist() for c in sf.col_rows], sf.upd_lists,
+                         [lv.tolist() for lv in sf.levels], sf.tail_start, sf.block_of)
+    same = {k: a == b for k, a, b in zip(("perm", "col_rows", "upd_lists", "levels", "tail_start", "block_of"),
+                                         tables["native"], tables["python"])}
+    print(f"[pgo2d] symbolic analysis of the {n}-pose graph (AMD, d = 3) on the host: native (g++ -O2, built in "
+          f"{native.build_seconds:.2f} s) {sym_s['native']:.3f} s, pure Python {sym_s['python']:.3f} s "
+          f"({sym_s['python'] / sym_s['native']:.1f}x); tables equal: {json.dumps(same)}; on {card}")
+    check(all(same.values()), f"pgo2d: the native symbolic tables differ from the Python twin's: {same}")
+    step("native and Python symbolic analyses")
+
     # rows 2, 3, 4a and 4b against their twins at this graph's shapes
     max_abs, lv32, sys32 = {}, None, None
     for dn, prob in (("float32", p32), ("float64", p64)):
@@ -2131,7 +2195,7 @@ def phase_pgo2d(dev, card):
     step("SO3")
     print(f"[pgo2d] seconds: {json.dumps(steps)}")
     stats = {"max_abs": max_abs, "times": times, "bounds": bounds, "library": library, "lm_iter_ms": iter_ms,
-             "idle": idle, "levels": n_levels}
+             "idle": idle, "levels": n_levels, "symbolic_s": sym_s}
     return launches, stats
 
 
@@ -3164,6 +3228,210 @@ def phase_gbp(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# the homography path: learned-feature training and the dense photometric fit
+# ---------------------------------------------------------------------------
+def _homog_step(trainer, pairs):
+    """One Adam step with its forward (the loss) and backward() timed
+    apart, each ended by a sync: (loss, forward ms, backward ms)."""
+    import torch
+
+    trainer.optimizer.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = trainer.loss(*pairs)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    trainer.optimizer.step()
+    return float(loss.detach()), (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+def _homog_idle(trainer, pairs):
+    """(wall ms, device busy ms, device kernels) of one training step under
+    torch.profiler (device activity only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step(*pairs)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return wall, sum(e.time_range.elapsed_us() for e in events) / 1e3, len(events)
+
+
+def _grads(module):
+    import torch
+
+    return torch.cat([p.grad.reshape(-1) for p in module.parameters()])
+
+
+def phase_homography(dev, card):
+    """The learned-feature homography task (HomographyTrainer, truncated
+    backward through TheseusLayer) trained at batch HOMOG_BATCH in float32
+    on the card, with the counters reset just before and read just after
+    (no kernel of the table lies on this path: the dense linearization is
+    one scatter, a batched matmul, cholesky_ex and two solve_triangular,
+    the CNN is conv2d); per step the forward and backward() ms and the
+    losses; one profiled step's idle share; stride 1 and the fwd/rev
+    ablation; the float32 step-0 gradient against float64's; then the
+    dense photometric fit at 60 x 80."""
+    import torch
+
+    from theseus_tpu_torch import _cuda
+    from theseus_tpu_torch.utils.examples import homography as hg
+    from theseus_tpu_torch.utils.examples.easyaug import warp_images
+
+    h, w = HOMOG_HW
+    gen = torch.Generator(device=dev).manual_seed(HOMOG_SEED)
+
+    def pairs(batch=HOMOG_BATCH, dtype=torch.float32):
+        return hg.make_pairs(batch, h, w, generator=gen, dtype=dtype, device=dev)
+
+    def trainer(stride=HOMOG_STRIDE, mode="fwd", dtype=torch.float32, cnn_state=None):
+        tr = hg.HomographyTrainer(h, w, HOMOG_CHANNELS, stride, mode, HOMOG_ITERS, HOMOG_BWD, HOMOG_LR, dtype,
+                                  dev, generator=torch.Generator(device=dev).manual_seed(HOMOG_SEED + 1))
+        if cnn_state is not None:
+            tr.cnn.load_state_dict({k: v.to(dtype) for k, v in cnn_state.items()})
+        return tr
+
+    tr = trainer()
+    init_state = {k: v.clone() for k, v in tr.cnn.state_dict().items()}
+    n_pts = tr.patch.shape[0]
+    print(f"[homography] learned features: {h}x{w} images, {HOMOG_CHANNELS} channels, patch stride {HOMOG_STRIDE} "
+          f"({n_pts} points, {n_pts * HOMOG_CHANNELS} residual rows), {HOMOG_ITERS} LM iterations, truncated "
+          f"backward over {HOMOG_BWD}, Adam {HOMOG_LR}, batch {HOMOG_BATCH}, float32, on {card}")
+    data = [pairs() for _ in range(HOMOG_STEPS)]
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    losses, fwd_ms, bwd_ms = [], [], []
+    grad0 = None
+    for i, batch in enumerate(data):
+        loss, f_ms, b_ms = _homog_step(tr, batch)
+        if i == 0:
+            grad0 = _grads(tr.cnn).detach().clone()
+        losses.append(loss)
+        fwd_ms.append(f_ms)
+        bwd_ms.append(b_ms)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.launches)
+    print(f"[homography] launches of the table's kernels over the {HOMOG_STEPS} steps: {json.dumps(launches)} "
+          f"(none expected: no kernel of the table lies on this path)")
+    check(not any(launches.values()), "homography: a kernel of the table ran on a path that has none")
+    print(f"[homography] losses (mean corner error, px): {json.dumps([round(x, 6) for x in losses])}")
+    print(f"[homography] forward ms a step: {json.dumps([round(x, 3) for x in fwd_ms])}")
+    print(f"[homography] backward() ms a step: {json.dumps([round(x, 3) for x in bwd_ms])}")
+    steady_f = sorted(fwd_ms[1:])[len(fwd_ms[1:]) // 2]
+    steady_b = sorted(bwd_ms[1:])[len(bwd_ms[1:]) // 2]
+    wall, busy, n_events = _homog_idle(tr, pairs())
+    idle = 1 - busy / wall
+    print(f"[homography] steps 2..{HOMOG_STEPS} median: forward {steady_f:.3f} ms, backward() {steady_b:.3f} ms; "
+          f"first step {fwd_ms[0]:.3f} + {bwd_ms[0]:.3f} ms; one profiled step: wall {wall:.2f} ms, device busy "
+          f"{busy:.2f} ms (idle {100 * idle:.1f} %), {n_events} device kernels; on {card}")
+    check(all(math.isfinite(x) for x in losses), "homography: a non-finite loss")
+    check(min(losses) < losses[0], f"homography: training did not reduce the corner error ({losses[0]} first)")
+
+    variants = {}
+    for label, stride, mode in (("stride1", 1, "fwd"), ("fwd", HOMOG_STRIDE, "fwd"), ("rev", HOMOG_STRIDE, "rev")):
+        tv = trainer(stride, mode, cnn_state=init_state)
+        rows = [_homog_step(tv, batch) for batch in data[:HOMOG_EXTRA]]
+        variants[label] = {"losses": [r[0] for r in rows], "forward_ms": [r[1] for r in rows],
+                           "backward_ms": [r[2] for r in rows]}
+        np_v = tv.patch.shape[0]
+        print(f"[homography] {label}: patch stride {stride} ({np_v} points, {np_v * HOMOG_CHANNELS} rows), "
+              f"autograd_mode {mode}: forward ms {json.dumps([round(r[1], 3) for r in rows])}, backward() ms "
+              f"{json.dumps([round(r[2], 3) for r in rows])}, losses {json.dumps([round(r[0], 6) for r in rows])}; "
+              f"on {card}")
+        check(all(math.isfinite(r[0]) for r in rows), f"homography {label}: a non-finite loss")
+
+    # the float32 gradient at step 0 against the float64 gradient of the same
+    # step: as trained (reported), and with fixed damping and no stopping
+    # tests (held). With adaptive damping an LM step's accept or reject, and
+    # with the tests an element's stop, is decided by error comparisons at
+    # the rounding level, so the two precisions can truncate the backward
+    # through different iterations: a different function, not a rounding
+    # error of the same one.
+    import dataclasses
+
+    def step0_grad(dtype, **opts):
+        t = trainer(dtype=dtype, cnn_state=init_state)
+        t.layer.optimizer.opts = dataclasses.replace(t.layer.optimizer.opts, **opts)
+        t.loss(*(x.to(dtype) for x in data[0])).backward()
+        return _grads(t.cnn).double()
+
+    grad_cmp = {}
+    for label, g32, opts in (
+            ("as trained", grad0.double(), {}),
+            ("fixed damping, no stopping tests", None,
+             {"adaptive_damping": False, "abs_err_tolerance": 0.0, "rel_err_tolerance": 0.0})):
+        if g32 is None:
+            g32 = step0_grad(torch.float32, **opts)
+        g64 = step0_grad(torch.float64, **opts)
+        rel = float((g32 - g64).norm() / g64.norm())
+        cos = float(torch.dot(g32, g64) / (g32.norm() * g64.norm()))
+        grad_cmp[label] = {"rel": rel, "cos": cos}
+        held = "held" if opts else "reported, not held"
+        print(f"[homography] step-0 CNN gradient ({label}), float32 against float64 on the card: norm-relative "
+              f"error {rel:.3e}, cosine {cos:.8f} ({held}" + (f": tol {HOMOG_GRAD_RTOL:.0e}, min cosine "
+                                                            f"{HOMOG_GRAD_COS})" if opts else ")"))
+    fixed = grad_cmp["fixed damping, no stopping tests"]
+    check(fixed["rel"] <= HOMOG_GRAD_RTOL and fixed["cos"] >= HOMOG_GRAD_COS,
+          "homography: float32 gradient off the float64 one")
+
+    # the dense photometric fit at 60 x 80
+    fh, fw = FIT_HW
+    fit = {}
+    h_true = torch.tensor(FIT_H_TRUE, dtype=torch.float64, device=dev)
+    for b in FIT_BATCHES:
+        img1 = hg.smooth_images(b, fh, fw, generator=gen, dtype=torch.float64, device=dev)
+        if b == 1:
+            h8s = h_true[None]
+        else:
+            geo, _ = hg.pair_augmenters()
+            h8s = geo.transforms(geo.draw(b, gen, torch.float64, dev), fh, fw)
+        img2 = warp_images(img1, h8s)
+        est = {}
+        for dtype in (torch.float32, torch.float64):
+            est[dtype], info = hg.fit_photometric(img1.to(dtype), img2.to(dtype), FIT_ITERS)
+            check(bool(torch.isfinite(est[dtype]).all()), f"fit batch {b}: non-finite estimate")
+        ce = {str(dt)[6:]: float(hg.corner_error(e.double(), h8s, fh, fw)) for dt, e in est.items()}
+        ms = {}
+        for dtype in (torch.float32, torch.float64):
+            layer, inputs = hg.build_photometric(img1.to(dtype), img2.to(dtype), FIT_ITERS)
+            kw = {"abs_err_tolerance": 0.0, "rel_err_tolerance": 0.0}
+
+            def run(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    layer.forward(inputs, optimizer_kwargs={"max_iterations": n, **kw})
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0
+
+            n0, k = FIT_WINDOW
+            run(n0)
+            t_small = min(run(n0) for _ in range(3))
+            t_large = min(run(n0 + k) for _ in range(3))
+            ms[str(dtype)[6:]] = (t_large - t_small) / k * 1e3
+        fit[b] = {"corner_error_px": ce, "lm_iter_ms": ms}
+        dev_entry = float((est[torch.float32].double() - h8s).abs().max())
+        print(f"[homography] dense photometric fit {fh}x{fw}, batch {b}, {FIT_ITERS} LM iterations from identity: "
+              f"corner error (px) {json.dumps(ce)}, float32 estimate max entrywise deviation from the truth "
+              f"{dev_entry:.3e}; ms per LM iteration (t({n0 + k}) - t({n0})) / {k}: {json.dumps(ms)}; on {card}")
+        if b == 1:
+            check(dev_entry < FIT_ASSERT, f"fit: the float32 estimate is {dev_entry:.3e} off h_true")
+        else:
+            check(abs(ce["float32"] - ce["float64"]) <= FIT_CORNER_TOL,
+                  f"fit batch {b}: float32 corner error {ce['float32']:.4f} vs float64 {ce['float64']:.4f} px")
+    return {"losses": losses, "forward_ms": fwd_ms, "backward_ms": bwd_ms, "steady_forward_ms": steady_f,
+            "steady_backward_ms": steady_b, "idle": idle, "variants": variants, "grad": grad_cmp, "fit": fit}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: timing
 # ---------------------------------------------------------------------------
 def lm_iter_ms(prob, n_small=5, extra=20, reps=3):
@@ -3740,6 +4008,7 @@ def main() -> int:
     launches["pcg"], pcg = timed("pcg", phase_pcg, dev, card)
     launches["dcem"], dcem = timed("dcem", phase_dcem, dev, card)
     launches["gbp"], gbp = timed("gbp", phase_gbp, dev, card)
+    homog = timed("homography", phase_homography, dev, card)
     iters, times, dev_times, train_ms, bounds, library = timed("timing", phase_timing, dev, card, twin_ms)
     timed("profile", phase_profile, dev, card)
     check("jax" not in sys.modules and "theseus_tpu" not in sys.modules, "jax was imported")
@@ -3796,7 +4065,8 @@ def main() -> int:
                       "planning_covariances_ms": plan["covariances_ms"], "tactile_lm_iter_ms": tac["lm_iter_ms"],
                       "tactile_idle": tac["idle"], "tactile_mode_ms": tac["mode_ms"],
                       "tactile_sgd_losses": tac["sgd_losses"], "pcg_lm_iter_ms": pcg["lm_iter_ms"],
-                      "pcg_idle": pcg["idle"], "dcem": dcem, "gbp": gbp}))
+                      "pcg_idle": pcg["idle"], "dcem": dcem, "gbp": gbp, "homography": homog,
+                      "pgo2d_symbolic_s": pgo2d["symbolic_s"]}))
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; seconds a phase: {json.dumps(phase_s)}")
     print(json.dumps({"kernels": kernels}))
     print(card)

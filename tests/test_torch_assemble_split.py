@@ -11,7 +11,11 @@ The kernel itself runs only on the card (tests/test_torch_cuda.py); here:
 - a numpy model of the kernel's order (chunks, thread partials, warp tree,
   warps in order; short outputs item by item) matches the plain twin
   `assemble_blocks_plain` to 1e-12 in float64, with SPLIT forced low so that
-  PGO outputs split too.
+  PGO outputs split too;
+- an unvectorized objective (one bucket per cost: more sources than the
+  kernel's MAX_SOURCES) is launched with its buckets merged by class
+  (`merge_sources`, `merge_blocks`): the model on the merged tables and
+  blocks gives the unmerged model's bits and matches the twin.
 """
 
 import numpy as np
@@ -25,6 +29,7 @@ from theseus_tpu_torch.sparse.assemble import _pad_jac
 from theseus_tpu_torch.sparse.assemble_kernel import (
     GMAX,
     ITEMS_PER_CHUNK,
+    MAX_SOURCES,
     SPLIT,
     SPLIT_THREADS,
     WARP,
@@ -32,6 +37,8 @@ from theseus_tpu_torch.sparse.assemble_kernel import (
     build_assembly_tables,
     chunk_bounds,
     chunk_count,
+    merge_blocks,
+    merge_sources,
     split_geometry,
 )
 from theseus_tpu_torch.utils.examples.bundle_adjustment import ba_values, build_ba_objective, synthetic_ba
@@ -181,3 +188,28 @@ def test_kernel_order_model_matches_twin(kind, split, bsz):
     for got, want in ((ata, want_ata.numpy()), (atb, want_atb.numpy())):
         scale = np.abs(want).max()
         np.testing.assert_allclose(got, want, atol=1e-12 * scale, rtol=0)
+
+
+@pytest.mark.parametrize("split", [SPLIT, 1])
+def test_merged_sources_keep_the_order_and_bits(split):
+    """PGO 20 poses x 3 compiled with vectorize=False: 1 + 2 x 21 sources."""
+    dt, bsz = torch.float64, 3
+    gt, edges, meas, init = synthetic_pose_graph(20, bsz, seed=1, dtype=dt, device="cpu")
+    obj, _ = build_pgo_objective(20, edges, meas, gt[0], dtype=dt, device="cpu")
+    co = obj.compile(vectorize=False)
+    values = obj.default_values(pose_values(init))
+    pattern = SparseNormalBuilder(co).pattern
+    blocks = [([_pad_jac(j, pattern.d) for j in jacs], err)
+              for jacs, err in co.linearize_blocks(co.pack(values, bsz), co.build_aux(values, bsz))]
+    t = build_assembly_tables(pattern, split=split)
+    assert len(t.sources) == 1 + 2 * len(edges) > MAX_SOURCES
+    merged, members = merge_sources(t, pattern, [int(err.shape[2]) for _, err in blocks])
+    assert len(merged.sources) == 3 and [len(m) for m in members] == [1, len(edges)]
+    assert merge_sources(t, pattern, [int(err.shape[2]) for _, err in blocks])[0] is merged  # cached
+    np.testing.assert_array_equal(merged.ata_ptr, t.ata_ptr)
+    mblocks = merge_blocks(members, blocks)
+    got, want = _model(merged, mblocks, bsz), _model(t, blocks, bsz)
+    twin = assemble_blocks_plain(pattern, blocks)
+    for g, w, p in zip(got, want, twin):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_allclose(g, p.numpy(), atol=1e-12 * np.abs(w).max(), rtol=0)

@@ -1409,3 +1409,99 @@ def test_gbp_on_card_matches_cpu(cuda_device):
         res[device.type] = (torch.stack([out[f"pose_{i}"] for i in range(16)]).cpu(), cov.cpu())
     torch.testing.assert_close(res["cuda"][0], res["cpu"][0], rtol=1e-10, atol=1e-10)
     torch.testing.assert_close(res["cuda"][1], res["cpu"][1], rtol=1e-8, atol=1e-10)
+
+
+# ---------------------------------------------------------------------------
+# the utilities, the native symbolic analysis and the homography task
+# (no kernel of the table on these paths; the unvectorized PGO solve runs
+# the Between and assembly kernels at K = 1)
+# ---------------------------------------------------------------------------
+def test_warp_and_easyaug_on_card_match_cpu(cuda_device):
+    from theseus_tpu_torch.utils.examples import easyaug
+    from theseus_tpu_torch.utils.warp import bilinear_sample, homography_transform, image_grid
+
+    rng = np.random.default_rng(0)
+    img = torch.as_tensor(rng.uniform(size=(20, 26, 3)))
+    h8 = torch.tensor([1.02, 0.01, 1.5, -0.02, 0.98, -1.0, 1e-4, -5e-5], dtype=torch.float64)
+    xy = homography_transform(h8, image_grid(20, 26, dtype=torch.float64))
+    want = bilinear_sample(img, xy)
+    got = bilinear_sample(img.to(cuda_device), homography_transform(h8.to(cuda_device), image_grid(
+        20, 26, dtype=torch.float64, device=cuda_device)))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-12, rtol=1e-12)
+
+    imgs = torch.as_tensor(rng.uniform(size=(4, 2, 20, 26)))
+    photo = easyaug.RandomPhotoAug()
+    photo.set_all_probs(0.7)
+    draws = photo.draw(4, 20, 26, torch.Generator().manual_seed(0), torch.float64)
+    on_card = {op: {k: v.to(cuda_device) for k, v in d.items()} for op, d in draws.items()}
+    torch.testing.assert_close(photo.apply(imgs.to(cuda_device), on_card).cpu(), photo.apply(imgs, draws),
+                               atol=1e-12, rtol=1e-12)
+    geo = easyaug.RandomGeoAug()
+    gd = geo.draw(4, torch.Generator().manual_seed(1), torch.float64)
+    out, mats = geo.forward(imgs.to(cuda_device), return_transform=True,
+                            draws={k: v.to(cuda_device) for k, v in gd.items()})
+    want_out, want_mats = geo.forward(imgs, return_transform=True, draws=gd)
+    torch.testing.assert_close(mats.cpu(), want_mats, atol=1e-12, rtol=1e-12)
+    torch.testing.assert_close(out.cpu(), want_out, atol=1e-10, rtol=1e-10)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    aug = photo.forward(geo.forward(imgs.to(cuda_device), gen), gen)
+    assert aug.device.type == "cuda" and bool(torch.isfinite(aug).all())
+
+
+def test_learned_homography_step_on_card_matches_cpu(cuda_device):
+    from theseus_tpu_torch.utils.examples import homography as hg
+
+    def trainer(dev):
+        return hg.HomographyTrainer(48, 64, 4, 8, "fwd", 4, dtype=torch.float64, device=dev,
+                                    generator=torch.Generator().manual_seed(0) if dev == "cpu" else None)
+
+    cpu = trainer("cpu")
+    card = trainer(cuda_device)
+    card.cnn.load_state_dict(cpu.cnn.state_dict())
+    pairs = hg.make_pairs(4, 48, 64, generator=torch.Generator().manual_seed(1), dtype=torch.float64, device="cpu")
+    want = cpu.step(*pairs)
+    got = card.step(*(p.to(cuda_device) for p in pairs))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-9, rtol=1e-9)
+    for (name, a), (_, b) in zip(card.cnn.named_parameters(), cpu.cnn.named_parameters()):
+        torch.testing.assert_close(a.grad.cpu(), b.grad, atol=1e-8, rtol=1e-8, msg=name)
+    f32 = hg.HomographyTrainer(48, 64, 4, 4, "rev", 4, device=cuda_device)
+    loss = f32.step(*(p.float().to(cuda_device) for p in pairs))
+    assert bool(torch.isfinite(loss)) and all(bool(torch.isfinite(p.grad).all()) for p in f32.cnn.parameters())
+
+
+def test_unvectorized_pgo_solve_runs_kernels_at_k1(cuda_device):
+    gt, edges, meas, init = synthetic_pose_graph(16, 4, seed=0, dtype=torch.float64, device=cuda_device)
+
+    def solve(vectorize):
+        obj, _ = build_pgo_objective(16, edges, meas, gt[0], dtype=torch.float64, device=cuda_device)
+        from theseus_tpu_torch.layer import TheseusLayer
+
+        layer = TheseusLayer(LevenbergMarquardt(obj, max_iterations=8, adaptive_damping=True,
+                                                linearization="sparse"), vectorize=vectorize)
+        _cuda.reset_launches()
+        with pytest.warns(UserWarning) if not vectorize else contextlib.nullcontext():
+            out, info = layer.forward(pose_values(init))
+        torch.cuda.synchronize()
+        assert all(bk.k == 1 for bk in obj.compile().buckets) or vectorize
+        return torch.stack([out[f"pose_{i}"] for i in range(16)]), info.last_err, dict(_cuda.launches)
+
+    vec, vec_err, _ = solve(True)
+    off, off_err, launches = solve(False)
+    assert launches["between_se3"] > 0 and launches["assemble_blocks"] > 0
+    torch.testing.assert_close(off, vec, atol=1e-10, rtol=1e-10)
+    torch.testing.assert_close(off_err, vec_err, atol=1e-10, rtol=1e-10)
+
+
+def test_native_build_in_fresh_directory(cuda_device, tmp_path, monkeypatch):
+    import theseus_tpu_torch.native as native
+    from theseus_tpu_torch.sparse.structure import symbolic_factor
+
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "build_root", lambda: tmp_path / "_build")
+    path = native.build()
+    assert path.exists() and native.build_seconds > 0
+    pairs = {(i, i + 1) for i in range(39)} | {(0, 20), (5, 30)}
+    for ordering in ("amd", "nd", "natural"):
+        a = symbolic_factor(40, pairs, 3, ordering)
+        b = symbolic_factor(40, pairs, 3, ordering, native=False)
+        assert a.perm.tolist() == b.perm.tolist() and a.block_of == b.block_of and a.upd_lists == b.upd_lists

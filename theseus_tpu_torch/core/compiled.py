@@ -136,7 +136,9 @@ class CompiledObjective:
         device: torch.device,
         type_segments: Optional[Dict[str, list]] = None,
         families: Sequence[str] = (),
+        vectorized: bool = True,
     ):
+        self.vectorized = vectorized
         self.var_names = tuple(var_names)
         self.var_groups = dict(var_groups)
         self.buckets = tuple(buckets)
@@ -535,9 +537,13 @@ def _family_bucket(fam_cf, bucket_i: int, row_offset: int, type_index, col_offse
     )
 
 
-def compile_objective(objective) -> CompiledObjective:
+def compile_objective(objective, vectorize: bool = True) -> CompiledObjective:
     """Bucket cost functions by schema and freeze all index arrays. A
-    CostFamily is always a bucket of its own."""
+    CostFamily is always a bucket of its own.
+
+    vectorize=False gives every cost function a bucket of its own (K = 1),
+    the ablation of running without vectorization: the same values, one
+    evaluation (and on the card one kernel launch) per cost."""
     from .family import CostFamily, VariableFamily
 
     cfs = list(objective.cost_functions.values())
@@ -621,7 +627,10 @@ def compile_objective(objective) -> CompiledObjective:
     bucket_map: Dict = {}
     order: List = []
     for cf in cfs:
-        key = ("__family__", cf.name) if isinstance(cf, CostFamily) else cf.schema()
+        if isinstance(cf, CostFamily):
+            key = ("__family__", cf.name)
+        else:
+            key = cf.schema() if vectorize else (cf.schema(), cf.name)
         if key not in bucket_map:
             bucket_map[key] = []
             order.append(key)
@@ -684,4 +693,5 @@ def compile_objective(objective) -> CompiledObjective:
         device=objective.device,
         type_segments=type_segments,
         families=families,
+        vectorized=vectorize,
     )

@@ -9,13 +9,14 @@ objective fixes the dtype and the device every solve runs in: the card
 
 from __future__ import annotations
 
+import warnings
 from collections import OrderedDict
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from ..config import resolve_device
+from ..config import full_precision, resolve_device
 from .compiled import CompiledObjective, compile_objective
 from .cost_function import CostFunction
 from .family import CostFamily, VariableFamily
@@ -31,6 +32,9 @@ class Objective:
         self.dtype = dtype
         self.device = resolve_device(device)
         self._compiled: Optional[CompiledObjective] = None
+        # compile(vectorize=...) as last asked explicitly (None: never)
+        self._explicit_vectorize: Optional[bool] = None
+        self._warned_unvectorized = False
 
     def _register_optim(self, v: ManifoldVariable):
         fam = getattr(v, "family", None)
@@ -68,9 +72,68 @@ class Objective:
         self._compiled = None
         return self
 
-    def compile(self) -> CompiledObjective:
-        if self._compiled is None:
-            self._compiled = compile_objective(self)
+    def erase(self, name: str):
+        """Remove a cost function (or cost family) by name, and every
+        variable, variable family and aux variable that no remaining cost
+        references. Returns the removed cost."""
+        cf = self.cost_functions.pop(name)
+        still = set()
+        for c in self.cost_functions.values():
+            for group in _references(c):
+                still.update(group)
+        registries = (self.optim_vars, self.var_families, self.aux_vars)
+        for registry, names in zip(registries, _references(cf)):
+            for n in names:
+                if n not in still:
+                    registry.pop(n, None)
+        self._compiled = None
+        return cf
+
+    def has_cost_function(self, name: str) -> bool:
+        return name in self.cost_functions
+
+    def get_cost_function(self, name: str) -> Optional[CostFunction]:
+        return self.cost_functions.get(name)
+
+    def size_cost_functions(self) -> int:
+        return len(self.cost_functions)
+
+    def size_variables(self) -> int:
+        return len(self.optim_vars)
+
+    def size_aux_vars(self) -> int:
+        return len(self.aux_vars)
+
+    def dim(self) -> int:
+        """Rows of the error vector: a cost family counts all its members."""
+        return sum(
+            cf.total_dim() if isinstance(cf, CostFamily) else cf.dim()
+            for cf in self.cost_functions.values()
+        )
+
+    def compile(self, vectorize: Optional[bool] = None) -> CompiledObjective:
+        """The compiled view. vectorize True buckets costs by schema (the
+        default); False gives every cost a bucket of its own (K = 1), the
+        ablation of running without vectorization.
+
+        None keeps the last explicit choice, else vectorizes: an explicit
+        compile(vectorize=False) is honoured by the calls the optimizer and
+        the layer make with no argument (their state and aux are packed for
+        that schema), with a one-time UserWarning so that staying
+        unvectorized is never silent."""
+        if vectorize is not None:
+            self._explicit_vectorize = bool(vectorize)
+        want = True if self._explicit_vectorize is None else self._explicit_vectorize
+        if vectorize is None and not want and not self._warned_unvectorized:
+            warnings.warn(
+                "reusing an explicitly-requested vectorize=False compilation from the "
+                "default path; call compile(vectorize=True) to return to schema-bucketed "
+                "vectorization",
+                stacklevel=2,
+            )
+            self._warned_unvectorized = True
+        if self._compiled is None or self._compiled.vectorized != want:
+            self._compiled = compile_objective(self, vectorize=want)
         return self._compiled
 
     def default_values(self, input_tensors: Optional[Dict] = None) -> Dict:
@@ -91,3 +154,35 @@ class Objective:
         if missing:
             raise ValueError(f"No data for optimization variables {missing}")
         return values
+
+    def _eval_at(self, fn_name: str, values, input_tensors):
+        co = self.compile()
+        values = values or self.default_values(input_tensors)
+        b = co.resolve_batch_size(values)
+        state = co.pack(values, b)
+        aux = co.build_aux(values, b)
+        with full_precision():
+            return getattr(co, fn_name)(state, aux)
+
+    def error(self, values: Optional[Dict] = None, input_tensors: Optional[Dict] = None) -> torch.Tensor:
+        """Weighted error vector (B, dim()) at `values`, or at
+        `default_values(input_tensors)` when values is None."""
+        return self._eval_at("error", values, input_tensors)
+
+    def error_metric(self, values: Optional[Dict] = None, input_tensors: Optional[Dict] = None) -> torch.Tensor:
+        """0.5 * ||e||^2 per batch element (B,)."""
+        return self._eval_at("error_metric", values, input_tensors)
+
+
+def _references(c):
+    """(optim variable names, variable family names, aux names) that the
+    cost or cost family c references."""
+    if isinstance(c, CostFamily):
+        ov = [m.name for m in c.members if not isinstance(m, tuple)]
+        fams = [m[0].name for m in c.members if isinstance(m, tuple)]
+        aux = list(c.template.aux_vars) + list(c.template.weight.aux_vars)
+    else:
+        ov = [v.name for v in c.optim_vars]
+        fams = [v.family.name for v in c.optim_vars if getattr(v, "family", None) is not None]
+        aux = list(c.aux_vars) + list(c.weight.aux_vars)
+    return ov, fams, [a.name for a in aux]

@@ -54,9 +54,14 @@ def _detach(tree):
 
 
 class TheseusLayer:
-    def __init__(self, optimizer: NonlinearLeastSquares):
+    def __init__(self, optimizer: NonlinearLeastSquares, vectorize: bool = True):
+        """vectorize=False compiles the objective with one bucket per cost
+        (`Objective.compile(vectorize=False)`, kept for every later solve);
+        True leaves the objective's compilation as it is."""
         self.optimizer = optimizer
         self.objective = optimizer.objective
+        if not vectorize:
+            self.objective.compile(vectorize=False)
 
     def forward(
         self,

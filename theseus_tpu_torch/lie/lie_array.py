@@ -143,6 +143,9 @@ class LieArray:
 
     jinv = jinverse
 
+    def jinv(self):
+        return self.jinverse()
+
     def jlocal(self, other: "LieArray"):
         self._check(other)
         return self.group.jlocal(self.data, other.data)

@@ -61,6 +61,14 @@ def egrad_to_tangent(g, grad):
     return grad
 
 
+def retract(g, delta):
+    return g + delta
+
+
+def local(a, b):
+    return b - a
+
+
 def identity(dof: int, *batch, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.zeros(tuple(batch) + (dof,), dtype=dtype, device=device)
 

@@ -26,6 +26,15 @@ SHAPE = (4,)
 NAME = "SE2"
 
 
+def rotation(g: torch.Tensor) -> torch.Tensor:
+    """The (cos, sin) half of the element."""
+    return g[..., 2:4]
+
+
+def translation(g: torch.Tensor) -> torch.Tensor:
+    return g[..., 0:2]
+
+
 def _vcoeffs(theta: torch.Tensor, dtype: torch.dtype):
     """a = sin t / t, b = (1 - cos t) / t with Taylor branches."""
     near_zero = torch.abs(theta) < get_eps("se2", "near_zero", dtype)

@@ -29,6 +29,14 @@ _D_OMC_NEAR_ZERO = -1.0 / 12.0
 _D_TMS_NEAR_ZERO = -1.0 / 60.0
 
 
+def rotation(g: torch.Tensor) -> torch.Tensor:
+    return g[..., :3]
+
+
+def translation(g: torch.Tensor) -> torch.Tensor:
+    return g[..., 3]
+
+
 def from_rot_trans(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.cat([r, t[..., None]], dim=-1)
 

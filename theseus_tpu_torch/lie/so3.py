@@ -297,6 +297,19 @@ def quaternion_to_rotation(q: torch.Tensor) -> torch.Tensor:
     return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
 
 
+def jquaternion_to_rotation(q: torch.Tensor):
+    """([jacobian (..., 3, 4) of the rotation's right tangent with respect
+    to the raw quaternion wxyz, the normalization's derivative included],
+    rotation (..., 3, 3))."""
+    norm = torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    qn = q / norm
+    ret = quaternion_to_rotation(qn)
+    temp = -2.0 * qn / norm
+    t_w, t_vec = temp[..., 0], temp[..., 1:]
+    jac3 = hat(t_vec) - t_w[..., None, None] * eye(3, q)
+    return [torch.cat([t_vec[..., None], jac3], dim=-1)], ret
+
+
 def rotation_to_quaternion(g: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) -> (..., 4) wxyz with w >= 0 (Shepperd: of four
     constructions, the one with the largest pivot)."""

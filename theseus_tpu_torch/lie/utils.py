@@ -59,6 +59,11 @@ def mvp(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return (m @ v[..., None])[..., 0]
 
 
+def mmp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched matmul with broadcasting."""
+    return a @ b
+
+
 def transpose(m: torch.Tensor) -> torch.Tensor:
     return m.transpose(-1, -2)
 

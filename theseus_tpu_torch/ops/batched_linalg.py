@@ -52,6 +52,19 @@ def solve_lower_vec(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(ys, dim=-1)
 
 
+def solve_lower_mat(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """L Y = B with L (..., d, d) lower and B (..., d, k): unrolled rows,
+    broadcast over the k columns."""
+    d = l.shape[-1]
+    ys = []
+    for i in range(d):
+        s = b[..., i, :]
+        for k in range(i):
+            s = s - l[..., i, k, None] * ys[k]
+        ys.append(s / l[..., i, i, None])
+    return torch.stack(ys, dim=-2)
+
+
 def solve_upper_vec(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """U x = b with U (..., d, d) upper, b (..., d) -> x (..., d)."""
     d = u.shape[-1]

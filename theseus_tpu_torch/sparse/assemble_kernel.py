@@ -34,7 +34,10 @@ from .. import _cuda
 from ..config import needs_grad, use_kernel
 from ..ops.batched_linalg import SMALL_DIM_MAX
 
-# the kernel takes its jacobian / error pointers in its parameter block
+# the kernel takes its jacobian / error pointers in its parameter block; an
+# objective with more (bucket, slot) sources (one bucket per cost, as
+# compile(vectorize=False) makes) is launched with its buckets merged
+# (`merge_sources`)
 MAX_SOURCES = 32
 
 # The split plan. An output with at most SPLIT items costs at most SPLIT
@@ -80,6 +83,7 @@ class AssemblyTables:
     short_ata: np.ndarray
     short_atb: np.ndarray
     _device: Dict[str, tuple] = dataclasses.field(default_factory=dict, repr=False)
+    _merged: Dict[tuple, tuple] = dataclasses.field(default_factory=dict, repr=False)
 
     def on(self, device: torch.device):
         """The tables as tensors on `device`, built once per device:
@@ -193,6 +197,58 @@ def build_assembly_tables(pattern, split: int = SPLIT) -> AssemblyTables:
     )
 
 
+def merge_sources(tables: AssemblyTables, pattern, ms):
+    """The launch form of tables whose sources exceed MAX_SOURCES: buckets
+    with the same slot count and residual dimension m (ms, per bucket) are
+    concatenated along the edge axis, in bucket order, into one bucket of
+    their class, so a source is a (class, slot) pair and an item's edge is
+    its bucket's offset in the class plus its own. Item order, and so the
+    sum order and the bits, stay as they are. Returns (tables with those
+    sources and items, the buckets of each class); cached per ms."""
+    key = tuple(ms)
+    if key not in tables._merged:
+        nslots = [len(g) for g in pattern.bucket_gvars]
+        classes: Dict[Tuple[int, int], List[int]] = {}
+        for bi in dict.fromkeys(bi for bi, _ in tables.sources):
+            classes.setdefault((nslots[bi], ms[bi]), []).append(bi)
+        members = list(classes.values())
+        cls_of, offset = {}, {}
+        for ci, buckets in enumerate(members):
+            off = 0
+            for bi in buckets:
+                cls_of[bi], offset[bi] = ci, off
+                off += len(pattern.bucket_gvars[bi][0])
+        sources = [(ci, sl) for ci, buckets in enumerate(members) for sl in range(nslots[buckets[0]])]
+        src_of = {src: i for i, src in enumerate(sources)}
+        new_src = np.array([src_of[(cls_of[bi], sl)] for bi, sl in tables.sources], np.int32)
+        src_off = np.array([offset[bi] for bi, _ in tables.sources], np.int32)
+        ata = tables.ata_items.copy()
+        ata[:, 2] += src_off[ata[:, 0]]
+        ata[:, 0], ata[:, 1] = new_src[ata[:, 0]], new_src[ata[:, 1]]
+        atb = tables.atb_items.copy()
+        atb[:, 1] += src_off[atb[:, 0]]
+        atb[:, 0] = new_src[atb[:, 0]]
+        if len(sources) > MAX_SOURCES:
+            raise ValueError(f"assemble_blocks: {len(sources)} (bucket class, slot) sources exceed the "
+                             f"kernel's {MAX_SOURCES}")
+        merged = dataclasses.replace(tables, sources=sources, ata_items=ata, atb_items=atb, _device={}, _merged={})
+        tables._merged[key] = (merged, members)
+    return tables._merged[key]
+
+
+def merge_blocks(members, blocks):
+    """The blocks of each class of `merge_sources`: its buckets' jacobians
+    (per slot) and errors concatenated along the edge axis."""
+    out = []
+    for buckets in members:
+        if len(buckets) == 1:
+            out.append(blocks[buckets[0]])
+            continue
+        jacs = [torch.cat([blocks[bi][0][sl] for bi in buckets]) for sl in range(len(blocks[buckets[0]][0]))]
+        out.append((jacs, torch.cat([blocks[bi][1] for bi in buckets])))
+    return out
+
+
 def assemble_blocks_plain(pattern, blocks):
     """blocks: per bucket ((jac per slot (K, B, m, d)), err (K, B, m)) with
     jacobians already padded to d. Returns (ata (n_slots, B, d, d) with slot 0
@@ -275,10 +331,8 @@ def _assemble_forward(pattern, blocks):
     if d > SMALL_DIM_MAX:
         raise ValueError(f"assemble_blocks: the CUDA kernel takes d <= {SMALL_DIM_MAX}, got {d}")
     if len(tables.sources) > MAX_SOURCES:
-        raise ValueError(
-            f"assemble_blocks: {len(tables.sources)} (bucket, slot) sources exceed the "
-            f"kernel's {MAX_SOURCES}"
-        )
+        tables, members = merge_sources(tables, pattern, [int(err.shape[2]) for _, err in blocks])
+        blocks = merge_blocks(members, blocks)
     dev, dtype, bsz = err0.device, err0.dtype, err0.shape[1]
     fn = getattr(_cuda.lib(), f"th_assemble_blocks_{_cuda.suffix(dtype)}")
     keep = []  # references that must outlive the launch

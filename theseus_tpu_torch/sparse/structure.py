@@ -1,11 +1,14 @@
 """Symbolic analysis for the batched block-sparse Cholesky (JAX counterpart: theseus_tpu/sparse/structure.py).
 
-A numpy-only copy of the JAX package's pure-Python symbolic layer (its
-native C++ backend is not ported yet): block adjacency, fill-reducing
-orderings (ND, AMD, RCM), the elimination pattern, the etree levels and the
-dense-tail choice. Copied rather than imported because importing anything
-from `theseus_tpu` imports jax. The tables it produces are held equal to
-the JAX package's by the tests.
+A numpy-only copy of the JAX package's symbolic layer: block adjacency,
+fill-reducing orderings (ND, AMD, RCM), the elimination pattern, the etree
+levels and the dense-tail choice. For the "natural", "amd" and "nd"
+orderings the ordering and the fill come from the C++ analysis in
+`native/` (a copy of the JAX package's, built with g++ at first use), as
+in the JAX package; the pure-Python analysis here is its twin, run with
+`native=False`, for "rcm" and for explicit permutations. Copied rather
+than imported because importing anything from `theseus_tpu` imports jax.
+The tables it produces are held equal to the JAX package's by the tests.
 
 Layout: n variables, each padded to a uniform block dof `d`. The factor L is
 stored as a flat array of blocks (nnzL+1, B, d, d); slot 0 is a zero
@@ -215,6 +218,7 @@ def symbolic_factor(
     pairs: Set[Tuple[int, int]],
     d: int,
     ordering="amd",
+    native: bool = True,
 ) -> SymbolicFactor:
     """Compute fill pattern + static left-looking schedule.
 
@@ -222,48 +226,61 @@ def symbolic_factor(
     ordering: strategy string ("amd" | "rcm" | "nd" | "natural") or an
     explicit permutation array (perm[k] = original id of the k-th eliminated
     variable — the user-facing `VariableOrdering` path,
-    reference optimizer/variable_ordering.py:11)."""
+    reference optimizer/variable_ordering.py:11).
+
+    native: the ordering, the fill and the etree of "natural", "amd" and
+    "nd" on a graph with edges come from the g++-built `native/` library
+    (as in the JAX package); False runs the pure-Python analysis, its twin.
+    "rcm", explicit permutations and edgeless graphs always run in Python.
+    A failed native build raises; nothing falls back."""
     explicit_perm = not isinstance(ordering, str)
     if explicit_perm:
         ordering = np.asarray(ordering, dtype=np.int64)
         if sorted(ordering.tolist()) != list(range(n)):
             raise ValueError("explicit ordering must be a permutation of 0..n-1")
-    if explicit_perm:
-        perm = ordering
-    elif ordering == "amd":
-        perm = amd_ordering(n, pairs)
-    elif ordering == "rcm":
-        perm = rcm_ordering(n, pairs)
-    elif ordering == "nd":
-        perm = nd_ordering(n, pairs)
-    elif ordering == "natural":
-        perm = np.arange(n)
+    if native and not explicit_perm and ordering in ("natural", "amd", "nd") and pairs:
+        from ..native import native_symbolic
+
+        perm, col_rows, _, _ = native_symbolic(n, pairs, ordering)
+        iperm = np.empty(n, dtype=np.int64)
+        iperm[perm] = np.arange(n)
     else:
-        raise ValueError(f"unknown ordering {ordering}")
-    iperm = np.empty(n, dtype=np.int64)
-    iperm[perm] = np.arange(n)
+        if explicit_perm:
+            perm = ordering
+        elif ordering == "amd":
+            perm = amd_ordering(n, pairs)
+        elif ordering == "rcm":
+            perm = rcm_ordering(n, pairs)
+        elif ordering == "nd":
+            perm = nd_ordering(n, pairs)
+        elif ordering == "natural":
+            perm = np.arange(n)
+        else:
+            raise ValueError(f"unknown ordering {ordering}")
+        iperm = np.empty(n, dtype=np.int64)
+        iperm[perm] = np.arange(n)
 
-    # permuted adjacency, lower triangle: for each column, rows > col
-    below: List[Set[int]] = [set() for _ in range(n)]
-    for i, j in pairs:
-        pi, pj = iperm[i], iperm[j]
-        lo, hi = (pi, pj) if pi < pj else (pj, pi)
-        if lo != hi:
-            below[lo].add(hi)
+        # permuted adjacency, lower triangle: for each column, rows > col
+        below: List[Set[int]] = [set() for _ in range(n)]
+        for i, j in pairs:
+            pi, pj = iperm[i], iperm[j]
+            lo, hi = (pi, pj) if pi < pj else (pj, pi)
+            if lo != hi:
+                below[lo].add(hi)
 
-    # symbolic fill via the standard elimination-pattern recurrence:
-    # pattern(j) ⊇ rows of A below j, plus pattern(k)\{j} for each child k
-    # (children = columns whose first below-diagonal row is j)
-    pattern: List[Set[int]] = [set(below[j]) for j in range(n)]
-    for j in range(n):
-        if pattern[j]:
-            parent = min(pattern[j])
-            pattern[parent] |= pattern[j] - {parent}
+        # symbolic fill via the standard elimination-pattern recurrence:
+        # pattern(j) ⊇ rows of A below j, plus pattern(k)\{j} for each child k
+        # (children = columns whose first below-diagonal row is j)
+        pattern: List[Set[int]] = [set(below[j]) for j in range(n)]
+        for j in range(n):
+            if pattern[j]:
+                parent = min(pattern[j])
+                pattern[parent] |= pattern[j] - {parent}
 
-    col_rows = []
-    for j in range(n):
-        rows = np.array([j] + sorted(pattern[j]), dtype=np.int64)
-        col_rows.append(rows)
+        col_rows = []
+        for j in range(n):
+            rows = np.array([j] + sorted(pattern[j]), dtype=np.int64)
+            col_rows.append(rows)
 
     # supernodal amalgamation: force the trailing dense supernode's columns
     # to full trailing patterns (structural fill is the price of the single

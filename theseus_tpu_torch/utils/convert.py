@@ -16,6 +16,10 @@ the identical problem.
   `utils.checks.MLP` with the same layout (the motion-planning models take
   it as `mlp=`); the tactile trainer's {"meas", "weight"} params become its
   two models (`tactile_models_from_params`).
+- The learned-homography CNN's params {"w1", "b1", "w2", "b2"} (kernels
+  HWIO, as examples/homography_learned.py `init_cnn` makes them) become a
+  state_dict of the port's `utils.examples.homography.CNN`
+  (`homography_cnn_params`: kernels OIHW, biases as they are).
 """
 
 from __future__ import annotations
@@ -110,3 +114,21 @@ def tactile_params_from_arrays(arrays: Mapping[str, np.ndarray]):
         return [{"w": np.asarray(arrays[f"{part}_w{i}"]), "b": np.asarray(arrays[f"{part}_b{i}"])} for i in range(n)]
 
     return {"meas": layers("meas"), "weight": layers("weight")}
+
+
+def homography_cnn_params(jax_params, dtype: torch.dtype = torch.float32, device=None) -> Dict[str, torch.Tensor]:
+    """The JAX learned-homography CNN's params {"w1" (3, 3, 1, 8), "b1",
+    "w2" (3, 3, 8, C), "b2"} as a state_dict of the port's CNN: each HWIO
+    kernel transposed to OIHW (both are correlations with the same taps),
+    the biases as they are. Load it with `CNN(C).load_state_dict(...)`."""
+    device = resolve_device(device)
+
+    def t(a):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    return {
+        "conv1.weight": t(np.transpose(np.asarray(jax_params["w1"]), (3, 2, 0, 1))),
+        "conv1.bias": t(jax_params["b1"]),
+        "conv2.weight": t(np.transpose(np.asarray(jax_params["w2"]), (3, 2, 0, 1))),
+        "conv2.bias": t(jax_params["b2"]),
+    }

@@ -1,1 +1,3 @@
 """Example problems (JAX counterpart: theseus_tpu/utils/examples/__init__.py)."""
+
+from . import easyaug, homography, pose_graph

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ...config import resolve_device
-from ...core import Objective, ScaleCostWeight
+from ...core import Objective, RobustCostFunction, ScaleCostWeight
 from ...core.variable import SE3, Variable
 from ...embodied import Between, Local
 from ...lie import se3, so3
@@ -84,10 +84,17 @@ def build_pgo_objective(
     edge_weight=None,
     prior_weight: float = 10.0,
     loop_weight=None,
+    robust_loss_cls=None,
+    log_loss_radius=0.0,
 ):
     """Objective over named SE3 pose variables: a Local prior on pose_0 and a
     Between cost per edge. Measurements are sliced on the host; the compiled
     objective stacks them and moves them to `device` in one copy.
+
+    robust_loss_cls (e.g. HuberLoss) wraps every Between edge in a
+    RobustCostFunction named "redge_<k>", all sharing one (1, 1) log radius,
+    the aux variable "log_loss_radius": a float, or a tensor that requires
+    grad, which the objective then holds as the radius's value.
 
     loop_weight, when given, weighs the edges after the first n_poses - 1
     (the loop closures of `chain_edges`) and edge_weight the odometry edges
@@ -97,9 +104,17 @@ def build_pgo_objective(
     poses = [SE3(name=f"pose_{i}") for i in range(n_poses)]
     obj.add(Local(poses[0], _host(prior_target), ScaleCostWeight(float(prior_weight)), name="prior"))
     meas = _host(measurements)
+    radius = None
+    if robust_loss_cls is not None:
+        radius = (log_loss_radius.reshape(1, 1) if isinstance(log_loss_radius, torch.Tensor)
+                  else np.full((1, 1), float(log_loss_radius)))
+        radius = Variable(radius, name="log_loss_radius")
     for ei, (i, j) in enumerate(edges):
         w = loop_weight if loop_weight is not None and ei >= n_poses - 1 else edge_weight
-        obj.add(Between(poses[i], poses[j], meas[ei], cost_weight=w, name=f"edge_{ei}"))
+        cost = Between(poses[i], poses[j], meas[ei], cost_weight=w, name=f"edge_{ei}")
+        if radius is not None:
+            cost = RobustCostFunction(cost, robust_loss_cls, radius, name=f"redge_{ei}")
+        obj.add(cost)
     return obj, poses
 
 
