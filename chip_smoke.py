@@ -18,7 +18,9 @@ dense tail through one batched cholesky_ex; the tail phase prints both), the
 robust BA training step (128 x 4000 x 1 float32, 5 % outliers, a Huber loss
 whose log radius three implicit SGD steps learn, Schur linearization) and
 the DLM training step (PGO 256 x 128 float32, level and whole-sweep plans).
-A sixth, the AoS Between entry point `between_linearize_fused`, has no
+Batch-sharded PGO 256 x 128 (`theseus_tpu_torch.parallel`: the forward and
+the training step on two shards of one card), factor-sharded GBP, and the
+seventeen example scripts of examples_torch run too. A sixth, the AoS Between entry point `between_linearize_fused`, has no
 caller in the package and is driven alone; a 3-D g2o file is read onto the
 card and solved. Two more go through the default dense linearization: IK
 serving (the 7-dof arm, an AutoDiffCostFunction over forward kinematics,
@@ -153,7 +155,24 @@ kernel). In order:
    (h_true, the JAX example's 0.2 assertion) and 64 (float32 corner error
    against float64's) with its ms per LM iteration; and in pgo2d the
    native (g++) symbolic analysis of the 3500-pose graph timed against its
-   pure-Python twin, their tables equal;
+   pure-Python twin, their tables equal; sharded: PGO 256 x 128 batch-sharded
+   (theseus_tpu_torch/parallel) over make_mesh(devices=[card, card]) (and one
+   shard per card where there are more), level and whole-sweep plans: the
+   float32 and float64 forward with each shard's launches (each equal to
+   the unsharded schedule's), the joined solution against the unsharded
+   solve (1e-4 float32, 1e-10 float64), three float32 implicit training
+   steps and one float64 step sharded against unsharded (loss and gradient
+   1e-4 and 1e-9 relative), an unrolled float64 step at 64 x 16 (1e-9), the
+   LM iteration's ms and idle share sharded and unsharded; gbp_sharded: GBP
+   on 256 SE3 poses x batch 2, its 256 Between factors split in two (the
+   prior whole), 20 sweeps, the delta against the unsharded one (float64
+   1e-9, float32 1e-5 relative), a second unsharded solve bit for bit, the
+   cross-device sums and the Between kernel's launches; examples: every
+   examples_torch script's main() on the card at its committed
+   examples/configs/*.yaml, its seconds, its last lines and its launches;
+   in sharded, gbp_sharded and examples every kernel launch of the path
+   (the first of each input shape, up to 64 a kernel) is kept and held
+   against its plain twin on the same inputs at the kernel tolerances;
 5. timing phase: ms per LM iteration (marginal window, as bench.py) for the
    level kernels, the whole-sweep kernels and the plain twins (PGO 64 x 16,
    256 x 128 and 2048 x 8, the grid; BA 16 x 200 x 16 and 128 x 4000 x 1), ms per
@@ -501,6 +520,37 @@ HOMOG_GRAD_RTOL, HOMOG_GRAD_COS = 1e-3, 0.99999
 FIT_HW, FIT_ITERS, FIT_BATCHES, FIT_WINDOW = (60, 80), 60, (1, 64), (10, 20)
 FIT_H_TRUE = (1.02, 0.01, 1.5, -0.02, 0.98, -1.0, 1e-4, -5e-5)
 FIT_ASSERT, FIT_CORNER_TOL = 0.2, 0.05
+# The batch-sharded path (theseus_tpu_torch/parallel): PGO SHARD_PGO, the
+# README flagship's shape, on make_mesh(devices=[card, card]) (two shards of
+# 64; with more cards also one shard per card), level and whole-sweep
+# plans, ITERS LM iterations. The joined solution against the unsharded
+# solve: SHARD_TOL_F32 absolute in float32 (tests/parallel/test_sharding.py's
+# tolerance between its sharded and unsharded solves), SHARD_TOL_F64 in
+# float64; the training step's loss and gradient SHARD_GRAD_RTOL_F32 and
+# SHARD_GRAD_RTOL_F64 relative; the idle shares over SHARD_PROFILE_ITERS
+# LM iterations under the profiler. With one shard per card (4 cards: 32 a
+# shard) float32 rounds otherwise than at 64 or 128 a shard: four shards
+# of 32 sat 3.612e-3 from the unsharded state and 3.3e-4 in final error,
+# on one card and on four cards (four H100 80GB HBM3 at 700 W; float64
+# 0.0); so the per-card mesh is held against the same shards on one card
+# (the device placement: SHARD_TOL_F32 and SHARD_GRAD_RTOL_F32, bit
+# equality printed), by PLATEAU_RTOL_F32 against the unsharded plateau,
+# and in float64 by SHARD_TOL_F64.
+SHARD_PGO = (256, 128)
+SHARD_TOL_F32, SHARD_TOL_F64 = 1e-4, 1e-10
+SHARD_GRAD_RTOL_F32, SHARD_GRAD_RTOL_F64 = 1e-4, 1e-9
+SHARD_PROFILE_ITERS = 3
+# GBP factor sharding at scripts/dryrun_gbp_shard.py's size: GBP_SHARD
+# (poses, batch), the chain plus one closure, GBP_SHARD_SWEEPS sweeps at
+# message damping GBP_DAMPING; the sharded delta against the unsharded one,
+# relative to its largest entry: GBP_SHARD_TOL_F64 in float64,
+# GBP_SHARD_TOL_F32 in float32. The belief sums add in a fixed order (no
+# variable twice in one index_add, `GBPNormalBuilder.scatter_plan`), so two
+# unsharded solves must give the same bits, and the two-way split groups a
+# variable's terms otherwise only where three of them meet across chunks
+# (the closure's pose n/2): 5.3e-6 on the CPU in float32.
+GBP_SHARD, GBP_SHARD_SWEEPS = (256, 2), 20
+GBP_SHARD_TOL_F64, GBP_SHARD_TOL_F32 = 1e-9, 1e-5
 
 
 class CheckFailed(AssertionError):
@@ -658,7 +708,10 @@ def phase_build():
 # ---------------------------------------------------------------------------
 # phase 3: kernels against twins at the 256 x 128 shapes
 # ---------------------------------------------------------------------------
-def _dev_report(name, dtype_name, got, want, shape_note=""):
+def _twin_dev(name, dtype_name, got, want):
+    """(max |kernel - twin|, the same over max(1, max |twin|)) over the
+    outputs (a tensor or a sequence of them); fails on a non-finite kernel
+    output."""
     import torch
 
     if isinstance(got, torch.Tensor):
@@ -669,6 +722,11 @@ def _dev_report(name, dtype_name, got, want, shape_note=""):
         scale = max(1.0, float(w.abs().max()))
         worst_abs = max(worst_abs, float((g - w).abs().max()))
         worst_rel = max(worst_rel, float((g - w).abs().max()) / scale)
+    return worst_abs, worst_rel
+
+
+def _dev_report(name, dtype_name, got, want, shape_note=""):
+    worst_abs, worst_rel = _twin_dev(name, dtype_name, got, want)
     tol = KERNEL_TOL[dtype_name].get(name, KERNEL_TOL[dtype_name]["default"])
     reason = TOL_REASON[dtype_name].get(name, TOL_REASON[dtype_name]["default"])
     verdict = "ok" if worst_rel <= tol else "FAIL"
@@ -1871,29 +1929,42 @@ def pgo2d_objective(n, poses, edges, meas, w, dtype, dev):
     return obj, {f"pose_{i}": poses[i] for i in range(n)}
 
 
-def _profile_window(prob, n_iters):
-    """(wall ms, device busy ms, device kernels, {kernel name: (ms, count)})
-    of n_iters LM iterations under torch.profiler (device activity only:
-    the host side of ~3000 launches an iteration takes the profiler seconds
-    to post-process), after two warm ones."""
+def _device_window(fn):
+    """(wall ms, {card index: device busy ms}, {kernel name: (ms, count)}) of
+    fn() under torch.profiler (device activity only: the host side of ~3000
+    launches an iteration takes the profiler seconds to post-process), the
+    wall ended by a sync of every card."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, by_name = {}, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        busy[e.device_index] = busy.get(e.device_index, 0.0) + ms
+        t, k = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + ms, k + 1)
+    return wall, busy, by_name
+
+
+def _profile_window(prob, n_iters):
+    """(wall ms, device busy ms, device kernels, {kernel name: (ms, count)})
+    of n_iters LM iterations (`_device_window`), after two warm ones."""
+    import torch
 
     opt, opts = prob.opt, prob.opt.opts
     with torch.no_grad():
         carry = opt.run_scan(opt.init_carry(prob.state, prob.aux, opts), prob.aux, 2, opts)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            opt.run_scan(carry, prob.aux, n_iters, opts)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name = {}
-    for e in events:
-        t, k = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, k + 1)
-    return wall, sum(e.time_range.elapsed_us() for e in events) / 1e3, len(events), by_name
+        wall, busy, by_name = _device_window(lambda: opt.run_scan(carry, prob.aux, n_iters, opts))
+    return wall, sum(busy.values()), sum(k for _, k in by_name.values()), by_name
 
 
 def phase_pgo2d(dev, card):
@@ -3248,22 +3319,6 @@ def _homog_step(trainer, pairs):
     return float(loss.detach()), (t1 - t0) * 1e3, (t2 - t1) * 1e3
 
 
-def _homog_idle(trainer, pairs):
-    """(wall ms, device busy ms, device kernels) of one training step under
-    torch.profiler (device activity only)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.step(*pairs)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return wall, sum(e.time_range.elapsed_us() for e in events) / 1e3, len(events)
-
-
 def _grads(module):
     import torch
 
@@ -3327,7 +3382,10 @@ def phase_homography(dev, card):
     print(f"[homography] backward() ms a step: {json.dumps([round(x, 3) for x in bwd_ms])}")
     steady_f = sorted(fwd_ms[1:])[len(fwd_ms[1:]) // 2]
     steady_b = sorted(bwd_ms[1:])[len(bwd_ms[1:]) // 2]
-    wall, busy, n_events = _homog_idle(tr, pairs())
+    step_pairs = pairs()
+    torch.cuda.synchronize()
+    wall, busy, by_name = _device_window(lambda: tr.step(*step_pairs))
+    busy, n_events = sum(busy.values()), sum(k for _, k in by_name.values())
     idle = 1 - busy / wall
     print(f"[homography] steps 2..{HOMOG_STEPS} median: forward {steady_f:.3f} ms, backward() {steady_b:.3f} ms; "
           f"first step {fwd_ms[0]:.3f} + {bwd_ms[0]:.3f} ms; one profiled step: wall {wall:.2f} ms, device busy "
@@ -3434,27 +3492,531 @@ def phase_homography(dev, card):
 # ---------------------------------------------------------------------------
 # phase 5: timing
 # ---------------------------------------------------------------------------
-def lm_iter_ms(prob, n_small=5, extra=20, reps=3):
-    """Marginal ms per LM iteration, (t(N+K) - t(N)) / K (bench.py's
-    window), each call on a freshly perturbed state, ended by a sync."""
+# ---------------------------------------------------------------------------
+# the sharded paths: batch sharding (PGO) and GBP factor sharding
+# ---------------------------------------------------------------------------
+def _mesh_devices(dev):
+    """(label, devices) of every mesh the sharded phases run: two shards on
+    one card always, and one shard per card when there are more."""
+    import torch
+
+    meshes = [("2x" + str(dev), [dev, dev])]
+    if torch.cuda.device_count() > 1:
+        meshes.append((f"{torch.cuda.device_count()} cards",
+                       [torch.device("cuda", i) for i in range(torch.cuda.device_count())]))
+    return meshes
+
+
+@contextlib.contextmanager
+def _per_shard_launches(layer, out):
+    """Append each shard's launch counts (its solve_state call, synced) to `out`."""
+    import torch
+
+    from theseus_tpu_torch import _cuda
+
+    orig = layer.solve_state
+
+    def counted(*args, **kwargs):
+        torch.cuda.synchronize()
+        before = dict(_cuda.launches)
+        carry = orig(*args, **kwargs)
+        torch.cuda.synchronize()
+        out.append({k: _cuda.launches[k] - before[k] for k in before})
+        return carry
+
+    layer.solve_state = counted
+    try:
+        yield
+    finally:
+        del layer.solve_state
+
+
+def _sharded_forward(prob, mesh, mode="unroll"):
+    """The sharded solve of prob's packed state and aux (no gradient):
+    (carry joined on mesh.home, per-shard launches)."""
+    import torch
+
+    from theseus_tpu_torch.parallel import shard_map_solve, shard_problem
+
+    shards = []
+    with torch.no_grad(), _per_shard_launches(prob.layer, shards):
+        carry = shard_map_solve(prob.layer, mesh, mode)(*shard_problem(prob.co, prob.state, prob.aux, mesh))
+    return carry, shards
+
+
+def _unsharded_forward(prob, mode="unroll"):
+    import torch
+
+    with torch.no_grad():
+        return _counted(lambda: prob.layer.solve_state(prob.state, prob.aux, mode, prob.opt.opts))[:2]
+
+
+def _lm_solve(prob):
+    """solve(n, scale) for `marginal_ms` and `_idle_share`: n fixed LM
+    iterations (`run_scan`) from prob's state scaled by `scale`, no
+    gradient; returns the final error."""
     import torch
 
     opt, opts = prob.opt, prob.opt.opts
 
-    def run(n, i):
-        state = {k: v * (1.0 + 1e-7 * (i + 1)) for k, v in prob.state.items()}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    def solve(n, scale):
+        state = {k: v * scale for k, v in prob.state.items()}
         with torch.no_grad():
-            carry = opt.run_scan(opt.init_carry(state, prob.aux, opts), prob.aux, n, opts)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0, carry
+            return opt.run_scan(opt.init_carry(state, prob.aux, opts), prob.aux, n, opts)["err"]
 
-    _, carry = run(n_small, 0)  # warm-up
-    check(bool(torch.isfinite(carry["err"]).all()), "timing solve: non-finite error")
-    t_small = min(run(n_small, i)[0] for i in range(reps))
-    t_large = min(run(n_small + extra, i)[0] for i in range(reps))
+    return solve
+
+
+def _sharded_solve(prob, mesh):
+    """`_lm_solve` over the shards, through the entry the sharded forward
+    uses: shard_problem, then shard_map_solve in "unroll" mode with
+    max_iterations n (init_carry and n fixed iterations a shard, each under
+    its device) and the join; returns the joined final error."""
+    import dataclasses
+
+    import torch
+
+    from theseus_tpu_torch.parallel import shard_map_solve, shard_problem
+
+    def solve(n, scale):
+        state = {k: v * scale for k, v in prob.state.items()}
+        opts = dataclasses.replace(prob.opt.opts, max_iterations=n)
+        with torch.no_grad():
+            run = shard_map_solve(prob.layer, mesh, "unroll", opts)
+            return run(*shard_problem(prob.co, state, prob.aux, mesh))["err"]
+
+    return solve
+
+
+def _idle_share(solve, devices, n=SHARD_PROFILE_ITERS):
+    """1 - device busy / (cards x wall) of solve(n, 1.0) (`_device_window`)
+    over the distinct cards in `devices`, after one warm call."""
+    import torch
+
+    solve(n, 1.0)
+    wall, busy, _ = _device_window(lambda: solve(n, 1.0))
+    cards = {torch.device(d).index or 0 for d in devices}
+    return 1.0 - sum(busy.get(i, 0.0) for i in cards) / (len(cards) * wall)
+
+
+# kernel launches a path makes, held against the plain twins on their own
+# inputs: the first launch of each distinct input shape, up to RECORD_CAP a
+# kernel and a path
+RECORD_CAP = 64
+
+
+def _solver_entries():
+    """{counter name: (module, attribute)}: where the solver looks up each
+    kernel's wrapper at call time. Under config.plain_path() each wrapper
+    runs its plain twin."""
+    from theseus_tpu_torch.ops import between_se3, reprojection
+    from theseus_tpu_torch.sparse import assemble, cholesky, whole
+
+    return {"between_se3": (between_se3, "between_linearize"),
+            "reprojection": (reprojection, "reprojection_linearize"),
+            "assemble_blocks": (assemble, "assemble_blocks"),
+            "level_factor": (cholesky, "level_factor"),
+            "level_fwd_subst": (cholesky, "level_fwd_subst"),
+            "level_bwd_subst": (cholesky, "level_bwd_subst"),
+            "whole_factor": (cholesky, "whole_factor"),
+            "whole_fwd_subst": (whole, "whole_fwd_subst"),
+            "whole_bwd_subst": (whole, "whole_bwd_subst")}
+
+
+def _tensors(x):
+    """The tensors of a (list | tuple)-of-tensors tree, in order."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _tensors(v)]
+    return []
+
+
+def _detached(x):
+    """A detached copy of the tensors of a (list | tuple) tree; other leaves
+    (a pattern, a schedule) as they are."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    if isinstance(x, (list, tuple)):
+        return type(x)(_detached(v) for v in x)
+    return x
+
+
+@contextlib.contextmanager
+def _recording(records):
+    """Inside the block, keep in `records` ({name: [(args, outputs)]}) the
+    inputs and outputs of kernel launches (`_solver_entries`); a wrapper
+    call that ran its twin is not kept."""
+    from theseus_tpu_torch import _cuda
+
+    def wrap(name, orig):
+        seen = set()
+
+        def rec(*args):
+            key = tuple((tuple(t.shape), t.dtype) for t in _tensors(args))
+            keep = key not in seen and len(records.get(name, ())) < RECORD_CAP
+            saved = _detached(args) if keep else None
+            before = _cuda.launches[name]
+            out = orig(*args)
+            if keep and _cuda.launches[name] > before:
+                seen.add(key)
+                records.setdefault(name, []).append((saved, _detached(out)))
+            return out
+
+        return rec
+
+    with contextlib.ExitStack() as stack:
+        for name, (mod, attr) in _solver_entries().items():
+            stack.enter_context(mock.patch.object(mod, attr, wrap(name, getattr(mod, attr))))
+        yield records
+
+
+def _hold_recorded(label, records, launched):
+    """Every kept launch against its wrapper's plain twin on the same inputs,
+    at KERNEL_TOL; one line a kernel and dtype. Fails when a kernel in
+    `launched` (the path's launch counts) has no launch kept."""
+    from theseus_tpu_torch import config
+
+    entries = _solver_entries()
+    missing = [k for k, v in launched.items() if v and k in entries and k not in records]
+    check(not missing, f"{label}: no launch of {missing} was kept to hold against its twin")
+    for name, calls in records.items():
+        mod, attr = entries[name]
+        worst = {}
+        for args, out in calls:
+            with config.plain_path():
+                twin = getattr(mod, attr)(*args)
+            dn = str(_tensors(out)[0].dtype).split(".")[-1]
+            a, r = _twin_dev(name, dn, _tensors(out), _tensors(twin))
+            wa, wr, k = worst.get(dn, (0.0, 0.0, 0))
+            worst[dn] = (max(wa, a), max(wr, r), k + 1)
+        for dn, (wa, wr, k) in worst.items():
+            tol = KERNEL_TOL[dn].get(name, KERNEL_TOL[dn]["default"])
+            print(f"[{label.split()[0]}] {label}: {name} {dn}, {k} launches (one a distinct input shape) against "
+                  f"the twin on their inputs: max_abs={wa:.3e} max_rel(to max(1,|twin|))={wr:.3e} tol={tol:.0e} "
+                  f"{'ok' if wr <= tol else 'FAIL'}")
+            check(wr <= tol, f"{label}: {name} {dn} deviates from its twin by {wr:.3e} > {tol}")
+
+
+def _sharded_train_step(layer, poses, gt, theta, mesh, mode="implicit"):
+    """train_step through shard_problem and shard_map_solve: (loss, per-shard
+    launches of the forward)."""
+    from theseus_tpu_torch.parallel import shard_map_solve, shard_problem
+    from theseus_tpu_torch.utils.examples.pose_graph import mean_sq_local
+
+    theta.grad = None
+    co = layer.objective.compile()
+    values = layer.objective.default_values(dict(poses, w_loop=theta.reshape(1, 1)))
+    bsz = co.resolve_batch_size(values)
+    shards = []
+    with _per_shard_launches(layer, shards):
+        carry = shard_map_solve(layer, mesh, mode)(*shard_problem(co, co.pack(values, bsz),
+                                                                  co.build_aux(values, bsz), mesh))
+    out = dict(values)
+    out.update(co.unpack(carry["state"]))
+    loss = mean_sq_local(out, gt)
+    loss.backward()
+    return loss.detach(), shards
+
+
+def _train_pair(dtype, dev, mesh, shape=TRAIN, mode="implicit", iters=ITERS, steps=1, ref_mesh=None):
+    """(losses, grads) of `steps` SGD steps, the reference (unsharded, or
+    sharded over ref_mesh) then sharded over mesh, each from THETA0 with the
+    learning rate set by its own first gradient."""
+    import torch
+
+    out = {}
+    for sharded in (False, True):
+        layer, poses, gt = train_problem(*shape, dtype, dev, iters=iters)
+        theta = torch.tensor(THETA0, dtype=dtype, device=dev, requires_grad=True)
+        losses, grads, sgd, shard_launches = [], [], None, []
+        for _ in range(steps):
+            if sharded or ref_mesh is not None:
+                loss, shards = _sharded_train_step(layer, poses, gt, theta, mesh if sharded else ref_mesh, mode)
+                shard_launches.append(shards)
+            else:
+                loss, _, _, _ = train_step(layer, poses, gt, theta, mode)
+            g = theta.grad.detach().clone()
+            if sgd is None:
+                sgd = torch.optim.SGD([theta], lr=SGD_FIRST_STEP / max(abs(float(g)), 1e-30))
+            sgd.step()
+            losses.append(float(loss))
+            grads.append(float(g))
+        out[sharded] = (losses, grads, shard_launches)
+    return out
+
+
+def phase_sharded(dev, card):
+    """Batch sharding: PGO SHARD_PGO on make_mesh(devices=[card, card]) (and
+    one shard per card when there are more), level and whole-sweep plans;
+    the float32 forward with each shard's launches, the solution against
+    the unsharded solve (float32, float64), three float32 implicit training
+    steps and one float64 step sharded against unsharded, an unrolled
+    float64 step at UNROLL, and the LM iteration's ms and idle share
+    sharded and unsharded. One shard per card: float32 is held bit for bit
+    against the same shards on one card and by the plateau rule against the
+    unsharded solve; float64 against the unsharded solve."""
+    import torch
+
+    from theseus_tpu_torch import config
+    from theseus_tpu_torch.parallel import make_mesh
+
+    n, b = SHARD_PGO
+    launches = {k: 0 for k in KERNEL_INFO}
+    report = {"mesh": {}, "lm_iter_ms": {}, "idle": {}}
+    for label, devices in _mesh_devices(dev):
+        mesh = make_mesh(devices=devices)
+        shard_b = b // len(mesh)
+        for whole in (False, True):
+            plan = "whole" if whole else "level"
+            config.set_whole_sweep(whole)
+            try:
+                for dtype, tol in ((torch.float32, SHARD_TOL_F32), (torch.float64, SHARD_TOL_F64)):
+                    dn = str(dtype).split(".")[-1]
+                    prob = synthetic_problem(n, b, dtype, dev)
+                    ref, ref_launches = _unsharded_forward(prob)
+                    records = {}
+                    with _recording(records):
+                        (carry, shards), fwd, _ = _counted(lambda: _sharded_forward(prob, mesh))
+                    _hold_recorded(f"sharded {dn} {plan} on {label}", records, fwd)
+                    dev_max = float((carry["state"]["SE3"] - ref["state"]["SE3"]).abs().max())
+                    print(f"[sharded] {n}x{b} {dn} {plan} plan on {label} ({len(mesh)} shards of {shard_b}), "
+                          f"{ITERS} LM iterations: max |sharded - unsharded| {dev_max:.3e} (tol {tol:.0e}); "
+                          f"per-shard launches {[_nonzero(s) for s in shards]}, unsharded {_nonzero(ref_launches)}")
+                    check(bool(torch.isfinite(carry["err"]).all()), f"sharded {dn} {plan}: non-finite error")
+                    if label.startswith("2x") or dtype == torch.float64:
+                        check(dev_max <= tol, f"sharded {dn} {plan}: off the unsharded solve by {dev_max:.3e}")
+                    else:
+                        one_card, _ = _sharded_forward(prob, make_mesh(devices=[dev] * len(mesh)))
+                        same = float((carry["state"]["SE3"] - one_card["state"]["SE3"]).abs().max())
+                        plateau = float(_rel(carry["err"], ref["err"]).max())
+                        print(f"[sharded] {dn} {plan} on {label}: against {len(mesh)} shards of {shard_b} on one card "
+                              f"max |dev| {same:.3e} (tol {tol:.0e}); final error against the unsharded max rel dev "
+                              f"{plateau:.3e} (tol {PLATEAU_RTOL_F32:.0e}: shards of {shard_b} round otherwise)")
+                        check(same <= tol, f"sharded {dn} {plan}: one shard per card differs from one card")
+                        check(plateau <= PLATEAU_RTOL_F32, f"sharded {dn} {plan}: off the unsharded plateau")
+                    check(carry["state"]["SE3"].device == mesh.home and carry["state"]["SE3"].shape[1] == b,
+                          "sharded: the joined carry is not the whole batch on the home device")
+                    for s in shards:
+                        check(s == ref_launches, f"sharded {plan}: a shard's launches {_nonzero(s)} differ from "
+                                                 f"the unsharded schedule's {_nonzero(ref_launches)}")
+                    if dtype == torch.float32 and label.startswith("2x"):
+                        for k, v in fwd.items():
+                            launches[k] += v
+                        report["mesh"][plan] = {"max_dev_f32": dev_max, "shard_launches": _nonzero(shards[0])}
+                    elif dtype == torch.float64:
+                        report["mesh"].setdefault(plan, {})["max_dev_f64"] = dev_max
+                    if dtype == torch.float32:
+                        # the LM iteration, unsharded and over the shards, in the same call
+                        # in the order unsharded, sharded, sharded, unsharded: the host drifts
+                        un, sh = _lm_solve(prob), _sharded_solve(prob, mesh)
+                        t_un1, t_sh1, t_sh2, t_un2 = (marginal_ms(f) for f in (un, sh, sh, un))
+                        t_un, t_sh = (t_un1 + t_un2) / 2, (t_sh1 + t_sh2) / 2
+                        idle_un, idle_sh = _idle_share(un, [dev]), _idle_share(sh, mesh.devices)
+                        key = plan if label.startswith("2x") else f"{plan} {label}"
+                        report["lm_iter_ms"][key] = {"unsharded": [t_un1, t_un2], "sharded": [t_sh1, t_sh2],
+                                                     "ratio": t_sh / t_un}
+                        report["idle"][key] = {"unsharded": idle_un, "sharded": idle_sh}
+                        print(f"[sharded] LM iteration, {plan} plan, float32 {n}x{b} on {label}: unsharded {t_un1:.3f}, "
+                              f"{t_un2:.3f} ms (idle {100 * idle_un:.1f} %), {len(mesh)} shards of {shard_b} in turn "
+                              f"through shard_map_solve {t_sh1:.3f}, {t_sh2:.3f} ms (idle {100 * idle_sh:.1f} %, over "
+                              f"{len(set(mesh.devices))} card(s)), ratio of the means {t_sh / t_un:.3f}; on {card}")
+            finally:
+                config.set_whole_sweep(False)
+
+        # training: float32 implicit steps on the whole-sweep plan, float64 one step, an unrolled float64 step
+        config.set_whole_sweep(True)
+        try:
+            per_card = not label.startswith("2x")
+            pair = _train_pair(torch.float32, dev, mesh, steps=SGD_STEPS,
+                               ref_mesh=make_mesh(devices=[dev] * len(mesh)) if per_card else None)
+            ref_name = f"{len(mesh)} shards on one card" if per_card else "unsharded"
+            for step in range(SGD_STEPS):
+                (lu, gu), (ls, gs) = ((pair[s][0][step], pair[s][1][step]) for s in (False, True))
+                rl, rg = abs(ls - lu) / abs(lu), abs(gs - gu) / abs(gu)
+                print(f"[sharded] train step {step} float32 {n}x{b} whole plan on {label}: loss {ls:.8e} vs "
+                      f"{lu:.8e} (rel {rl:.3e}), d loss/d theta {gs:.6e} vs {gu:.6e} (rel {rg:.3e}; against "
+                      f"{ref_name}, tol {SHARD_GRAD_RTOL_F32:.0e})")
+                check(rl <= SHARD_GRAD_RTOL_F32 and rg <= SHARD_GRAD_RTOL_F32 and gs != 0.0,
+                      f"sharded training step {step} off {ref_name}")
+            fwd_shards = pair[True][2][0]
+            check(all(s["whole_factor"] > 0 and s["whole_fwd_subst"] > 0 for s in fwd_shards),
+                  f"sharded training: a shard ran no whole-sweep kernel {fwd_shards}")
+            pair64 = _train_pair(torch.float64, dev, mesh)
+            (lu, gu), (ls, gs) = ((pair64[s][0][0], pair64[s][1][0]) for s in (False, True))
+            rl, rg = abs(ls - lu) / abs(lu), abs(gs - gu) / abs(gu)
+            print(f"[sharded] train step float64 {n}x{b} on {label}: loss rel {rl:.3e}, gradient rel {rg:.3e} "
+                  f"(tol {SHARD_GRAD_RTOL_F64:.0e})")
+            check(rl <= SHARD_GRAD_RTOL_F64 and rg <= SHARD_GRAD_RTOL_F64, "sharded float64 training step off")
+            un, ub, ui = UNROLL
+            pairu = _train_pair(torch.float64, dev, mesh, shape=(un, ub), mode="unroll", iters=ui)
+            (lu, gu), (ls, gs) = ((pairu[s][0][0], pairu[s][1][0]) for s in (False, True))
+            rg = abs(gs - gu) / abs(gu)
+            print(f"[sharded] unroll {un}x{ub} float64, {ui} LM iterations, on {label}: gradient {gs:.12e} vs "
+                  f"{gu:.12e}, rel {rg:.3e} (tol {SHARD_GRAD_RTOL_F64:.0e})")
+            check(rg <= SHARD_GRAD_RTOL_F64 and gs != 0.0, "sharded unrolled gradient off")
+            if label.startswith("2x"):
+                report["train"] = {"f32_losses": pair[True][0], "f32_grads": pair[True][1],
+                                   "f32_grad_rel": [abs(a - c) / abs(c) for a, c in zip(pair[True][1], pair[False][1])],
+                                   "f64_grad_rel": rg}
+        finally:
+            config.set_whole_sweep(False)
+    return launches, report
+
+
+def phase_gbp_sharded(dev, card):
+    """GBP factor sharding at scripts/dryrun_gbp_shard.py's size: GBP_SHARD
+    (poses, batch), the chain plus one closure (as many Between factors as
+    poses, split in two on the card; the prior whole), GBP_SHARD_SWEEPS
+    sweeps at message damping GBP_DAMPING and LM damping 1e-3; the Between
+    launch of the normal's build against its twin on its inputs; the
+    sharded delta against the unsharded one, float64 and float32, and the
+    unsharded delta of a second solve, which must have the same bits."""
+    import torch
+
+    from theseus_tpu_torch import _cuda
+    from theseus_tpu_torch.lie import se3
+    from theseus_tpu_torch.optim.gbp import GBPNormalBuilder
+    from theseus_tpu_torch.parallel import make_mesh, shard_gbp_factors
+    from theseus_tpu_torch.utils.examples.pose_graph import build_pgo_objective, pose_values, synthetic_pose_graph
+
+    n, b = GBP_SHARD
+    launches = {k: 0 for k in KERNEL_INFO}
+    report = {}
+
+    def rel(x, ref):
+        return float((x - ref).abs().max() / ref.abs().max())
+
+    for label, devices in _mesh_devices(dev):
+        mesh = make_mesh(devices=devices, axis="factors")
+        for dtype in (torch.float64, torch.float32):
+            dn = str(dtype).split(".")[-1]
+            gt, edges, meas, init = synthetic_pose_graph(n, b, seed=0, dtype=dtype, device=dev,
+                                                         extra_loop_closures=False)
+            closure = se3.compose(se3.inverse(gt[0]), gt[n // 2])
+            obj, _ = build_pgo_objective(n, edges + [(0, n // 2)], torch.cat([meas, closure[None]]), gt[0],
+                                         dtype=dtype, device=dev)
+            co = obj.compile()
+            values = obj.default_values(pose_values(init))
+            bld = GBPNormalBuilder(co, msg_iters=GBP_SHARD_SWEEPS, msg_damping=GBP_DAMPING)
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            records = {}
+            t0 = time.perf_counter()
+            with _recording(records):
+                normal = bld.build(co.pack(values, b), co.build_aux(values, b))
+            sharded = shard_gbp_factors(normal, mesh)
+            delta, fail = sharded.solve(1e-3)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            fwd = dict(_cuda.launches)
+            _hold_recorded(f"gbp_sharded {dn} build on {label}", records, fwd)
+            want, _ = normal.solve(1e-3)
+            again, _ = normal.solve(1e-3)
+            dev_sh = rel(delta, want)
+            tol = GBP_SHARD_TOL_F64 if dtype == torch.float64 else GBP_SHARD_TOL_F32
+            ks = sorted(e[0].shape[0] for e in sharded.etas)
+            print(f"[gbp_sharded] {n} poses x {b} {dn} on {label}: factor chunks {ks}, {GBP_SHARD_SWEEPS} sweeps, "
+                  f"{wall:.1f} ms (build, shard, solve); delta max rel dev from the unsharded {dev_sh:.3e}; "
+                  f"a second unsharded solve has the same bits: {torch.equal(again, want)}")
+            if label.startswith("2x") or dtype == torch.float64:
+                print(f"[gbp_sharded] held against the unsharded delta (tol {tol:.0e})")
+                check(dev_sh <= tol, f"gbp_sharded {dn}: delta off the unsharded one by {dev_sh:.3e}")
+            else:  # chunks of another size round otherwise in float32: held against the same chunks on one card
+                one_mesh = make_mesh(devices=[dev] * len(mesh), axis="factors")
+                one_card, _ = shard_gbp_factors(normal, one_mesh).solve(1e-3)
+                same = rel(delta, one_card)
+                print(f"[gbp_sharded] against {len(mesh)} chunks on one card: max rel dev {same:.3e} (tol {tol:.0e})")
+                check(same <= tol, f"gbp_sharded {dn}: one chunk per card differs from one card by {same:.3e}")
+            check(torch.equal(again, want), f"gbp_sharded {dn}: two unsharded solves differ (belief sums reordered)")
+            print(f"[gbp_sharded] cross-device sums {sharded.cross_device_sums}; launches {_nonzero(fwd)}")
+            check(not bool(fail.any()), f"gbp_sharded {dn}: a batch element failed")
+            check(sharded.cross_device_sums > 0 and ks.count(n // len(mesh)) == len(mesh),
+                  "gbp_sharded: the factor axis was left whole")
+            check(fwd["between_se3"] > 0, "gbp_sharded: the Between kernel was not launched")
+            if label.startswith("2x"):
+                for k, v in fwd.items():
+                    launches[k] += v
+                report[dn] = {"delta_rel": dev_sh, "cross_device_sums": sharded.cross_device_sums, "ms": wall,
+                              "between_launches": fwd["between_se3"]}
+    return launches, report
+
+
+# ---------------------------------------------------------------------------
+# the example scripts (examples_torch/) on the card
+# ---------------------------------------------------------------------------
+def phase_examples(dev):
+    """Every examples_torch script's main() in this process on the card, at
+    its committed examples/configs/*.yaml (the scripts without one at their
+    defaults): its seconds, the last lines it printed (the scripts' own
+    asserts raise), the kernels it launched, and those launches against the
+    twins on their inputs (`_hold_recorded`)."""
+    import importlib
+    import io
+
+    import torch
+
+    from theseus_tpu_torch import _cuda
+
+    by_path, seconds = {}, {}
+    configs = {p.stem: p for p in (ROOT / "examples" / "configs").glob("**/*.yaml")}
+    scripts = sorted(p.stem for p in (ROOT / "examples_torch").glob("*.py") if not p.name.startswith("_"))
+    check(scripts == sorted(p.stem for p in (ROOT / "examples").glob("*.py") if p.name != "_config.py"),
+          "examples_torch does not hold one script per examples/ script")
+    for name in scripts:
+        argv = (["--config", str(configs[name])] if name in configs else []) + ["--device", str(dev)]
+        mod = importlib.import_module(f"examples_torch.{name}")
+        buf = io.StringIO()
+        records = {}
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), _recording(records):
+            mod.main(argv)
+        torch.cuda.synchronize()
+        seconds[name] = round(time.perf_counter() - t0, 3)
+        used = _nonzero(_cuda.launches)
+        tail = " | ".join(buf.getvalue().strip().splitlines()[-2:])
+        print(f"[examples] {name} {' '.join(argv[:2])}: {seconds[name]:.2f} s, launches {used}; {tail[:300]}")
+        if used:
+            by_path[f"example_{name}"] = dict(_cuda.launches)
+            _hold_recorded(f"examples {name}", records, used)
+    return by_path, seconds
+
+
+def marginal_ms(solve, n_small=5, extra=20, reps=3):
+    """Marginal ms per LM iteration, (t(N+K) - t(N)) / K (bench.py's
+    window): solve(n, state_scale) runs n iterations from the state scaled
+    by state_scale (a fresh perturbation each call) and returns the final
+    error; each call is timed from a sync of every card to the next."""
+    import torch
+
+    def sync():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+    def run(n, i):
+        sync()
+        t0 = time.perf_counter()
+        err = solve(n, 1.0 + 1e-7 * (i + 1))
+        sync()
+        dt = time.perf_counter() - t0
+        check(bool(torch.isfinite(err).all()), "timing solve: non-finite error")
+        return dt
+
+    run(n_small, 0)  # warm-up
+    t_small = min(run(n_small, i) for i in range(reps))
+    t_large = min(run(n_small + extra, i) for i in range(reps))
     return (t_large - t_small) / extra * 1e3
+
+
+def lm_iter_ms(prob, n_small=5, extra=20, reps=3):
+    """`marginal_ms` of prob's LM loop (`_lm_solve`)."""
+    return marginal_ms(_lm_solve(prob), n_small, extra, reps)
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -3970,7 +4532,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs only on an NVIDIA GPU", file=sys.stderr)
         return 2
     if not (ROOT / "theseus_tpu_torch" / "__init__.py").exists() or not all(
-            p.exists() for p in (GOLDEN, BA_GOLDEN, PGO2D_GOLDEN, MANHATTAN, TACTILE_GOLDEN)):
+            p.exists() for p in (GOLDEN, BA_GOLDEN, PGO2D_GOLDEN, MANHATTAN, TACTILE_GOLDEN,
+                                 ROOT / "examples_torch" / "_config.py", ROOT / "examples" / "configs")):
         print("chip_smoke: run from the root of a theseus_tpu checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
@@ -4009,6 +4572,10 @@ def main() -> int:
     launches["dcem"], dcem = timed("dcem", phase_dcem, dev, card)
     launches["gbp"], gbp = timed("gbp", phase_gbp, dev, card)
     homog = timed("homography", phase_homography, dev, card)
+    launches["sharded"], sharded = timed("sharded", phase_sharded, dev, card)
+    launches["gbp_sharded"], gbp_sharded = timed("gbp_sharded", phase_gbp_sharded, dev, card)
+    example_launches, example_s = timed("examples", phase_examples, dev)
+    launches.update(example_launches)
     iters, times, dev_times, train_ms, bounds, library = timed("timing", phase_timing, dev, card, twin_ms)
     timed("profile", phase_profile, dev, card)
     check("jax" not in sys.modules and "theseus_tpu" not in sys.modules, "jax was imported")
@@ -4066,7 +4633,8 @@ def main() -> int:
                       "tactile_idle": tac["idle"], "tactile_mode_ms": tac["mode_ms"],
                       "tactile_sgd_losses": tac["sgd_losses"], "pcg_lm_iter_ms": pcg["lm_iter_ms"],
                       "pcg_idle": pcg["idle"], "dcem": dcem, "gbp": gbp, "homography": homog,
-                      "pgo2d_symbolic_s": pgo2d["symbolic_s"]}))
+                      "pgo2d_symbolic_s": pgo2d["symbolic_s"], "sharded": sharded, "gbp_sharded": gbp_sharded,
+                      "examples_s": example_s}))
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; seconds a phase: {json.dumps(phase_s)}")
     print(json.dumps({"kernels": kernels}))
     print(card)

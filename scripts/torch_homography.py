@@ -12,9 +12,11 @@ anew every step from a torch.Generator seeded by --seed
         [--patch-stride 4] [--channels 4] [--height 48] [--width 64] [--device cpu] [--ablate]
         [--config examples/configs/homography_learned.yaml]
 
---config reads a YAML file whose keys override the defaults (explicit
-flags still win), as the JAX examples do; it needs PyYAML. --ablate runs
-both autograd modes and prints their first and best losses and ms a step.
+--config reads a flat YAML file whose keys override the defaults (explicit
+flags still win) through examples_torch/_config.py, which needs no YAML
+package. --ablate runs both autograd modes and prints their first and best
+losses and ms a step. The training loop is examples_torch/homography_learned.py's
+`train`; this script adds --height, --width and --seed.
 """
 
 from __future__ import annotations
@@ -23,55 +25,11 @@ import argparse
 import math
 import pathlib
 import sys
-import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
-
-def parse_with_config(parser: argparse.ArgumentParser, argv=None):
-    """parser.parse_args with a --config YAML file whose keys (dashes or
-    underscores) override the defaults; explicit flags still win. An
-    unknown key raises SystemExit."""
-    parser.add_argument("--config", default=None,
-                        help="YAML file whose keys override the defaults; explicit flags still win")
-    pre, _ = parser.parse_known_args(argv)
-    if pre.config:
-        import yaml
-
-        with open(pre.config) as f:
-            cfg = yaml.safe_load(f) or {}
-        known = {a.dest for a in parser._actions}
-        overrides = {}
-        for k, v in cfg.items():
-            dest = k.replace("-", "_")
-            if dest not in known:
-                raise SystemExit(f"config key {k!r} does not match any option (known: {sorted(known)})")
-            overrides[dest] = v
-        parser.set_defaults(**overrides)
-    return parser.parse_args(argv)
-
-
-def train(args, mode: str, verbose: bool = True):
-    """(losses, seconds a step after the first, seconds of the first)."""
-    import torch
-
-    from theseus_tpu_torch.utils.examples.homography import HomographyTrainer
-    from theseus_tpu_torch.utils.timer import device_sync
-
-    device = torch.device(args.device) if args.device else None
-    tr = HomographyTrainer(args.height, args.width, args.channels, args.patch_stride, mode, device=device,
-                           generator=torch.Generator(device="cpu").manual_seed(args.seed + 1))
-    gen = torch.Generator(device=tr.device).manual_seed(args.seed)
-    losses, times = [], []
-    for i in range(args.steps):
-        t0 = time.perf_counter()
-        losses += tr.train(1, args.batch, gen)
-        device_sync(tr.device)
-        times.append(time.perf_counter() - t0)
-        if verbose and (i % 5 == 0 or i == args.steps - 1):
-            print(f"step {i:3d}  corner err {losses[-1]:.4f} px  {times[-1] * 1e3:.1f} ms", flush=True)
-    steady = sum(times[1:]) / max(len(times) - 1, 1)
-    return losses, steady, times[0]
+from examples_torch._config import parse_with_config  # noqa: E402
+from examples_torch.homography_learned import train  # noqa: E402
 
 
 def main(argv=None) -> int:

@@ -1505,3 +1505,123 @@ def test_native_build_in_fresh_directory(cuda_device, tmp_path, monkeypatch):
         a = symbolic_factor(40, pairs, 3, ordering)
         b = symbolic_factor(40, pairs, 3, ordering, native=False)
         assert a.perm.tolist() == b.perm.tolist() and a.block_of == b.block_of and a.upd_lists == b.upd_lists
+
+
+def test_two_shard_solve_on_card(cuda_device):
+    """PGO 16 x 8 in float64 on the level plan, batch-sharded over
+    make_mesh(devices=[cuda:0, cuda:0]) (two shards of 4, each under
+    torch.cuda.device): the joined solution against the unsharded solve on
+    the card (1e-10), every kernel of the path launched by each shard as
+    often as by the unsharded solve of the same shard size, and the
+    implicit gradient with respect to the loop-closure weight (1e-9)."""
+    import theseus_tpu_torch as tt
+    from theseus_tpu_torch.parallel import make_mesh, shard_map_solve, shard_problem
+    from theseus_tpu_torch.utils.examples.pose_graph import training_weights
+
+    dev = torch.device("cuda", 0)
+    gt, edges, meas, init = synthetic_pose_graph(16, 8, seed=0, dtype=torch.float64, device=dev)
+    w_odo, w_loop = training_weights()
+    obj, _ = build_pgo_objective(16, edges, meas, gt[0], dtype=torch.float64, device=dev, edge_weight=w_odo,
+                                 loop_weight=w_loop)
+    layer = tt.TheseusLayer(LevenbergMarquardt(obj, max_iterations=8, adaptive_damping=True, linearization="sparse"))
+    co = obj.compile()
+
+    def solve(sharded):
+        theta = torch.tensor(1.3, dtype=torch.float64, device=dev, requires_grad=True)
+        values = obj.default_values(dict(pose_values(init), w_loop=theta.reshape(1, 1)))
+        state, aux = co.pack(values, 8), co.build_aux(values, 8)
+        mesh = make_mesh(devices=[dev, dev])
+        _cuda.reset_launches()
+        if sharded:
+            carry = shard_map_solve(layer, mesh, "implicit")(*shard_problem(co, state, aux, mesh))
+        else:
+            carry = layer.solve_state(state, aux, "implicit", layer.optimizer.opts)
+        torch.cuda.synchronize()
+        launches = dict(_cuda.launches)
+        (g,) = torch.autograd.grad(carry["state"]["SE3"].square().sum(), [theta])
+        return carry, launches, g
+
+    ref, ref_launches, ref_g = solve(False)
+    out, launches, g = solve(True)
+    torch.testing.assert_close(out["state"]["SE3"], ref["state"]["SE3"], rtol=0, atol=1e-10)
+    torch.testing.assert_close(g, ref_g, rtol=1e-9, atol=1e-12)
+    assert out["it"] == ref["it"] and out["state"]["SE3"].device == dev
+    for k in ("between_se3", "assemble_blocks", "level_factor", "level_fwd_subst", "level_bwd_subst"):
+        assert launches[k] > 0, k
+    # assembly and factorization once a solve: each shard repeats the unsharded schedule
+    assert launches["assemble_blocks"] >= ref_launches["assemble_blocks"]
+
+
+def test_make_mesh_raises_past_the_cards(cuda_device):
+    from theseus_tpu_torch.parallel import make_mesh
+
+    n = torch.cuda.device_count()
+    assert len(make_mesh()) == n and make_mesh(1).devices == (torch.device("cuda", 0),)
+    with pytest.raises(ValueError, match=f"needs {n + 1} CUDA devices but {n} are present"):
+        make_mesh(n + 1)
+
+
+def test_gbp_factor_sharded_on_card(cuda_device):
+    """GBP on PGO 32 x 2 in float64, the 32 Between factors (the chain and
+    one closure) split over [cuda:0, cuda:0]: the sharded delta against the
+    unsharded delta on the card (1e-10), with cross-device belief sums
+    counted, and against the CPU's (1e-9)."""
+    from theseus_tpu_torch.lie import se3 as tse3
+    from theseus_tpu_torch.optim.gbp import GBPNormalBuilder
+    from theseus_tpu_torch.parallel import make_mesh, shard_gbp_factors
+
+    deltas = {}
+    for device in (cuda_device, torch.device("cpu")):
+        gt, edges, meas, init = synthetic_pose_graph(32, 2, seed=0, dtype=torch.float64, device=device,
+                                                     extra_loop_closures=False)
+        closure = tse3.compose(tse3.inverse(gt[0]), gt[16])
+        obj, _ = build_pgo_objective(32, edges + [(0, 16)], torch.cat([meas, closure[None]]), gt[0],
+                                     dtype=torch.float64, device=device)
+        co = obj.compile()
+        values = obj.default_values(pose_values(init))
+        normal = GBPNormalBuilder(co, msg_iters=15, msg_damping=0.3).build(co.pack(values, 2), co.build_aux(values, 2))
+        sharded = shard_gbp_factors(normal, make_mesh(devices=[device, device], axis="factors"))
+        delta, _ = sharded.solve(1e-3)
+        assert sharded.cross_device_sums > 0 and delta.device.type == device.type
+        want, _ = normal.solve(1e-3)
+        torch.testing.assert_close(delta, want, rtol=0, atol=1e-10)
+        deltas[device.type] = delta.cpu()
+    torch.testing.assert_close(deltas["cuda"], deltas["cpu"], rtol=0, atol=1e-9)
+
+
+def test_shard_per_card_solve(cuda_device):
+    """With two or more cards: PGO 16 x 8 in float64 sharded one shard per
+    card (each launched under its own current device), the solution joined
+    on cuda:0 against the unsharded solve (1e-10), and the implicit
+    gradient through the join (1e-9). Skips on one card."""
+    import theseus_tpu_torch as tt
+    from theseus_tpu_torch.parallel import make_mesh, shard_map_solve, shard_problem
+    from theseus_tpu_torch.utils.examples.pose_graph import training_weights
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2 or 8 % n_cards:
+        pytest.skip("needs 2, 4 or 8 GPUs")
+    dev = torch.device("cuda", 0)
+    gt, edges, meas, init = synthetic_pose_graph(16, 8, seed=0, dtype=torch.float64, device=dev)
+    w_odo, w_loop = training_weights()
+    obj, _ = build_pgo_objective(16, edges, meas, gt[0], dtype=torch.float64, device=dev, edge_weight=w_odo,
+                                 loop_weight=w_loop)
+    layer = tt.TheseusLayer(LevenbergMarquardt(obj, max_iterations=8, adaptive_damping=True, linearization="sparse"))
+    co = obj.compile()
+    out = {}
+    for sharded in (False, True):
+        theta = torch.tensor(1.3, dtype=torch.float64, device=dev, requires_grad=True)
+        values = obj.default_values(dict(pose_values(init), w_loop=theta.reshape(1, 1)))
+        state, aux = co.pack(values, 8), co.build_aux(values, 8)
+        if sharded:
+            mesh = make_mesh()
+            states, auxes = shard_problem(co, state, aux, mesh)
+            assert [s["SE3"].device for s in states] == list(mesh.devices)
+            carry = shard_map_solve(layer, mesh, "implicit")(states, auxes)
+        else:
+            carry = layer.solve_state(state, aux, "implicit", layer.optimizer.opts)
+        (g,) = torch.autograd.grad(carry["state"]["SE3"].square().sum(), [theta])
+        out[sharded] = (carry["state"]["SE3"].detach(), g)
+    assert out[True][0].device == dev
+    torch.testing.assert_close(out[True][0], out[False][0], rtol=0, atol=1e-10)
+    torch.testing.assert_close(out[True][1], out[False][1], rtol=1e-9, atol=1e-12)

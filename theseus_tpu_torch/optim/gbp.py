@@ -63,6 +63,22 @@ def _solve(a, b):
     return torch.where((info != 0)[..., None, None], torch.nan, x)
 
 
+def _scatter_plan(g: np.ndarray, device):
+    """`GBPNormalBuilder.scatter_plan` for the ids g (K,)."""
+    order = np.argsort(g, kind="stable")
+    first = np.searchsorted(g[order], g[order])  # start of each id's run in sorted order
+    rank = np.empty(len(g), dtype=np.int64)
+    rank[order] = np.arange(len(g)) - first
+    if len(g) == 0 or rank.max() == 0:
+        return [(None, torch.as_tensor(g, dtype=torch.long, device=device))]
+    plan = []
+    for r in range(int(rank.max()) + 1):
+        rows = np.nonzero(rank == r)[0]
+        plan.append((torch.as_tensor(rows, dtype=torch.long, device=device),
+                     torch.as_tensor(g[rows], dtype=torch.long, device=device)))
+    return plan
+
+
 class GBPNormal:
     """Message-passing view of the normal equations J^T J dx = -J^T r."""
 
@@ -83,16 +99,13 @@ class GBPNormal:
     @property
     def Atb(self):
         if self._Atb is None:
-            self._Atb = self.builder.flatten(self._scatter_eta(self._zeros_v(self.builder.d), self.etas))
+            self._Atb = self.builder.flatten(self._scatter(self._zeros_v(self.builder.d), self.etas))
         return self._Atb
 
     def diag(self):
-        lam_v = self._zeros_v(self.builder.d)
-        for bi, lam_b in enumerate(self.lams):
-            for s in range(len(lam_b)):
-                lam_v = lam_v.index_add(0, self.builder.gv(bi, s, lam_v.device),
-                                        torch.diagonal(_blk(lam_b, s, s), dim1=-2, dim2=-1))
-        return self.builder.flatten(lam_v)
+        diags = [[torch.diagonal(_blk(lam_b, s, s), dim1=-2, dim2=-1) for s in range(len(lam_b))]
+                 for lam_b in self.lams]
+        return self.builder.flatten(self._scatter(self._zeros_v(self.builder.d), diags))
 
     def quad(self, v):
         bld = self.builder
@@ -109,54 +122,64 @@ class GBPNormal:
         return out
 
     # -- message passing ---------------------------------------------------
-    def _scatter_eta(self, eta_v, etas):
-        for bi, bucket in enumerate(etas):
-            for s, e in enumerate(bucket):
-                eta_v = eta_v.index_add(0, self.builder.gv(bi, s, e.device), e)
-        return eta_v
+    def _scatter(self, base, items):
+        """base + the sum of items[bi][s] (K, B, ...) added into bucket bi's
+        slot-s variables. The sum starts from zeros and meets base last, and
+        no index_add call adds to one variable twice (`scatter_plan`), so
+        the order of the adds is fixed: the card's atomic adds cannot
+        reorder them, and a factor-sharded sum (`ShardedGBPNormal`) groups
+        a variable's terms as this one does wherever at most two meet."""
+        acc = torch.zeros_like(base)
+        for bi, per_slot in enumerate(items):
+            for s, x in enumerate(per_slot):
+                acc = self._add_slot(acc, bi, s, x)
+        return base + acc
+
+    def _add_slot(self, acc, bi: int, s: int, x):
+        for rows, gv in self.builder.scatter_plan(bi, s, x.device):
+            acc = acc.index_add(0, gv, x if rows is None else x[rows])
+        return acc
 
     def _beliefs(self, msgs, prior_lam, prior_eta):
-        lam_v, eta_v = prior_lam, prior_eta
-        for bi, bucket in enumerate(msgs):
-            for s, (e, l) in enumerate(bucket):
-                gv = self.builder.gv(bi, s, e.device)
-                eta_v = eta_v.index_add(0, gv, e)
-                lam_v = lam_v.index_add(0, gv, l)
+        eta_v = self._scatter(prior_eta, [[e for e, _ in bucket] for bucket in msgs])
+        lam_v = self._scatter(prior_lam, [[l for _, l in bucket] for bucket in msgs])
         return lam_v, eta_v
 
     def _sweep(self, msgs, prior_lam, prior_eta, alpha: float):
-        bld = self.builder
         lam_v, eta_v = self._beliefs(msgs, prior_lam, prior_eta)
-        new_msgs = []
-        for bi, bucket in enumerate(msgs):
-            k = len(bucket)
-            lam_b, eta_b = self.lams[bi], self.etas[bi]
-            out_bucket = []
-            for s in range(k):
-                if k == 1:
-                    out_bucket.append((eta_b[0], _blk(lam_b, 0, 0)))
-                    continue
-                others = [o for o in range(k) if o != s]
-                # cavity of the other slots: belief minus own message
-                cav = []
-                for o in others:
-                    gv = bld.gv(bi, o, lam_v.device)
-                    cav.append((eta_v[gv] - bucket[o][0], lam_v[gv] - bucket[o][1]))
-                # M = Lam_oo + diag(cavity); R = Lam_{o,s}; r = eta_o + cavity
-                rows = [torch.cat([_blk(lam_b, o, o2) + cav[a][1] if o == o2 else _blk(lam_b, o, o2)
-                                   for o2 in others], dim=-1) for a, o in enumerate(others)]
-                m = torch.cat(rows, dim=-2)  # (K, B, (k-1)d, (k-1)d)
-                r_blk = torch.cat([_blk(lam_b, o, s) for o in others], dim=-2)  # (K, B, (k-1)d, d)
-                r_vec = torch.cat([eta_b[o] + cav[a][0] for a, o in enumerate(others)], dim=-1)
-                x = _solve(m, torch.cat([r_blk, r_vec[..., None]], dim=-1))
-                rt = r_blk.transpose(-1, -2)
-                lam_new = _blk(lam_b, s, s) - rt @ x[..., :-1]
-                eta_new = eta_b[s] - (rt @ x[..., -1:])[..., 0]
-                old_eta, old_lam = bucket[s]
-                out_bucket.append(((1.0 - alpha) * eta_new + alpha * old_eta,
-                                   (1.0 - alpha) * lam_new + alpha * old_lam))
-            new_msgs.append(tuple(out_bucket))
-        return tuple(new_msgs)
+        return tuple(self._bucket_messages(bi, bucket, lam_v, eta_v, alpha) for bi, bucket in enumerate(msgs))
+
+    def _bucket_messages(self, bi: int, bucket, lam_v, eta_v, alpha: float):
+        """Bucket bi's new messages from the beliefs (lam_v, eta_v), which
+        lie on the device of the bucket's factors."""
+        bld = self.builder
+        k = len(bucket)
+        lam_b, eta_b = self.lams[bi], self.etas[bi]
+        out_bucket = []
+        for s in range(k):
+            if k == 1:
+                out_bucket.append((eta_b[0], _blk(lam_b, 0, 0)))
+                continue
+            others = [o for o in range(k) if o != s]
+            # cavity of the other slots: belief minus own message
+            cav = []
+            for o in others:
+                gv = bld.gv(bi, o, lam_v.device)
+                cav.append((eta_v[gv] - bucket[o][0], lam_v[gv] - bucket[o][1]))
+            # M = Lam_oo + diag(cavity); R = Lam_{o,s}; r = eta_o + cavity
+            rows = [torch.cat([_blk(lam_b, o, o2) + cav[a][1] if o == o2 else _blk(lam_b, o, o2)
+                               for o2 in others], dim=-1) for a, o in enumerate(others)]
+            m = torch.cat(rows, dim=-2)  # (K, B, (k-1)d, (k-1)d)
+            r_blk = torch.cat([_blk(lam_b, o, s) for o in others], dim=-2)  # (K, B, (k-1)d, d)
+            r_vec = torch.cat([eta_b[o] + cav[a][0] for a, o in enumerate(others)], dim=-1)
+            x = _solve(m, torch.cat([r_blk, r_vec[..., None]], dim=-1))
+            rt = r_blk.transpose(-1, -2)
+            lam_new = _blk(lam_b, s, s) - rt @ x[..., :-1]
+            eta_new = eta_b[s] - (rt @ x[..., -1:])[..., 0]
+            old_eta, old_lam = bucket[s]
+            out_bucket.append(((1.0 - alpha) * eta_new + alpha * old_eta,
+                               (1.0 - alpha) * lam_new + alpha * old_lam))
+        return tuple(out_bucket)
 
     def _priors(self, damping, rhs_shift, ridge_val=None):
         bld = self.builder
@@ -239,6 +262,16 @@ class GBPNormalBuilder(BlockNormalBuilder):
         if key not in self._gbp_dev:
             self._gbp_dev[key] = [[torch.as_tensor(g, dtype=torch.long, device=device) for g in gv]
                                   for gv in self.gvars]
+        return self._gbp_dev[key][bi][s]
+
+    def scatter_plan(self, bi: int, s: int, device):
+        """[(rows, ids)] that add bucket bi's slot-s values into their
+        variables with no variable twice in one call: rows None (all K)
+        when the slot's ids are distinct, else one entry per occurrence
+        rank (a variable's first factor, its second, ...), in K order."""
+        key = ("plan", str(device))
+        if key not in self._gbp_dev:
+            self._gbp_dev[key] = [[_scatter_plan(g, device) for g in gv] for gv in self.gvars]
         return self._gbp_dev[key][bi][s]
 
     def consts(self, device, dtype):
