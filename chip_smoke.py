@@ -20,7 +20,7 @@ whose log radius three implicit SGD steps learn, Schur linearization) and
 the DLM training step (PGO 256 x 128 float32, level and whole-sweep plans).
 Batch-sharded PGO 256 x 128 (`theseus_tpu_torch.parallel`: the forward and
 the training step on two shards of one card), factor-sharded GBP, and the
-seventeen example scripts of examples_torch run too. A sixth, the AoS Between entry point `between_linearize_fused`, has no
+seventeen example scripts of examples_torch and the seven paper-figure evaluations of evaluations_torch run too. A sixth, the AoS Between entry point `between_linearize_fused`, has no
 caller in the package and is driven alone; a 3-D g2o file is read onto the
 card and solved. Two more go through the default dense linearization: IK
 serving (the 7-dof arm, an AutoDiffCostFunction over forward kinematics,
@@ -170,9 +170,21 @@ kernel). In order:
    cross-device sums and the Between kernel's launches; examples: every
    examples_torch script's main() on the card at its committed
    examples/configs/*.yaml, its seconds, its last lines and its launches;
-   in sharded, gbp_sharded and examples every kernel launch of the path
-   (the first of each input shape, up to 64 a kernel) is kept and held
-   against its plain twin on the same inputs at the kernel tolerances;
+   evaluations: every evaluations_torch script's main() on the card at a
+   cut of its sizes (vectorization at 16 and 64 poses x 16, all three
+   arms, every arm's final float32 error within 1e-4 of the others' as a
+   batch mean and within 2e-3 for each batch element; the
+   PGO backward-mode sweep at 16 x 4, every float64 mode gradient against
+   the same mode on the plain twins on the card within 1e-7 relative; the
+   tactile sweep at 10 steps and 3 inner iterations; the autodiff
+   ablation; the local-cost probe at batch 1 and 256; gbp_eval on its
+   16-pose graph; gbp_hw_bench at 64 x 16; the vectorization window cut to
+   (2, 8) iterations, the tactile learning run to 3 steps), their rows and
+   seconds;
+   in sharded, gbp_sharded, examples and evaluations every kernel launch
+   of the path (the first of each input shape, up to 64 a kernel) is kept
+   and held against its plain twin on the same inputs at the kernel
+   tolerances;
 5. timing phase: ms per LM iteration (marginal window, as bench.py) for the
    level kernels, the whole-sweep kernels and the plain twins (PGO 64 x 16,
    256 x 128 and 2048 x 8, the grid; BA 16 x 200 x 16 and 128 x 4000 x 1), ms per
@@ -3988,6 +4000,125 @@ def phase_examples(dev):
     return by_path, seconds
 
 
+# the evaluations phase: (script, argv, keyword arguments of main), each a
+# cut of the script's sizes
+EVALUATIONS = (
+    ("vectorization_ablation", ["--sizes", "16,64", "--batch", "16"], {}),
+    ("backward_modes_sweep", ["--n-poses", "16", "--batch", "4"], {}),
+    ("backward_modes_tactile", ["--time-steps", "10", "--inner-iters", "3"], {}),
+    ("autodiff_ablation", [], {}),
+    ("time_local_cost_backward", ["--batches", "1", "256"], {}),
+    ("gbp_eval", [], {"sizes": (16,)}),
+    ("gbp_hw_bench", [], {"shapes": ((64, 16),)}),
+)
+# float32 final error of the vectorize False and True arms, the batch mean
+# (each element is held at PLATEAU_RTOL_F32: float32 LM stops where its
+# error stops resolving: 1.05e-3 apart per element between the arms on the
+# CPU twins alone, scripts/torch_vectorize_arms.py)
+EVAL_VEC_RTOL = 1e-4
+# module constants of the scripts, cut for the phase: the vectorization
+# window and the tactile sweep's learning run
+EVAL_CUTS = {"vectorization_ablation": {"WINDOW": (2, 8)}, "backward_modes_tactile": {"LEARN_STEPS": 3}}
+EVAL_GRAD_RTOL = 1e-7  # float64 mode gradient, kernels against plain twins on the card
+
+
+def _eval_checks(name, mod, out, dev, argv):
+    """The phase's own checks of one script's result (run with `argv`):
+    {label: value}."""
+    import torch
+
+    from theseus_tpu_torch import config
+
+    if name == "vectorization_ablation":
+        worst = {}
+        for n in sorted({r["poses"] for r in out}):
+            errs = [r["err"].double() for r in out if r["poses"] == n]
+            check(len(errs) == 3, f"evaluations: vectorization at {n} poses ran {len(errs)} arms, not 3")
+            mean_dev = max(abs(float(e.mean() / errs[0].mean()) - 1.0) for e in errs[1:])
+            elem_dev = max(float(_rel(e, errs[0]).max()) for e in errs[1:])
+            print(f"[evaluations] vectorization {n} poses: final float32 error of the arms (batch mean) "
+                  f"{[f'{float(e.mean()):.6e}' for e in errs]}, worst relative deviation {mean_dev:.3e} "
+                  f"tol={EVAL_VEC_RTOL:.0e}; per batch element {elem_dev:.3e} tol={PLATEAU_RTOL_F32:.0e}")
+            check(mean_dev <= EVAL_VEC_RTOL, f"evaluations: vectorize arms differ by {mean_dev:.3e} at {n} poses")
+            check(elem_dev <= PLATEAU_RTOL_F32,
+                  f"evaluations: a batch element's final error differs by {elem_dev:.3e} between arms at {n} poses")
+            worst[n] = (mean_dev, elem_dev)
+        return {"vec_arm_rel": worst, "ms": {f"{r['poses']} {r['vectorize']} {r['kernels']}": round(r["ms"], 4)
+                                             for r in out}}
+    if name == "backward_modes_sweep":
+        rows = out[torch.float64]["rows"]
+        with config.plain_path():
+            opt = lambda flag, default: int(argv[argv.index(flag) + 1]) if flag in argv else default  # noqa: E731
+            parts = mod.build(opt("--n-poses", 16), opt("--batch", 4), opt("--inner-iters", 10), torch.float64, dev)
+            twins = [float(mod.gradient(mod.make_outer_loss(*parts, m, k or 4), mod.THETA, torch.float64, dev))
+                     for m, k in mod.MODES]
+        worst = 0.0
+        for (label, g, rel, ms, _), want in zip(rows, twins):
+            r = abs(g - want) / abs(want)
+            worst = max(worst, r)
+            print(f"[evaluations] backward sweep float64 {label}: kernels {g:+.12f} twins {want:+.12f} "
+                  f"rel {r:.3e} tol={EVAL_GRAD_RTOL:.0e} (vs FD {rel:.2e}, {ms:.2f} ms/grad)")
+        check(worst <= EVAL_GRAD_RTOL, f"evaluations: a float64 mode gradient is {worst:.3e} off its twins'")
+        return {"grad_rel_vs_twins": worst,
+                "ms_grad": {str(dt).split(".")[-1]: {lab: round(ms, 4) for lab, _, _, ms, _ in v["rows"]}
+                            for dt, v in out.items()}}
+    if name == "backward_modes_tactile":
+        check(all(math.isfinite(r["loss10"]) for r in out), "evaluations: a tactile learning run diverged")
+        return {r["mode"]: {"ms_grad": round(r["ms_grad"], 4), "rel_err": r["rel_err"]} for r in out}
+    if name == "autodiff_ablation":
+        return {f"{s} {m}": round(ms, 4) for s, m, ms in out}
+    if name == "time_local_cost_backward":
+        return {f"{g} {b}": [round(f, 4), round(bb, 4)] for g, b, f, bb in out}
+    if name == "gbp_eval":
+        return {"step": [[n, d, rels] for n, d, rels in out["step"]], "outer": out["outer"]}
+    return {f"{n}x{b}": {"ms_sweep": s, "ms_outer": og, "lm_ms": lm} for n, b, s, og, lm in out}
+
+
+def phase_evaluations(dev, card):
+    """Every evaluations_torch script's main() in this process on the card
+    at `EVALUATIONS`' sizes and `EVAL_CUTS`, its results file written into a
+    temporary directory: its seconds, the kernels it launched, those
+    launches against the twins on their inputs (`_hold_recorded`), and the
+    phase's own checks (`_eval_checks`)."""
+    import importlib
+    import io
+    import tempfile
+
+    import torch
+
+    from theseus_tpu_torch import _cuda
+
+    scripts = sorted(p.stem for p in (ROOT / "evaluations_torch").glob("*.py") if not p.name.startswith("_"))
+    check(scripts == sorted(n for n, _, _ in EVALUATIONS), "evaluations_torch does not hold the seven scripts")
+    by_path, summary = {}, {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, argv, kwargs in EVALUATIONS:
+            mod = importlib.import_module(f"evaluations_torch.{name}")
+            argv = argv + ["--device", str(dev)]
+            buf = io.StringIO()
+            records = {}
+            with mock.patch.multiple(mod, OUT=Path(tmp) / mod.OUT.name, **EVAL_CUTS.get(name, {})):
+                torch.cuda.synchronize()
+                _cuda.reset_launches()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf), _recording(records):
+                    out = mod.main(argv, **kwargs)
+                torch.cuda.synchronize()
+                seconds = round(time.perf_counter() - t0, 3)
+                used = _nonzero(_cuda.launches)
+                launched = dict(_cuda.launches)
+            lines = buf.getvalue().strip().splitlines()
+            for line in lines:
+                if not line.startswith("wrote "):
+                    print(f"[evaluations] {name}: {line}")
+            print(f"[evaluations] {name} {' '.join(argv)}: {seconds:.2f} s, launches {used}")
+            if used:
+                by_path[f"eval_{name}"] = launched
+                _hold_recorded(f"evaluations {name}", records, used)
+            summary[name] = {"s": seconds, **_eval_checks(name, mod, out, dev, argv)}
+    return by_path, summary
+
+
 def marginal_ms(solve, n_small=5, extra=20, reps=3):
     """Marginal ms per LM iteration, (t(N+K) - t(N)) / K (bench.py's
     window): solve(n, state_scale) runs n iterations from the state scaled
@@ -4533,7 +4664,8 @@ def main() -> int:
         return 2
     if not (ROOT / "theseus_tpu_torch" / "__init__.py").exists() or not all(
             p.exists() for p in (GOLDEN, BA_GOLDEN, PGO2D_GOLDEN, MANHATTAN, TACTILE_GOLDEN,
-                                 ROOT / "examples_torch" / "_config.py", ROOT / "examples" / "configs")):
+                                 ROOT / "examples_torch" / "_config.py", ROOT / "examples" / "configs",
+                                 ROOT / "evaluations_torch" / "_common.py")):
         print("chip_smoke: run from the root of a theseus_tpu checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
@@ -4576,6 +4708,8 @@ def main() -> int:
     launches["gbp_sharded"], gbp_sharded = timed("gbp_sharded", phase_gbp_sharded, dev, card)
     example_launches, example_s = timed("examples", phase_examples, dev)
     launches.update(example_launches)
+    eval_launches, evals = timed("evaluations", phase_evaluations, dev, card)
+    launches.update(eval_launches)
     iters, times, dev_times, train_ms, bounds, library = timed("timing", phase_timing, dev, card, twin_ms)
     timed("profile", phase_profile, dev, card)
     check("jax" not in sys.modules and "theseus_tpu" not in sys.modules, "jax was imported")
@@ -4634,7 +4768,7 @@ def main() -> int:
                       "tactile_sgd_losses": tac["sgd_losses"], "pcg_lm_iter_ms": pcg["lm_iter_ms"],
                       "pcg_idle": pcg["idle"], "dcem": dcem, "gbp": gbp, "homography": homog,
                       "pgo2d_symbolic_s": pgo2d["symbolic_s"], "sharded": sharded, "gbp_sharded": gbp_sharded,
-                      "examples_s": example_s}))
+                      "examples_s": example_s, "evaluations": evals}))
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; seconds a phase: {json.dumps(phase_s)}")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1625,3 +1625,122 @@ def test_shard_per_card_solve(cuda_device):
     assert out[True][0].device == dev
     torch.testing.assert_close(out[True][0], out[False][0], rtol=0, atol=1e-10)
     torch.testing.assert_close(out[True][1], out[False][1], rtol=1e-9, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# evaluations_torch: each script's main() on the card at chip_smoke's size,
+# its results file written into a temporary directory
+# ---------------------------------------------------------------------------
+def _eval_main(name, argv, tmp_path, monkeypatch, **kwargs):
+    import importlib
+
+    mod = importlib.import_module(f"evaluations_torch.{name}")
+    monkeypatch.setattr(mod, "OUT", tmp_path / mod.OUT.name)
+    _cuda.reset_launches()
+    out = mod.main(argv, **kwargs)
+    torch.cuda.synchronize()
+    assert "Card: " in next(tmp_path.glob("*.md")).read_text()
+    return mod, out, dict(_cuda.launches)
+
+
+def test_eval_vectorization_on_card(cuda_device, tmp_path, monkeypatch):
+    """16 and 64 poses x 16, all three arms (the window cut to (2, 8)
+    iterations): the kernel arm launches rows 1-4b; every arm's float32
+    final error, the batch mean, within 1e-4 of the others' and each batch
+    element within the float32 PGO gate 2e-3 (float32 LM stops where its
+    error stops resolving: 1.05e-3 apart per element on the CPU twins
+    alone, scripts/torch_vectorize_arms.py); in float64 the vectorize False and True arms per element within
+    1e-10 at 16 poses."""
+    import evaluations_torch.vectorization_ablation as vec
+
+    monkeypatch.setattr(vec, "WINDOW", (2, 8))
+    _, rows, launches = _eval_main("vectorization_ablation", ["--sizes", "16,64"], tmp_path, monkeypatch)
+    for k in ("between_se3", "assemble_blocks", "level_factor", "level_fwd_subst", "level_bwd_subst"):
+        assert launches[k] > 0, k
+    for n in (16, 64):
+        errs = [r["err"].double() for r in rows if r["poses"] == n]
+        assert len(errs) == 3 and all(r["ms"] > 0 for r in rows)
+        for e in errs[1:]:
+            assert abs(float(e.mean() - errs[0].mean())) <= 1e-4 * float(errs[0].mean())
+            torch.testing.assert_close(e, errs[0], rtol=2e-3, atol=0)
+    f64 = []
+    for v, kernels in ((False, False), (True, True)):
+        with contextlib.nullcontext() if kernels else config.plain_path():
+            layer, state, aux = vec.build(16, 16, v, torch.float64, cuda_device)
+            f64.append(vec.lm_solver(layer, state, aux)(vec.FIRST_ITERS))
+    torch.testing.assert_close(f64[1], f64[0], rtol=1e-10, atol=0)
+
+
+def test_eval_backward_modes_sweep_on_card(cuda_device, tmp_path, monkeypatch):
+    """PGO 16 x 4: every float64 mode gradient against the same mode on the
+    plain twins on the card (1e-7 relative), unroll against the central
+    difference (1e-5), and a float32 row for every mode."""
+    mod, res, launches = _eval_main("backward_modes_sweep", [], tmp_path, monkeypatch)
+    assert launches["between_se3"] > 0
+    assert len(res[torch.float32]["rows"]) == len(mod.MODES)
+    f64 = res[torch.float64]
+    with config.plain_path():
+        parts = mod.build(16, 4, 10, torch.float64, cuda_device)
+        for (mode, k), (label, g, rel, ms, _) in zip(mod.MODES, f64["rows"]):
+            want = float(mod.gradient(mod.make_outer_loss(*parts, mode, k or 4), mod.THETA, torch.float64,
+                                      cuda_device))
+            assert abs(g - want) <= 1e-7 * abs(want), (label, g, want)
+    assert f64["rows"][0][2] < 1e-5  # unroll against FD
+
+
+def test_eval_backward_modes_tactile_on_card(cuda_device, tmp_path, monkeypatch):
+    """10 steps, 3 inner iterations, float64: unroll and truncated (which
+    at 3 iterations differentiate every iteration) against the central
+    difference (1e-5); the level kernels ran."""
+    _, rows, launches = _eval_main("backward_modes_tactile", ["--inner-iters", "3"], tmp_path, monkeypatch)
+    for k in ("assemble_blocks", "level_factor", "level_fwd_subst", "level_bwd_subst"):
+        assert launches[k] > 0, k
+    by_mode = {r["mode"]: r for r in rows}
+    for m in ("unroll", "truncated-5", "truncated-10"):
+        assert by_mode[m]["rel_err"] < 1e-5, by_mode[m]
+    assert all(np.isfinite(r["loss10"]) for r in rows)
+
+
+def test_eval_autodiff_ablation_on_card(cuda_device, tmp_path, monkeypatch):
+    """The script's table; then in float64 the analytic reprojection
+    jacobians (its kernel) against fwd and rev (1e-10)."""
+    mod, rows, launches = _eval_main("autodiff_ablation", [], tmp_path, monkeypatch)
+    assert len(rows) == 5 and launches["reprojection"] > 0
+    got = {}
+    for mode in ("analytic", "fwd", "rev"):
+        obj, vals = mod.reprojection_objective(mode, n=8, device=cuda_device, dtype=torch.float64)
+        got[mode] = mod.linearizer(obj, vals)()
+    for mode in ("fwd", "rev"):
+        for (ja, ea), (jb, eb) in zip(got["analytic"], got[mode]):
+            torch.testing.assert_close(ea, eb, rtol=0, atol=1e-10)
+            for a, b in zip(ja, jb):
+                torch.testing.assert_close(a, b, rtol=0, atol=1e-10)
+
+
+def test_eval_local_cost_on_card(cuda_device, tmp_path, monkeypatch):
+    """Batches 1 and 256; the float64 3-iteration solve and its input
+    gradient on the card against the CPU's (1e-10)."""
+    mod, rows, _ = _eval_main("time_local_cost_backward", ["--batches", "1", "256"], tmp_path, monkeypatch)
+    assert len(rows) == 4 and all(f > 0 and b > 0 for _, _, f, b in rows)
+    for group in ("SO3", "SE3"):
+        out = {}
+        for device in (cuda_device, torch.device("cpu")):
+            layer, _, state, aux, _ = mod.build(group, 8, torch.float64, device)
+            nxt, loss = mod.stepper(layer, state, aux, group, backward=True)(state[group], 0.0)
+            out[device.type] = (nxt.cpu(), loss.cpu())
+        torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0, atol=1e-10)
+        torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-10, atol=0)
+
+
+def test_eval_gbp_on_card(cuda_device, tmp_path, monkeypatch):
+    """gbp_eval on its 16-pose graph (float64): the step-quality numbers
+    against the CPU's (1e-8); gbp_hw_bench at 64 x 16 launches the Between
+    kernel and times positive."""
+    mod, res, _ = _eval_main("gbp_eval", [], tmp_path, monkeypatch, sizes=(16,))
+    for n, damping, rels in res["step"]:
+        want = mod.step_quality(mod.build(n, device="cpu"), damping)
+        np.testing.assert_allclose(rels, want, rtol=1e-8)
+    eg, en = res["outer"][0][1:]
+    assert eg < 1e-10 and en < 1e-10
+    _, rows, launches = _eval_main("gbp_hw_bench", [], tmp_path, monkeypatch, shapes=((64, 16),))
+    assert launches["between_se3"] > 0 and all(v > 0 for v in rows[0][2:])

@@ -104,6 +104,11 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
+# the JAX package's name for the loader; where its `load` returns None on a
+# failed build, this one raises
+load = lib
+
+
 def native_symbolic(n: int, pairs, ordering: str) -> Tuple[np.ndarray, List[np.ndarray], np.ndarray, np.ndarray]:
     """(perm, rows of every column (diagonal first, sorted), etree parent,
     etree level) of the block graph on n variables with undirected edges

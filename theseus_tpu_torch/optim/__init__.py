@@ -10,7 +10,7 @@ from .nonlinear import (
     NonlinearOptimizerStatus,
     OptimizerInfo,
 )
-from .linear import DenseCholeskySolver, DenseLUSolver
+from .linear import DenseCholeskySolver, DenseLUSolver, apply_damping
 from .dcem import DCEM, DCEMOptions
 from .gaussian import ManifoldGaussian, local_gaussian, retract_gaussian
 from .gbp import GaussianBeliefPropagation, GBPOptions
@@ -48,6 +48,7 @@ __all__ = [
     "OptimizerInfo",
     "DenseCholeskySolver",
     "DenseLUSolver",
+    "apply_damping",
     "DenseNormal",
     "DenseNormalBuilder",
     "BlockNormal",
