@@ -1,0 +1,8 @@
+"""Share of the profiled window of a training cell in which the device was
+idle while the host was in the assembly of the normal equations
+(`tt.assemble`): the spans of theseus_tpu_torch/tracing.py, split by
+portbench/spans.py."""
+
+from portbench.spans import reader
+
+read = reader("train", "assemble")

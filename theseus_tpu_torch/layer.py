@@ -37,6 +37,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .optim.nonlinear import NLSOptions, NonlinearLeastSquares, OptimizerInfo
+from .tracing import span
 
 BACKWARD_MODES = ("unroll", "implicit", "truncated", "dlm")
 # the DLM finite-difference step along the unit tangent cotangent
@@ -68,28 +69,31 @@ class TheseusLayer:
         input_tensors: Optional[Dict] = None,
         optimizer_kwargs: Optional[Dict] = None,
     ) -> Tuple[Dict, OptimizerInfo]:
-        optimizer_kwargs = dict(optimizer_kwargs or {})
-        mode = str(optimizer_kwargs.pop("backward_mode", "unroll")).lower()
-        if mode not in BACKWARD_MODES:
-            raise ValueError(f"backward_mode must be one of {BACKWARD_MODES}")
-        bwd_iters = int(optimizer_kwargs.pop("backward_num_iterations", 5))
-        keep_step = bool(optimizer_kwargs.pop("__keep_final_step_size__", False))
-        ignore_mask = optimizer_kwargs.pop("batch_ignore_mask", None)
-        opts = (
-            dataclasses.replace(self.optimizer.opts, **optimizer_kwargs)
-            if optimizer_kwargs
-            else self.optimizer.opts
-        )
-        values = self.objective.default_values(input_tensors)
-        co = self.objective.compile()
-        bsz = co.resolve_batch_size(values)
-        state = co.pack(values, bsz)
-        aux = co.build_aux(values, bsz)
-        carry = self.solve_state(state, aux, mode, opts, bwd_iters, keep_step, ignore_mask)
-        info = self.optimizer.make_info(carry, opts)
-        out = dict(values)
-        out.update(co.unpack(carry["state"]))
-        return out, info
+        with span("tt.forward"):
+            optimizer_kwargs = dict(optimizer_kwargs or {})
+            mode = str(optimizer_kwargs.pop("backward_mode", "unroll")).lower()
+            if mode not in BACKWARD_MODES:
+                raise ValueError(f"backward_mode must be one of {BACKWARD_MODES}")
+            bwd_iters = int(optimizer_kwargs.pop("backward_num_iterations", 5))
+            keep_step = bool(optimizer_kwargs.pop("__keep_final_step_size__", False))
+            ignore_mask = optimizer_kwargs.pop("batch_ignore_mask", None)
+            opts = (
+                dataclasses.replace(self.optimizer.opts, **optimizer_kwargs)
+                if optimizer_kwargs
+                else self.optimizer.opts
+            )
+            with span("tt.pack"):
+                values = self.objective.default_values(input_tensors)
+                co = self.objective.compile()
+                bsz = co.resolve_batch_size(values)
+                state = co.pack(values, bsz)
+                aux = co.build_aux(values, bsz)
+            carry = self.solve_state(state, aux, mode, opts, bwd_iters, keep_step, ignore_mask)
+            with span("tt.unpack"):
+                info = self.optimizer.make_info(carry, opts)
+                out = dict(values)
+                out.update(co.unpack(carry["state"]))
+            return out, info
 
     __call__ = forward
 
@@ -141,17 +145,18 @@ class TheseusLayer:
     def _implicit_final_step(self, carry, aux, opts, step_size, mask=None):
         """One Gauss-Newton step from the detached solution with AtA detached
         and Atb carrying the graph of `aux`."""
-        co = self.objective.compile()
-        state = carry["state"]
-        ns = self.optimizer.normal_builder.build(state, aux, detach_hessian=True)
-        delta, _ = ns.solve(0.0, False)
-        ss = opts.step_size if step_size is None else step_size
-        accept = None if mask is None else ~torch.as_tensor(mask, dtype=torch.bool, device=delta.device)
-        new_state = co.retract(state, ss * delta, accept=accept)
-        out = dict(carry)
-        out["state"] = new_state
-        out["err"] = co.error_metric(new_state, aux)
-        return out
+        with span("tt.implicit_step"):
+            co = self.objective.compile()
+            state = carry["state"]
+            ns = self.optimizer.normal_builder.build(state, aux, detach_hessian=True)
+            delta, _ = ns.solve(0.0, False)
+            ss = opts.step_size if step_size is None else step_size
+            accept = None if mask is None else ~torch.as_tensor(mask, dtype=torch.bool, device=delta.device)
+            new_state = co.retract(state, ss * delta, accept=accept)
+            out = dict(carry)
+            out["state"] = new_state
+            out["err"] = co.error_metric(new_state, aux)
+            return out
 
 
     # ------------------------------------------------------------------

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..config import needs_grad
+from ..tracing import span
 
 
 class _TwinVJP(torch.autograd.Function):
@@ -26,13 +27,14 @@ class _TwinVJP(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *cots):
-        wants = ctx.needs_input_grad[2:]
-        prims = [t.detach().requires_grad_(w) for t, w in zip(ctx.saved_tensors, wants)]
-        with torch.enable_grad():
-            outs = ctx.plain(*prims)
-        leaves = [p for p, w in zip(prims, wants) if w]
-        grads = iter(torch.autograd.grad(outs, leaves, cots, allow_unused=True))
-        return (None, None) + tuple(next(grads) if w else None for w in wants)
+        with span("tt.backward.vjp"):
+            wants = ctx.needs_input_grad[2:]
+            prims = [t.detach().requires_grad_(w) for t, w in zip(ctx.saved_tensors, wants)]
+            with torch.enable_grad():
+                outs = ctx.plain(*prims)
+            leaves = [p for p, w in zip(prims, wants) if w]
+            grads = iter(torch.autograd.grad(outs, leaves, cots, allow_unused=True))
+            return (None, None) + tuple(next(grads) if w else None for w in wants)
 
 
 def kernel_with_twin_vjp(forward, plain, *ops):

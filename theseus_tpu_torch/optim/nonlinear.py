@@ -30,6 +30,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from ..core.compiled import CompiledObjective
+from ..tracing import span
 from .linear import DenseCholeskySolver, damping_diag
 from .normal import DenseNormalBuilder, SparseNormalBuilder
 
@@ -157,40 +158,41 @@ class NonlinearLeastSquares:
     def init_carry(self, state, aux, opts: NLSOptions, batch_ignore_mask=None) -> Dict:
         """batch_ignore_mask: optional (B,) bool; True freezes that batch
         element for the whole solve."""
-        co = self.compiled
-        b = co.batch_size(state)
-        dtype = co.state_dtype(state)
-        dev = next(iter(state.values())).device
-        err = co.error_metric(state, aux)
-        ignore = (
-            torch.zeros((b,), dtype=torch.bool, device=dev)
-            if batch_ignore_mask is None
-            else torch.as_tensor(batch_ignore_mask, dtype=torch.bool, device=dev)
-        )
-        carry = {
-            "state": state,
-            "err": err,
-            "done": ignore.clone(),  # frozen elements never update
-            "ignore": ignore,
-            "fail": torch.zeros((b,), dtype=torch.bool, device=dev),
-            "damping": torch.full((b,), self._init_scalar_state(opts), dtype=dtype, device=dev),
-            "it": 0,
-            "converged_iter": torch.full((b,), -1, dtype=torch.int32, device=dev),
-            "best_err": err,
-        }
-        if opts.track_err_history:
-            hist = torch.full((opts.max_iterations + 1, b), float("nan"), dtype=dtype, device=dev)
-            hist[0] = err
-            carry["history"] = hist
-        if opts.track_state_history:
-            shist = {}
-            for tk, s in state.items():
-                h = torch.full((opts.max_iterations + 1,) + tuple(s.shape), float("nan"), dtype=s.dtype,
-                               device=s.device)
-                h[0] = s
-                shist[tk] = h
-            carry["state_history"] = shist
-        return carry
+        with span("tt.lm.init"):
+            co = self.compiled
+            b = co.batch_size(state)
+            dtype = co.state_dtype(state)
+            dev = next(iter(state.values())).device
+            err = co.error_metric(state, aux)
+            ignore = (
+                torch.zeros((b,), dtype=torch.bool, device=dev)
+                if batch_ignore_mask is None
+                else torch.as_tensor(batch_ignore_mask, dtype=torch.bool, device=dev)
+            )
+            carry = {
+                "state": state,
+                "err": err,
+                "done": ignore.clone(),  # frozen elements never update
+                "ignore": ignore,
+                "fail": torch.zeros((b,), dtype=torch.bool, device=dev),
+                "damping": torch.full((b,), self._init_scalar_state(opts), dtype=dtype, device=dev),
+                "it": 0,
+                "converged_iter": torch.full((b,), -1, dtype=torch.int32, device=dev),
+                "best_err": err,
+            }
+            if opts.track_err_history:
+                hist = torch.full((opts.max_iterations + 1, b), float("nan"), dtype=dtype, device=dev)
+                hist[0] = err
+                carry["history"] = hist
+            if opts.track_state_history:
+                shist = {}
+                for tk, s in state.items():
+                    h = torch.full((opts.max_iterations + 1,) + tuple(s.shape), float("nan"), dtype=s.dtype,
+                                   device=s.device)
+                    h[0] = s
+                    shist[tk] = h
+                carry["state_history"] = shist
+            return carry
 
     def compute_delta(self, ns, damping, opts: NLSOptions):
         """Subclass hook: returns (delta, fail_mask) from a normal system."""
@@ -201,69 +203,71 @@ class NonlinearLeastSquares:
         return torch.ones_like(new_err, dtype=torch.bool), damping
 
     def iteration(self, carry, aux, opts: NLSOptions):
-        co = self.compiled
-        state = carry["state"]
-        ns = self.normal_builder.build(state, aux)
-        delta, solver_fail = self.compute_delta(ns, carry["damping"], opts)
-        tentative = co.retract(state, opts.step_size * delta)
-        new_err = co.error_metric(tentative, aux)
+        with span("tt.lm.iteration"):
+            co = self.compiled
+            state = carry["state"]
+            ns = self.normal_builder.build(state, aux)
+            with span("tt.solve"):
+                delta, solver_fail = self.compute_delta(ns, carry["damping"], opts)
+            tentative = co.retract(state, opts.step_size * delta)
+            new_err = co.error_metric(tentative, aux)
 
-        accept, damping = self._accept_and_damping(
-            delta, ns, new_err, carry["err"], carry["damping"], opts
-        )
-        bad = solver_fail | ~torch.isfinite(new_err)
-        active = ~carry["done"] & ~bad
-        do_update = accept & active
+            accept, damping = self._accept_and_damping(
+                delta, ns, new_err, carry["err"], carry["damping"], opts
+            )
+            bad = solver_fail | ~torch.isfinite(new_err)
+            active = ~carry["done"] & ~bad
+            do_update = accept & active
 
-        new_state = {}
-        for tk in state:
-            m = do_update.reshape((1, -1) + (1,) * (state[tk].dim() - 2))
-            new_state[tk] = torch.where(m, tentative[tk], state[tk])
-        err = torch.where(do_update, new_err, carry["err"])
+            new_state = {}
+            for tk in state:
+                m = do_update.reshape((1, -1) + (1,) * (state[tk].dim() - 2))
+                new_state[tk] = torch.where(m, tentative[tk], state[tk])
+            err = torch.where(do_update, new_err, carry["err"])
 
-        # convergence; rejected steps do not count as converged
-        all_small = torch.mean(torch.abs(err)) < opts.abs_err_tolerance
-        change = carry["err"] - err
-        denom = torch.where(carry["err"] == 0, torch.ones_like(err), carry["err"])
-        conv = (torch.abs(change) < opts.abs_err_tolerance) | (
-            torch.abs(change / denom) < opts.rel_err_tolerance
-        )
-        newly_converged = (conv & do_update) | all_small
-        it = carry["it"] + 1
-        converged_iter = torch.where(
-            newly_converged & (carry["converged_iter"] < 0) & ~carry["done"],
-            torch.full_like(carry["converged_iter"], it),
-            carry["converged_iter"],
-        )
-        if opts.verbose:
-            print(f"Nonlinear optimizer. Iteration: {it}. Error: {float(torch.mean(err))}")
-        if self.end_iter_callback is not None:
-            self.end_iter_callback(self, err, delta, it)
-        out = {
-            "state": new_state,
-            "err": err,
-            "done": carry["done"] | newly_converged,
-            "ignore": carry["ignore"],
-            "fail": carry["fail"] | (bad & ~carry["done"]),
-            "damping": damping,
-            "it": it,
-            "converged_iter": converged_iter,
-            "best_err": torch.minimum(carry["best_err"], err),
-        }
-        if "history" in carry:
-            hist = carry["history"]
-            if it < hist.shape[0]:  # past max_iterations the JAX package drops the write
-                hist = hist.clone()
-                hist[it] = err
-            out["history"] = hist
-        if "state_history" in carry:
-            shist = carry["state_history"]
-            if it < opts.max_iterations + 1:
-                shist = {tk: h.clone() for tk, h in shist.items()}
-                for tk, h in shist.items():
-                    h[it] = new_state[tk]
-            out["state_history"] = shist
-        return out
+            # convergence; rejected steps do not count as converged
+            all_small = torch.mean(torch.abs(err)) < opts.abs_err_tolerance
+            change = carry["err"] - err
+            denom = torch.where(carry["err"] == 0, torch.ones_like(err), carry["err"])
+            conv = (torch.abs(change) < opts.abs_err_tolerance) | (
+                torch.abs(change / denom) < opts.rel_err_tolerance
+            )
+            newly_converged = (conv & do_update) | all_small
+            it = carry["it"] + 1
+            converged_iter = torch.where(
+                newly_converged & (carry["converged_iter"] < 0) & ~carry["done"],
+                torch.full_like(carry["converged_iter"], it),
+                carry["converged_iter"],
+            )
+            if opts.verbose:
+                print(f"Nonlinear optimizer. Iteration: {it}. Error: {float(torch.mean(err))}")
+            if self.end_iter_callback is not None:
+                self.end_iter_callback(self, err, delta, it)
+            out = {
+                "state": new_state,
+                "err": err,
+                "done": carry["done"] | newly_converged,
+                "ignore": carry["ignore"],
+                "fail": carry["fail"] | (bad & ~carry["done"]),
+                "damping": damping,
+                "it": it,
+                "converged_iter": converged_iter,
+                "best_err": torch.minimum(carry["best_err"], err),
+            }
+            if "history" in carry:
+                hist = carry["history"]
+                if it < hist.shape[0]:  # past max_iterations the JAX package drops the write
+                    hist = hist.clone()
+                    hist[it] = err
+                out["history"] = hist
+            if "state_history" in carry:
+                shist = carry["state_history"]
+                if it < opts.max_iterations + 1:
+                    shist = {tk: h.clone() for tk, h in shist.items()}
+                    for tk, h in shist.items():
+                        h[it] = new_state[tk]
+                out["state_history"] = shist
+            return out
 
     def run_scan(self, carry, aux, num_iters: int, opts: NLSOptions):
         """Fixed-length loop (masked; no early exit, no host sync)."""
@@ -274,7 +278,9 @@ class NonlinearLeastSquares:
     def run_while(self, carry, aux, max_iters: int, opts: NLSOptions):
         """Early-exit loop: stops once every element is done or failed."""
         for _ in range(max(max_iters, 0)):
-            if bool(torch.all(carry["done"] | carry["fail"])):
+            with span("tt.lm.sync"):
+                finished = bool(torch.all(carry["done"] | carry["fail"]))
+            if finished:
                 break
             carry = self.iteration(carry, aux, opts)
         return carry

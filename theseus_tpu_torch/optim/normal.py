@@ -24,6 +24,7 @@ from ..core.compiled import CompiledObjective
 from ..sparse.assemble import apply_block_damping, assemble, build_block_pattern
 from ..sparse.cholesky import NumericSchedule, sparse_block_solve
 from ..sparse.pcg import PCGSchedule, pcg_block_solve
+from ..tracing import span
 from .linear import DenseCholeskySolver, finite_or_zero
 from .ordering import symbolic_for
 
@@ -57,11 +58,13 @@ class DenseNormalBuilder:
     def build(self, state, aux, detach_hessian: bool = False) -> DenseNormal:
         """detach_hessian: AtA carries no autograd history while Atb keeps
         its graph (the implicit backward's final Gauss-Newton step)."""
-        a, b = self.co.dense_A_b(state, aux)
-        a_h = a.detach() if detach_hessian else a
-        with config.full_precision():
-            ata = a_h.transpose(-1, -2) @ a_h
-            atb = (a.transpose(-1, -2) @ b[..., None])[..., 0]
+        with span("tt.linearize"):
+            a, b = self.co.dense_A_b(state, aux)
+        with span("tt.assemble"):
+            a_h = a.detach() if detach_hessian else a
+            with config.full_precision():
+                ata = a_h.transpose(-1, -2) @ a_h
+                atb = (a.transpose(-1, -2) @ b[..., None])[..., 0]
         return DenseNormal(ata, atb, self.solver)
 
 
@@ -165,8 +168,10 @@ class BlockNormalBuilder:
         """Linearize and assemble. detach_hessian: AtA carries no autograd
         history while Atb keeps its graph (the implicit backward's final
         Gauss-Newton step)."""
-        blocks = self.co.linearize_blocks(state, aux)
-        ata, atb = assemble(self.pattern, blocks)
+        with span("tt.linearize"):
+            blocks = self.co.linearize_blocks(state, aux)
+        with span("tt.assemble"):
+            ata, atb = assemble(self.pattern, blocks)
         if detach_hessian:
             ata = ata.detach()
         return self.normal_cls(self, ata, atb)

@@ -33,6 +33,7 @@ import torch
 from .. import _cuda
 from ..config import needs_grad, use_kernel
 from ..ops.batched_linalg import SMALL_DIM_MAX
+from ..tracing import span
 
 # the kernel takes its jacobian / error pointers in its parameter block; an
 # objective with more (bucket, slot) sources (one bucket per cost, as
@@ -304,13 +305,14 @@ class _AssembleBlocks(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_ata, g_atb):
-        wants = ctx.needs_input_grad[2:]
-        prims = [t.detach().requires_grad_(w) for t, w in zip(ctx.saved_tensors, wants)]
-        with torch.enable_grad():
-            outs = assemble_blocks_plain(ctx.pattern, _unflatten(ctx.layout, prims))
-        leaves = [p for p, w in zip(prims, wants) if w]
-        grads = iter(torch.autograd.grad(outs, leaves, (g_ata, g_atb), allow_unused=True))
-        return (None, None) + tuple(next(grads) if w else None for w in wants)
+        with span("tt.backward.assemble"):
+            wants = ctx.needs_input_grad[2:]
+            prims = [t.detach().requires_grad_(w) for t, w in zip(ctx.saved_tensors, wants)]
+            with torch.enable_grad():
+                outs = assemble_blocks_plain(ctx.pattern, _unflatten(ctx.layout, prims))
+            leaves = [p for p, w in zip(prims, wants) if w]
+            grads = iter(torch.autograd.grad(outs, leaves, (g_ata, g_atb), allow_unused=True))
+            return (None, None) + tuple(next(grads) if w else None for w in wants)
 
 
 def assemble_blocks(pattern, blocks):

@@ -40,6 +40,7 @@ import torch
 
 from .. import config
 from ..ops.batched_linalg import chol_small, rt_solve_lower, solve_lower_vec, solve_upper_vec
+from ..tracing import span
 from .assemble import BlockPattern
 from .level_kernels import level_bwd_subst, level_factor, level_fwd_subst
 from .refine import block_matvec, hp_dtype, refine, refine_active, solve_vjp
@@ -493,16 +494,18 @@ def _use_whole(sched: NumericSchedule) -> bool:
 def factorize(sched: NumericSchedule, ata_flat: torch.Tensor) -> torch.Tensor:
     """ata_flat (n_slots, B, d, d) -> Lflat (nnz_l+1, B, d, d), by the plan
     config selects; both plans give the same layout."""
-    if _use_whole(sched):
-        return whole_factor(sched, ata_flat)
-    return factorize_levels(sched, ata_flat)
+    with span("tt.factor"):
+        if _use_whole(sched):
+            return whole_factor(sched, ata_flat)
+        return factorize_levels(sched, ata_flat)
 
 
 def solve_with_factor(sched: NumericSchedule, lflat: torch.Tensor, atb: torch.Tensor):
     """Solve H x = atb given L. atb (n, B, d) original var order -> x same."""
-    if _use_whole(sched):
-        return solve_whole(sched, lflat, atb)
-    return solve_levels(sched, lflat, atb)
+    with span("tt.subst"):
+        if _use_whole(sched):
+            return solve_whole(sched, lflat, atb)
+        return solve_levels(sched, lflat, atb)
 
 
 def sample_with_factor(sched: NumericSchedule, lflat: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -520,13 +523,14 @@ def _refine_with_factor(sched, lflat, ata_flat, b, x0):
     factor (a no-op unless the high-precision tier is active)."""
     if not refine_active(b.dtype):
         return x0
-    tables = sched.pattern.matvec_tables(b.device)
-    hp = hp_dtype(b.dtype)
-    return refine(
-        lambda r: solve_with_factor(sched, lflat, r),
-        lambda xv: block_matvec(tables, ata_flat, xv, hp),
-        b, x0, config.REFINE_STEPS,
-    )
+    with span("tt.subst"):
+        tables = sched.pattern.matvec_tables(b.device)
+        hp = hp_dtype(b.dtype)
+        return refine(
+            lambda r: solve_with_factor(sched, lflat, r),
+            lambda xv: block_matvec(tables, ata_flat, xv, hp),
+            b, x0, config.REFINE_STEPS,
+        )
 
 
 class _SparseBlockSolve(torch.autograd.Function):
@@ -552,8 +556,9 @@ class _SparseBlockSolve(torch.autograd.Function):
         def solve(r):  # H is symmetric
             return _refine_with_factor(sched, lflat, ata_flat, r, solve_with_factor(sched, lflat, r))
 
-        d_ata, h = solve_vjp(solve, sched.pattern.matvec_tables(g.device), ata_flat, x, g,
-                             ctx.needs_input_grad[1])
+        with span("tt.backward.solve"):
+            d_ata, h = solve_vjp(solve, sched.pattern.matvec_tables(g.device), ata_flat, x, g,
+                                 ctx.needs_input_grad[1])
         return None, d_ata, h
 
 
