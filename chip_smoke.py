@@ -291,6 +291,7 @@ KERNEL_INFO = {
     "whole_fwd_subst": ("theseus_tpu_torch/csrc/whole_subst.cu", "theseus_tpu/sparse/pallas_whole.py:508"),
     "whole_bwd_subst": ("theseus_tpu_torch/csrc/whole_subst.cu", "theseus_tpu/sparse/pallas_whole.py:523"),
     "between_se3_aos": ("theseus_tpu_torch/csrc/between_se3.cu", "theseus_tpu/ops/pallas_between.py:60"),
+    "tail_update": ("theseus_tpu_torch/csrc/tail_update.cu", "none: theseus_tpu/sparse/cholesky.py _tail_* are jnp"),
 }
 
 # The training path (the JAX package's __graft_entry__ step): PGO 256 x 128
@@ -373,6 +374,12 @@ WHOLE_SHAPES = ((256, 128), (2048, 8))
 # the dense-tail path: a 16 x 16 grid PGO (256 poses) at batch 128; its
 # symbolic analysis folds the last 51 columns into one dense supernode
 GRID = (16, 16, 128)
+# the dense tail's external update at the benchmark's shape: the
+# sphere2500-sized 50 x 50 snake grid (portbench) at batch 64, a 123-column
+# tail; the plain twin, which gathers 22.6 GB in float32 at this batch, is
+# held against the kernel in slices of TAIL_UPDATE_SLICE batch elements
+TAIL_UPDATE_GRID = (50, 50, 64)
+TAIL_UPDATE_SLICE = 8
 # device ms of the first designs of the redesigned rows 5, 8 and 4b
 # (PERF.md, kernel table, the previous design's last measurement: NVIDIA
 # H100 80GB HBM3, 700 W; reprojection at BA 128 x 4000 x 1, the others at
@@ -706,7 +713,7 @@ def phase_build():
         if not ("between_se3" in name or "reprojection" in name or "Li6E" in name):
             continue
         kind = next(k for k in ("between_se3", "reprojection", "assemble", "whole_factor", "whole_fwd",
-                                "whole_bwd", "level_factor", "fwd_subst", "bwd_subst") if k in name)
+                                "whole_bwd", "level_factor", "fwd_subst", "bwd_subst", "tail_update") if k in name)
         if kind in ("whole_fwd", "whole_bwd", "whole_factor"):  # shared memory or device memory
             kind += " smem" if "Lb1E" in name else " global"
         dt = "f64" if "kernelId" in name else "f32"
@@ -1415,7 +1422,8 @@ def phase_tail(dev):
           f"{batch} float32 forward, {ITERS} LM iterations: {wall:.3f} s wall, mean final err "
           f"{float(info.last_err.mean()):.8e}, launches {launches}, cholesky_ex {potrf.call_count}")
     expect = {"between_se3": 2 * ITERS + 1, "assemble_blocks": ITERS, "level_factor": ITERS * n_levels,
-              "level_fwd_subst": ITERS * n_levels, "level_bwd_subst": ITERS * n_levels, "whole_factor": 0}
+              "level_fwd_subst": ITERS * n_levels, "level_bwd_subst": ITERS * n_levels, "whole_factor": 0,
+              "tail_update": ITERS}
     for k, v in expect.items():
         check(launches[k] == v, f"tail: {k} {launches[k]} launches, expected {v}")
     check(potrf.call_count == ITERS, f"tail: {potrf.call_count} cholesky_ex calls for {ITERS} factorizations")
@@ -2116,7 +2124,8 @@ def phase_pgo2d(dev, card):
           f"{ {k: v for k, v in launches.items() if v} }, cholesky_ex {potrf.call_count}")
     expect = {k: 0 for k in launches}
     expect.update({"assemble_blocks": ITERS, "level_factor": ITERS * n_levels,
-                   "level_fwd_subst": ITERS * n_levels, "level_bwd_subst": ITERS * n_levels})
+                   "level_fwd_subst": ITERS * n_levels, "level_bwd_subst": ITERS * n_levels,
+                   "tail_update": ITERS})
     for k, v in expect.items():
         check(launches[k] == v, f"pgo2d: {k} {launches[k]} launches, expected {v}")
     check(potrf.call_count == ITERS, f"pgo2d: {potrf.call_count} cholesky_ex calls for {ITERS} factorizations")
@@ -2528,7 +2537,8 @@ def phase_planning(dev, card):
     outs, infos = {}, {}
     expect = {k: 0 for k in _cuda.launches}
     expect.update({"assemble_blocks": PLAN_ITERS, "level_factor": PLAN_ITERS * n_levels,
-                   "level_fwd_subst": PLAN_ITERS * n_levels, "level_bwd_subst": PLAN_ITERS * n_levels})
+                   "level_fwd_subst": PLAN_ITERS * n_levels, "level_bwd_subst": PLAN_ITERS * n_levels,
+                   "tail_update": PLAN_ITERS if sched.tail_k else 0})
     for b in PLAN_BATCHES:
         inputs = planning_inputs(p32, maps, torch.float32, dev, 0, b)
         torch.cuda.synchronize()
@@ -2957,7 +2967,8 @@ def phase_tactile(dev, card):
           f"launches {_nonzero(fwd)}, cholesky_ex {chol_f}; backward(): launches {_nonzero(bwd)}, cholesky_ex {chol_b}")
     solves = fwd["assemble_blocks"]
     check(solves >= 2 and all(fwd[k] == n_levels * solves for k in LEVEL_KERNELS) and chol_f == solves
-          and fwd["between_se3"] == 0, f"tactile forward: launches {fwd}, cholesky_ex {chol_f}")
+          and fwd["tail_update"] == (solves if sched.tail_k else 0) and fwd["between_se3"] == 0,
+          f"tactile forward: launches {fwd}, cholesky_ex {chol_f}")
     check(bwd["level_fwd_subst"] == n_levels and bwd["level_bwd_subst"] == n_levels and bwd["level_factor"] == 0,
           f"tactile backward(): launches {bwd}")
     launches = {k: fwd[k] + bwd[k] for k in fwd}
@@ -4300,7 +4311,7 @@ def train_step_ms(dev, whole):
         config.set_whole_sweep(False)
 
 
-def phase_timing(dev, card, twin_ms):
+def phase_timing(dev, card, twin_ms, max_abs):
     import torch
 
     from theseus_tpu_torch import config
@@ -4485,7 +4496,7 @@ def phase_timing(dev, card, twin_ms):
     _, g_ata, g_l, g_y, g_x, g_bp = plain_system(g_prob)
     tail_t = g_sched.tail_on(dev)
     K = g_sched.tail_k
-    g_dense = chol._tail_blocks_to_mat(g_l[tail_t["col_slots"]], tail_t["valid"], K, d)
+    g_dense = chol.tail_blocks_to_mat(g_l[tail_t["col_slots"]], tail_t["valid"], K, d)
     g_dense = g_dense @ g_dense.transpose(-1, -2)
     # back to back (CUDA events): each call's device time (0.5 ms and more)
     # exceeds its host time, so the queue stays full
@@ -4497,6 +4508,7 @@ def phase_timing(dev, card, twin_ms):
     print(f"[timing] grid {GRID[0]}x{GRID[1]}x{GRID[2]} float32 dense tail ({tuple(g_dense.shape)} a POTRF, "
           f"{len(g_sched.level_tables)} head levels): " + ", ".join(f"{k} {v:.4f} ms" for k, v in tail_ms.items())
           + f" (CUDA events, back to back) on {card}")
+    times["tail_update"], dev_times["tail_update"], tail_update_bound = tail_update_timing(dev, card, max_abs)
     # row 4b over the grid's head levels, whose columns have long row lists
     # (the chains' have at most 3 rows)
     g_bwd = [bw for _, _, bw in level_inputs(g_prob, g_ata, g_l, g_y, g_x, g_bp)]
@@ -4570,6 +4582,7 @@ def phase_timing(dev, card, twin_ms):
         "whole_bwd_subst 2048x8": _bound(_nbytes(dw_l, dw_y, dw_y), subst_flops(deep_sched, WHOLE_SHAPES[1][1], d, False)),
         "level_bwd_subst grid": _bound(sum(_nbytes(*bw) + _nbytes(bw[2]) for bw in g_bwd),
                                        subst_flops(g_sched, GRID[2], d, False)),
+        "tail_update": tail_update_bound,
     }
     lib = {"level_factor": library["cholesky_ex"], "whole_factor": library["cholesky_ex"],
            "level_fwd_subst": library["solve_triangular lower"],
@@ -4581,6 +4594,57 @@ def phase_timing(dev, card, twin_ms):
         print(f"[timing] bound {name:<19} {bms:.4f} ms ({by}); kernel {times[name][0]:.4f} ms back to back, "
               f"{dev_times[name]:.4f} ms device on {card}")
     return iters, times, dev_times, train_ms, bounds, lib
+
+
+def tail_update_timing(dev, card, max_abs):
+    """`tail_update` at TAIL_UPDATE_GRID, float32 and float64: two launches
+    bitwise equal, against the plain twin (in slices), max_abs["tail_update"]
+    filled; then float32 timed back to back, as device time and against the
+    twin at the whole batch. Returns ((kernel ms, twin ms), device ms,
+    bound)."""
+    import numpy as np
+    import torch
+
+    from theseus_tpu_torch import config
+    from theseus_tpu_torch.sparse.assemble import apply_block_damping, assemble
+    from theseus_tpu_torch.sparse.cholesky import factorize
+    from theseus_tpu_torch.sparse.level_kernels import tail_update
+
+    rows, cols, batch = TAIL_UPDATE_GRID
+    max_abs["tail_update"] = {}
+    for dtype in (torch.float32, torch.float64):
+        dn = str(dtype).split(".")[-1]
+        prob = Problem(*grid_problem(rows, cols, batch, dtype, dev)[:2])
+        sched = prob.builder.sched
+        with config.plain_path():
+            ata, _ = assemble(prob.builder.pattern, prob.co.linearize_blocks(prob.state, prob.aux))
+            ata = apply_block_damping(prob.builder.pattern, ata, 1e-3, False, 1e-8)
+        lflat = factorize(sched, ata)
+        note = f"{rows}x{cols}x{batch} K={sched.tail_k}"
+        got = _repeatable("tail_update", lambda: (tail_update(sched, ata, lflat),), f"{dn} {note}")[0]
+        with config.plain_path():
+            want = torch.cat([tail_update(sched, ata[:, s:s + TAIL_UPDATE_SLICE], lflat[:, s:s + TAIL_UPDATE_SLICE])
+                              for s in range(0, batch, TAIL_UPDATE_SLICE)])
+        max_abs["tail_update"][dn] = _dev_report("tail_update", dn, got, want, note)
+        del got, want
+        if dtype == torch.float32:
+            kernel = lambda: tail_update(sched, ata, lflat)  # noqa: E731
+            ms, dev_ms = cuda_ms(kernel), device_ms(kernel)
+            torch.cuda.empty_cache()
+            with config.plain_path():
+                twin_ms = cuda_ms(kernel, reps=2, warmup=1)
+            torch.cuda.empty_cache()
+            d, K, isz = ata.shape[-1], sched.tail_k, ata.element_size()
+            blocks = len(np.unique(sched.tail_pairs)) + len(np.unique(sched.tail_out[:, 2]))
+            bound = _bound((batch * (K * d) ** 2 + blocks * batch * d * d) * isz,
+                           2 * d ** 3 * len(sched.tail_pairs) * batch)
+            print(f"[timing] tail_update {note} float32, {len(sched.tail_out)} output blocks, "
+                  f"{len(sched.tail_pairs)} pairs: kernel {ms:.4f} ms back to back, {dev_ms:.4f} ms device (queue "
+                  f"prefilled), plain twin {twin_ms:.4f} ms (CUDA events), bound {bound[0]:.4f} ms ({bound[1]}) "
+                  f"on {card}")
+            result = ((ms, twin_ms), dev_ms, bound)
+        del prob, ata, lflat
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -4710,7 +4774,7 @@ def main() -> int:
     launches.update(example_launches)
     eval_launches, evals = timed("evaluations", phase_evaluations, dev, card)
     launches.update(eval_launches)
-    iters, times, dev_times, train_ms, bounds, library = timed("timing", phase_timing, dev, card, twin_ms)
+    iters, times, dev_times, train_ms, bounds, library = timed("timing", phase_timing, dev, card, twin_ms, max_abs)
     timed("profile", phase_profile, dev, card)
     check("jax" not in sys.modules and "theseus_tpu" not in sys.modules, "jax was imported")
 

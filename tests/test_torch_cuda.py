@@ -693,8 +693,9 @@ def _grid_layer(device, dtype, rows=6, cols=6, batch=3, iters=15, seed=8):
 
 
 def test_tail_lm_solve_on_card_matches_cpu_twins(cuda_device):
-    """The 6 x 6 grid: the head through the level kernels, the tail through
-    cholesky_ex, float64, against the CPU twins."""
+    """The 6 x 6 grid: the head through the level kernels, the tail's
+    update through `tail_update` and its factor through cholesky_ex, one
+    of each a factorization, float64, against the CPU twins."""
     import theseus_tpu_torch as tt
 
     results = {}
@@ -706,6 +707,7 @@ def test_tail_lm_solve_on_card_matches_cpu_twins(cuda_device):
         if dev != "cpu":
             n_levels = len(opt.normal_builder.sched.level_tables)
             assert _cuda.launches["level_factor"] == 15 * n_levels
+            assert _cuda.launches["tail_update"] == 15
             assert _cuda.launches["whole_factor"] == 0
     torch.testing.assert_close(results["cuda"], results["cpu"], rtol=1e-9, atol=1e-12)
 

@@ -27,7 +27,7 @@ _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 SOURCES = (
     "between_se3.cu", "assemble_blocks.cu", "level_factor.cu", "level_subst.cu", "reprojection.cu",
-    "whole_factor.cu", "whole_subst.cu",
+    "whole_factor.cu", "whole_subst.cu", "tail_update.cu",
 )
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -43,7 +43,7 @@ build_seconds: Optional[float] = None
 # kernel and nowhere else, so a run can show that it went through them.
 KERNELS = (
     "between_se3", "assemble_blocks", "level_factor", "level_fwd_subst", "level_bwd_subst",
-    "reprojection", "whole_factor", "whole_fwd_subst", "whole_bwd_subst", "between_se3_aos",
+    "reprojection", "whole_factor", "whole_fwd_subst", "whole_bwd_subst", "between_se3_aos", "tail_update",
 )
 launches = {name: 0 for name in KERNELS}
 
@@ -168,6 +168,9 @@ _SIGNATURES = {
     # (sparse/whole.py FwdPlan, BwdPlan)
     "th_whole_fwd_subst": [_P] * 4 + [_I] * 7 + [_L, _P, _P],
     "th_whole_bwd_subst": [_P] * 4 + [_I] * 7 + [_L, _P, _P],
+    # ata, lflat, output table, pair pointers, pairs (sparse/cholesky.py
+    # NumericSchedule.tail_on), outputs, K, B, d, dense, stream
+    "th_tail_update": [_P] * 5 + [_I] * 4 + [_P, _P],
 }
 
 

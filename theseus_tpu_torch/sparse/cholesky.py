@@ -42,7 +42,7 @@ from .. import config
 from ..ops.batched_linalg import chol_small, rt_solve_lower, solve_lower_vec, solve_upper_vec
 from ..tracing import span
 from .assemble import BlockPattern
-from .level_kernels import level_bwd_subst, level_factor, level_fwd_subst
+from .level_kernels import level_bwd_subst, level_factor, level_fwd_subst, tail_blocks_to_mat, tail_update
 from .refine import block_matvec, hp_dtype, refine, refine_active, solve_vjp
 from .structure import SymbolicFactor
 from .whole import solve_whole, whole_factor
@@ -82,7 +82,13 @@ class NumericSchedule:
         - tail_a_src / tail_a_tr (K, K): AtA slot and transpose flag;
         - tail_upd_* (K, ue, ...): the external left-looking updates, head
           columns k < n_head with L[cj, k] in the pattern (the updates inside
-          the tail are the dense POTRF's own)."""
+          the tail are the dense POTRF's own);
+        - the `tail_update` kernel's lists, over the K (K + 1) / 2 output
+          blocks (j, r >= j) in j-major order: tail_out (n_out, 4) int32
+          (j, r, AtA slot, transpose flag), tail_pair_ptr (n_out + 1) int32
+          and tail_pairs (n_pairs, 2) int32, the (slot of L[r, k], slot of
+          L[j, k]) of every external k where both blocks exist, in the
+          order of tail_ext_upd."""
         if self.tail_k == 0:
             self.tail_ue = 0
             return
@@ -129,11 +135,21 @@ class NumericSchedule:
         self.tail_upd_k = upd_k
         self.tail_upd_valid = upd_valid
 
+        jj, rr = np.triu_indices(K)
+        self.tail_out = np.stack([jj, rr, a_src[jj, rr], a_tr[jj, rr]], axis=1).astype(np.int32)
+        # (j, r, u) in lexicographic order: each output's pairs in list order
+        has = upd_valid[:, None, :] & (upd_slots.transpose(0, 2, 1) != 0)
+        has &= (np.arange(K)[None, :] >= np.arange(K)[:, None])[:, :, None]
+        pj, pr, pu = np.nonzero(has)
+        self.tail_pairs = np.stack([upd_slots[pj, pu, pr], upd_jk[pj, pu]], axis=1).astype(np.int32)
+        self.tail_pair_ptr = np.concatenate([[0], np.cumsum(has[jj, rr].sum(axis=1))]).astype(np.int32)
+
     def tail_on(self, device: torch.device) -> Dict[str, torch.Tensor]:
         """The tail tables as index tensors (bool tables as masks) on
         `device`, built once per device, with the supernode's strict-lower
-        mask `strict` and the diagonal's indices `diag`, so that no solve
-        copies an index from the host."""
+        mask `strict` and the diagonal's indices `diag`, and the
+        `tail_update` kernel's int32 lists `out`, `pair_ptr`, `pairs`, so
+        that no solve copies an index from the host."""
         key = ("tail", str(device))
         if key not in self._device:
             K = self.tail_k
@@ -143,10 +159,13 @@ class NumericSchedule:
                 "upd_k": self.tail_upd_k, "upd_valid": self.tail_upd_valid,
                 "strict": self.tail_valid & ~np.eye(K, dtype=bool), "diag": np.arange(K),
             }
-            self._device[key] = {
+            tables = {
                 k: torch.as_tensor(v, dtype=torch.bool if v.dtype == bool else torch.long, device=device)
                 for k, v in host.items()
             }
+            for k in ("out", "pair_ptr", "pairs"):
+                tables[k] = torch.as_tensor(getattr(self, f"tail_{k}"), device=device)
+            self._device[key] = tables
         return self._device[key]
 
     def _build_level_table(self, cols):
@@ -344,34 +363,17 @@ def solve_levels(sched: NumericSchedule, lflat: torch.Tensor, atb: torch.Tensor)
 
 
 # ---------------------------------------------------------------------------
-# the dense trailing supernode (JAX sparse/cholesky.py `_tail_*`): plain
-# torch on (B, K d, K d). The JAX package computes it with
-# jnp.linalg.cholesky and jsl.solve_triangular outside any Pallas kernel.
+# the dense trailing supernode (JAX sparse/cholesky.py `_tail_*`) on
+# (B, K d, K d): its external update by `tail_update` (csrc/tail_update.cu,
+# plain twin in level_kernels.py), its POTRF and triangular solves plain
+# torch. The JAX package computes all of it with jnp outside any Pallas
+# kernel.
 # ---------------------------------------------------------------------------
-def _tail_blocks_to_mat(c, valid, K, d):
-    """c (K_col, K_row, B, d, d) masked lower blocks -> dense (B, K d, K d),
-    lower triangular by blocks (the strict upper part zero)."""
-    bsz = c.shape[2]
-    c = torch.where(valid[:, :, None, None, None], c, 0.0)
-    # (col j, row r, B, i, m) -> (B, r, i, j, m)
-    return c.permute(2, 1, 3, 0, 4).reshape(bsz, K * d, K * d)
-
-
 def _tail_mat_to_blocks(m, K, d):
     """dense (B, K d, K d) -> blocks (K_col, K_row, B, d, d)."""
     bsz = m.shape[0]
     # [b, r, i, j, m] -> [j, r, b, i, m]
     return m.reshape(bsz, K, d, K, d).permute(3, 1, 0, 2, 4)
-
-
-def _tail_assemble_c(sched: NumericSchedule, ata_flat, lflat):
-    """Per tail column, the blocks C = A - external updates, (K, K, B, d, d)."""
-    t = sched.tail_on(ata_flat.device)
-    col_a = ata_flat[t["a_src"]]
-    col_a = torch.where(t["a_tr"][:, :, None, None, None], col_a.transpose(-1, -2), col_a)
-    ks = lflat[t["upd_slots"]]  # (K, ue, K, B, d, d)
-    kj = torch.where(t["upd_valid"][:, :, None, None, None], lflat[t["upd_jk"]], 0.0)
-    return col_a - torch.einsum("curbik,cubjk->crbij", ks, kj)
 
 
 def _tail_dense_eliminate(sched: NumericSchedule, ata_flat, lflat):
@@ -382,16 +384,7 @@ def _tail_dense_eliminate(sched: NumericSchedule, ata_flat, lflat):
     jnp.linalg.cholesky gives, so that LM rejects its step."""
     t = sched.tail_on(ata_flat.device)
     K, d = sched.tail_k, ata_flat.shape[-1]
-    c = _tail_assemble_c(sched, ata_flat, lflat)
-    # the symmetric matrix: strict lower, its transpose, the symmetrised diagonal
-    lower = _tail_blocks_to_mat(c, t["strict"], K, d)
-    cd = c[t["diag"], t["diag"]]  # (K, B, d, d)
-    bsz = c.shape[2]
-    dmat = torch.zeros((bsz, K, d, K, d), dtype=c.dtype, device=c.device)
-    # advanced indices split by a slice land in front: values (K, B, d, d)
-    dmat[:, t["diag"], :, t["diag"], :] = 0.5 * (cd + cd.transpose(-1, -2))
-    dense = lower + lower.transpose(-1, -2) + dmat.reshape(bsz, K * d, K * d)
-    ld, info = torch.linalg.cholesky_ex(dense)
+    ld, info = torch.linalg.cholesky_ex(tail_update(sched, ata_flat, lflat))
     ld = torch.where((info != 0)[:, None, None], torch.nan, ld)
     blocks = torch.where(t["valid"][:, :, None, None, None], _tail_mat_to_blocks(ld, K, d), 0.0)
     # the strict upper entries all write zeros into the slot-0 sentinel
@@ -401,7 +394,7 @@ def _tail_dense_eliminate(sched: NumericSchedule, ata_flat, lflat):
 def _tail_dense_l(sched: NumericSchedule, lflat):
     """The dense (B, K d, K d) tail factor from the factor's blocks."""
     t = sched.tail_on(lflat.device)
-    return _tail_blocks_to_mat(lflat[t["col_slots"]], t["valid"], sched.tail_k, lflat.shape[-1])
+    return tail_blocks_to_mat(lflat[t["col_slots"]], t["valid"], sched.tail_k, lflat.shape[-1])
 
 
 def _tail_fwd_solve(sched: NumericSchedule, lflat, y, b_perm):

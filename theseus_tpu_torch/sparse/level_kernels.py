@@ -1,19 +1,22 @@
-"""Per-level factor and substitution: CUDA kernels and plain twins (JAX counterpart: theseus_tpu/sparse/pallas_factorize.py).
+"""Per-level factor and substitution, and the dense tail's external update: CUDA kernels and plain twins (JAX counterpart: theseus_tpu/sparse/pallas_factorize.py; the tail's update is jnp in sparse/cholesky.py).
 
-Three entry points, each launching its kernel on a CUDA tensor and running
+Four entry points, each launching its kernel on a CUDA tensor and running
 its plain twin on a CPU tensor:
 
 - `level_factor(col_a, ks, kj)` -> newcol (`csrc/level_factor.cu`)
 - `level_fwd_subst(ljk, yk, b, ldiag)` -> y (`csrc/level_subst.cu`)
 - `level_bwd_subst(lcol, xr, y)` -> x (`csrc/level_subst.cu`)
+- `tail_update(sched, ata_flat, lflat)` -> the dense trailing supernode's
+  symmetric matrix before its POTRF (`csrc/tail_update.cu`)
 
-All operands are AoS with the batch before the block: (C, rows, B, d, d)
-and (C, rows, B, d). The gathers that build them and the scatters of the
-results stay in sparse/cholesky.py. The twins follow cholesky.py's
+The level operands are AoS with the batch before the block: (C, rows, B,
+d, d) and (C, rows, B, d). The gathers that build them and the scatters of
+the results stay in sparse/cholesky.py. The twins follow cholesky.py's
 `_factorize_levels` / `_solve_levels` arithmetic through the unrolled
 ops/batched_linalg routines. The substitution kernels' launch geometry is
 chosen here (`fwd_subst_geometry`, `bwd_subst_geometry`), where the CPU
-tests reach it.
+tests reach it. `tail_update` reads the factor and AtA in place through the
+schedule's lists (`NumericSchedule.tail_on`).
 """
 
 from __future__ import annotations
@@ -64,6 +67,35 @@ def level_bwd_subst_plain(lcol, xr, y):
     with x = L_jj^{-T} (y - sum_{r>=1} L_rj^T x_r); row 0 is ignored."""
     acc = y - torch.einsum("crbij,crbi->cbj", lcol[:, 1:], xr[:, 1:])
     return solve_upper_vec(lcol[:, 0].transpose(-1, -2), acc)
+
+
+def tail_blocks_to_mat(c, valid, K, d):
+    """c (K_col, K_row, B, d, d) masked lower blocks -> dense (B, K d, K d),
+    lower triangular by blocks (the strict upper part zero)."""
+    bsz = c.shape[2]
+    c = torch.where(valid[:, :, None, None, None], c, 0.0)
+    # (col j, row r, B, i, m) -> (B, r, i, j, m)
+    return c.permute(2, 1, 3, 0, 4).reshape(bsz, K * d, K * d)
+
+
+def tail_update_plain(t, ata_flat, lflat):
+    """t: `NumericSchedule.tail_on`'s tables. Per tail column j and row
+    r >= j the block C = A - sum_k L[r, k] L[j, k]^T over the external
+    updates, then the symmetric dense (B, K d, K d): the strict lower
+    blocks, their transposes and the diagonal blocks as 0.5 (C + C^T)."""
+    K, d = t["diag"].shape[0], ata_flat.shape[-1]
+    col_a = ata_flat[t["a_src"]]
+    col_a = torch.where(t["a_tr"][:, :, None, None, None], col_a.transpose(-1, -2), col_a)
+    ks = lflat[t["upd_slots"]]  # (K, ue, K, B, d, d)
+    kj = torch.where(t["upd_valid"][:, :, None, None, None], lflat[t["upd_jk"]], 0.0)
+    c = col_a - torch.einsum("curbik,cubjk->crbij", ks, kj)
+    lower = tail_blocks_to_mat(c, t["strict"], K, d)
+    cd = c[t["diag"], t["diag"]]  # (K, B, d, d)
+    bsz = c.shape[2]
+    dmat = torch.zeros((bsz, K, d, K, d), dtype=c.dtype, device=c.device)
+    # advanced indices split by a slice land in front: values (K, B, d, d)
+    dmat[:, t["diag"], :, t["diag"], :] = 0.5 * (cd + cd.transpose(-1, -2))
+    return lower + lower.transpose(-1, -2) + dmat.reshape(bsz, K * d, K * d)
 
 
 # ---------------------------------------------------------------------------
@@ -208,3 +240,23 @@ def level_bwd_subst(lcol, xr, y):
     _cuda.check(rc, "level_bwd_subst")
     _cuda.launches["level_bwd_subst"] += 1
     return x
+
+
+def tail_update(sched, ata_flat, lflat):
+    """The dense tail's matrix before its POTRF (`tail_update_plain`):
+    ata_flat (n_slots, B, d, d), lflat (nnz_l + 1, B, d, d) with the head's
+    columns factored -> (B, K d, K d)."""
+    t = sched.tail_on(ata_flat.device)
+    if not use_kernel(ata_flat):
+        return tail_update_plain(t, ata_flat, lflat)
+    K, B, d = sched.tail_k, ata_flat.shape[1], ata_flat.shape[-1]
+    if ata_flat.shape != (sched.pattern.n_slots, B, d, d) or lflat.shape != (sched.sym.nnz_l + 1, B, d, d):
+        raise ValueError(f"tail_update: shapes {ata_flat.shape}, {lflat.shape} do not fit the schedule")
+    fn, (ata_flat, lflat) = _prepare("tail_update", [ata_flat, lflat], d)
+    out = torch.empty((B, K * d, K * d), dtype=ata_flat.dtype, device=ata_flat.device)
+    with torch.cuda.device(ata_flat.device):
+        rc = fn(ata_flat.data_ptr(), lflat.data_ptr(), t["out"].data_ptr(), t["pair_ptr"].data_ptr(),
+                t["pairs"].data_ptr(), t["out"].shape[0], K, B, d, out.data_ptr(), _cuda.stream_of(ata_flat))
+    _cuda.check(rc, "tail_update")
+    _cuda.launches["tail_update"] += 1
+    return out
