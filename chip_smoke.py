@@ -67,6 +67,13 @@ kernel). In order:
    K B that is a multiple of no block (204,799), and each must give the
    same bits; the whole forward and backward sweeps must equal the level
    forward and backward sweeps on the same factor, exactly;
+   BAL's 9-parameter cameras at BAL Dubrovnik-356's counts (356 x 226,730,
+   1,255,268 observations, batch 1, intrinsics optimised): the intrinsics
+   Reprojection kernel against its twin in float32 and float64, at K B and
+   at a ragged K B - 1, each launched twice for the same bits, timed back to
+   back, on the device and as its twin beside its bound; then the Schur LM
+   solve (S one 9-dof block a camera) with its launch counts, 2 an
+   iteration + 1 of the intrinsics kernel, none of the 6-dof one;
 4. slice phases, one per path: the float32 forward with the launch counters
    reset just before and read just after; the converged plateau against the
    plain-twin float64 solve of the same problem on the card; the problem of
@@ -231,6 +238,12 @@ ITERS = 30  # enough for every solve here to sit on its plateau
 BA_MAIN = (128, 4000, 1)  # cameras, points, batch: 204,800 observations
 BA_SMALL = (16, 200, 16)
 BA_VISIBILITY = 0.4
+# BAL Dubrovnik problem-356-226730-pre's counts with BAL's 9-parameter
+# cameras (f, k1, k2 optimised): cameras, points, observations, batch 1, the
+# main path's shape (1,255,268 observations); its tracks drawn from their
+# own seed (`synthetic_bal` tracks_seed), as a BAL file fixes its tracks
+BAL_MAIN = (356, 226730, 1255268)
+BAL_TRACKS_SEED = 356
 BA_OPTS = dict(adaptive_damping=True, ellipsoidal_damping=True, linearization="schur")
 
 # Kernel against twin, same inputs: max |kernel - twin| <= TOL * max(1, max |twin|).
@@ -292,6 +305,8 @@ KERNEL_INFO = {
     "whole_bwd_subst": ("theseus_tpu_torch/csrc/whole_subst.cu", "theseus_tpu/sparse/pallas_whole.py:523"),
     "between_se3_aos": ("theseus_tpu_torch/csrc/between_se3.cu", "theseus_tpu/ops/pallas_between.py:60"),
     "tail_update": ("theseus_tpu_torch/csrc/tail_update.cu", "none: theseus_tpu/sparse/cholesky.py _tail_* are jnp"),
+    "reprojection_intr": ("theseus_tpu_torch/csrc/reprojection.cu",
+                          "none: the JAX kernel (theseus_tpu/ops/pallas_reprojection.py) takes intrinsics as aux"),
 }
 
 # The training path (the JAX package's __graft_entry__ step): PGO 256 x 128
@@ -425,6 +440,9 @@ PEAK_FLOPS = 67e12
 # which both kernels exceed by far in bytes
 BETWEEN_FLOPS = 800
 REPROJECTION_FLOPS = 200
+# the same with the intrinsics optimised (reprojection_intr_kernel): the
+# chain above and jintr, a hand count of about 145
+REPROJECTION_INTR_FLOPS = 150
 # torch.cuda._sleep spins for a number of SM clock cycles; the H100's boost
 # clock is at most 1.98 GHz, so this many cycles last at least one second
 SLEEP_CYCLES_PER_S = 2.0e9
@@ -663,9 +681,34 @@ def ba_golden_problem(dtype, dev):
     return Problem(obj, ba_values(prob), **BA_OPTS)
 
 
+def bal_parts(dtype, dev):
+    """(BAProblem, objective, landmarks) of BAL_MAIN with the intrinsics
+    optimised."""
+    from theseus_tpu_torch.utils.examples.bundle_adjustment import build_ba_objective, synthetic_bal
+
+    prob = synthetic_bal(*BAL_MAIN, seed=0, tracks_seed=BAL_TRACKS_SEED, dtype=dtype, device=dev)
+    obj, _, pts, _ = build_ba_objective(prob, dtype=dtype, device=dev, optimize_intrinsics=True)
+    return prob, obj, pts
+
+
+def bal_operands(dtype, dev):
+    """The BAL_MAIN Reprojection bucket's gathered (pose, point, intrinsics)
+    and its feature, from the packed state as the solver gathers them; no
+    normal-equation builder."""
+    from types import SimpleNamespace
+
+    from theseus_tpu_torch.utils.examples.bundle_adjustment import ba_values
+
+    prob, obj, _ = bal_parts(dtype, dev)
+    co = obj.compile()
+    values = obj.default_values(ba_values(prob, optimize_intrinsics=True))
+    b = co.resolve_batch_size(values)
+    return reprojection_operands(SimpleNamespace(co=co, state=co.pack(values, b), aux=co.build_aux(values, b)))
+
+
 def reprojection_operands(prob):
-    """The Reprojection bucket's gathered (pose, point) and its aux, as the
-    solver hands them to the kernel."""
+    """The Reprojection bucket's gathered (pose, point[, intrinsics]) and
+    its aux, as the solver hands them to the kernel."""
     from theseus_tpu_torch.embodied import Reprojection
 
     for bi, bk in enumerate(prob.co.buckets):
@@ -712,7 +755,7 @@ def phase_build():
         name = m.group(1)
         if not ("between_se3" in name or "reprojection" in name or "Li6E" in name):
             continue
-        kind = next(k for k in ("between_se3", "reprojection", "assemble", "whole_factor", "whole_fwd",
+        kind = next(k for k in ("between_se3", "reprojection_intr", "reprojection", "assemble", "whole_factor", "whole_fwd",
                                 "whole_bwd", "level_factor", "fwd_subst", "bwd_subst", "tail_update") if k in name)
         if kind in ("whole_fwd", "whole_bwd", "whole_factor"):  # shared memory or device memory
             kind += " smem" if "Lb1E" in name else " global"
@@ -1203,6 +1246,90 @@ def phase_ba_slice(dev):
     check(bool(torch.isfinite(rinfo.last_err).all()), "BA fresh request: non-finite error")
     check(float(rel.max()) <= BA_PLATEAU_RTOL_F32, "BA fresh request: off the plateau")
     return launches
+
+
+def phase_ba_intr(dev, card):
+    """BAL's 9-parameter cameras at BAL_MAIN: `reprojection_intr` against
+    its twin in float32 and float64 (and a ragged K B, each launched twice);
+    a Schur LM solve through TheseusLayer.forward with its launch counts;
+    the kernel's time back to back, on the device and of its twin, and its
+    bound. Returns (launches, {"max_abs", "times", "dev_times", "bounds"})."""
+    import torch
+
+    from theseus_tpu_torch import _cuda
+    from theseus_tpu_torch.ops.reprojection import reprojection_intr_linearize, reprojection_intr_linearize_plain
+    from theseus_tpu_torch.utils.examples.bundle_adjustment import ba_values, eliminate_landmarks
+
+    name = "reprojection_intr"
+    max_abs, out = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        dn = str(dtype).split(".")[-1]
+        ops = bal_operands(dtype, dev)
+        check(tuple(ops[2].shape) == (BAL_MAIN[2], 1, 3), f"BAL intrinsics operand {tuple(ops[2].shape)}")
+        note = f"K={ops[0].shape[0]} B={ops[0].shape[1]}"
+        _cuda.reset_launches()
+        got = _repeatable(name, lambda: reprojection_intr_linearize(*ops), f"{dn} BAL {note}")
+        check(_cuda.launches[name] == 2, f"{name}: {_cuda.launches[name]} launches for two calls")
+        worst = _dev_report(name, dn, got, reprojection_intr_linearize_plain(*ops), note)
+        cut = [t[:-1] for t in ops]  # one item fewer: a K B that is a multiple of no block size
+        cut_note = f"K={cut[0].shape[0]} B={cut[0].shape[1]} (ragged)"
+        ragged = _repeatable(name, lambda: reprojection_intr_linearize(*cut), f"{dn} BAL {cut_note}")
+        max_abs[dn] = max(worst, _dev_report(name, dn, ragged, reprojection_intr_linearize_plain(*cut), cut_note))
+        if dtype == torch.float32:
+            kernel_ms = cuda_ms(lambda: reprojection_intr_linearize(*ops))
+            twin_ms = cuda_ms(lambda: reprojection_intr_linearize_plain(*ops), reps=3)
+            out["dev_times"] = {name: device_ms(lambda: reprojection_intr_linearize(*ops))}
+            out["times"] = {name: (kernel_ms, twin_ms)}
+            n = ops[0].shape[0] * ops[0].shape[1]
+            out["bounds"] = {name: _bound(_nbytes(*ops, *got), REPROJECTION_INTR_FLOPS * n)}
+        del ops, got, cut, ragged
+    out["max_abs"] = {name: max_abs}
+    bms, by = out["bounds"][name]
+    print(f"[timing] {name:<19} BAL {BAL_MAIN[2]}x1 float32, one call: kernel {out['times'][name][0]:.4f} ms back "
+          f"to back, {out['dev_times'][name]:.4f} ms device (queue prefilled), plain twin "
+          f"{out['times'][name][1]:.4f} ms (CUDA events); bound {bms:.4f} ms ({by}) on {card}")
+
+    # the main path: the Schur LM solve, each camera one 9-dof block of S;
+    # counters reset just before the solve
+    prob, obj, pts = bal_parts(torch.float32, dev)
+    inputs = ba_values(prob, optimize_intrinsics=True)
+    solve = Problem(obj, inputs, eliminate=eliminate_landmarks(pts), **BA_OPTS)
+    check((solve.builder.n_cams, solve.builder.cam_d) == (BAL_MAIN[0], 9),
+          f"BAL: S has {solve.builder.n_cams} blocks of {solve.builder.cam_d}, expected {BAL_MAIN[0]} of 9")
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    res, info = solve.layer.forward(inputs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_cuda.launches)
+    useful, padded = solve.builder.pair_counts()
+    first, last = float(info.err_history[0].mean()), float(info.last_err.mean())
+
+    # over all cameras, each intrinsic's step and its distance to the truth,
+    # over its initial distance to the truth; printed, the step held (intrinsics
+    # that never move read 0). The truth is no target: f trades against each
+    # camera's depth, and k2 moves a feature by ~f r^4 |p|, ~1 pixel a unit
+    init, gt = inputs["intr"], prob.gt_intrinsics
+    scale = [torch.linalg.norm(init[..., j] - gt[..., j]) for j in range(3)]
+    to_truth = [float(torch.linalg.norm(res["intr"][..., j] - gt[..., j]) / scale[j]) for j in range(3)]
+    step = [float(torch.linalg.norm(res["intr"][..., j] - init[..., j]) / scale[j]) for j in range(3)]
+    print(f"[ba-intr] BAL {BAL_MAIN[0]}x{BAL_MAIN[1]}x1 ({BAL_MAIN[2]} observations) float32 Schur forward, "
+          f"{ITERS} LM iterations: {wall:.3f} s wall, initial err {first:.8e}, final {last:.8e}; f, k1, k2: "
+          f"distance to the truth {to_truth} and step {step} of the initial distance; pairs useful {useful}, "
+          f"padded {padded}; launches { {k: v for k, v in launches.items() if v} } on {card}")
+    expect = {
+        name: 2 * ITERS + 1,  # linearize + tentative error per iteration, + initial error
+        "assemble_blocks": ITERS,
+        "reprojection": 0, "between_se3": 0, "level_factor": 0, "level_fwd_subst": 0, "level_bwd_subst": 0,
+    }
+    for k, v in expect.items():
+        check(launches[k] == v, f"BAL {k}: {launches[k]} launches, expected {v}")
+    check(bool(torch.isfinite(info.last_err).all()) and last < 0.1 * first, "BAL: the solve did not converge")
+    check(min(step) > 0.01, "BAL: the solve left the intrinsics where they started")
+    check(useful == int((torch.bincount(torch.as_tensor(prob.obs_pt), minlength=BAL_MAIN[1]) ** 2).sum()),
+          "BAL: pair_counts' useful pairs are not the tracks' sum of k^2")
+    return launches, out
 
 
 def train_problem(n, b, dtype, dev, iters=ITERS):
@@ -4750,8 +4877,11 @@ def main() -> int:
     timed("build", phase_build)
     max_abs = timed("kernels", phase_kernels, dev)
     max_abs = timed("ba_kernels", phase_ba_kernels, dev, max_abs)
+    intr_launches, intr = timed("ba_intr", phase_ba_intr, dev, card)
+    max_abs.update(intr["max_abs"])
     max_abs, twin_ms = timed("whole_kernels", phase_whole_kernels, dev, max_abs)
-    launches = {"pgo": timed("slice", phase_slice, dev), "ba": timed("ba_slice", phase_ba_slice, dev),
+    launches = {"ba_intr": intr_launches, "pgo": timed("slice", phase_slice, dev),
+                "ba": timed("ba_slice", phase_ba_slice, dev),
                 "train": timed("train", phase_train, dev), "aos_entry": timed("aos_entry", phase_aos_entry, dev),
                 "tail": timed("tail", phase_tail, dev)}
     launches["ba_train"], ba_train_ms = timed("ba_train", phase_ba_train, dev)
@@ -4775,6 +4905,8 @@ def main() -> int:
     eval_launches, evals = timed("evaluations", phase_evaluations, dev, card)
     launches.update(eval_launches)
     iters, times, dev_times, train_ms, bounds, library = timed("timing", phase_timing, dev, card, twin_ms, max_abs)
+    for merged, part in ((times, "times"), (dev_times, "dev_times"), (bounds, "bounds")):
+        merged.update(intr[part])
     timed("profile", phase_profile, dev, card)
     check("jax" not in sys.modules and "theseus_tpu" not in sys.modules, "jax was imported")
 

@@ -135,3 +135,31 @@ def test_no_span_is_a_user_annotation():
     assert events
     assert not any(e.is_user_annotation for e in events)
     assert all(e.device_type == torch.autograd.DeviceType.CPU for e in events)
+
+
+def test_schur_solve_records_its_stages():
+    from theseus_tpu_torch.utils.examples.bundle_adjustment import (
+        ba_values,
+        build_ba_objective,
+        eliminate_landmarks,
+        synthetic_bal,
+    )
+
+    prob = synthetic_bal(6, 30, 150, batch=1, seed=1, dtype=torch.float64, device="cpu")
+    obj, _, pts, _ = build_ba_objective(prob, dtype=torch.float64, device="cpu", optimize_intrinsics=True)
+    opt = tt.LevenbergMarquardt(obj, max_iterations=ITERS, linearization="schur", adaptive_damping=True,
+                                ellipsoidal_damping=True, eliminate=eliminate_landmarks(pts))
+    with torch.no_grad():
+        _, events = _profiled(lambda: tt.TheseusLayer(opt).forward(ba_values(prob, optimize_intrinsics=True)))
+    by = {n: [e for e in events if e.name == n] for n in {e.name for e in events}}
+    stages = ("tt.schur.eliminate", "tt.schur.reduce", "tt.schur.factor", "tt.schur.backsub")
+    assert "tt.factor" not in by and "tt.subst" not in by
+    for n in stages:
+        assert len(by[n]) >= ITERS
+        assert all(any(_inside(e, s) for s in by["tt.solve"]) for e in by[n])
+    # one elimination, reduction and factorization a solve, in that order
+    for n in stages[:3]:
+        assert len(by[n]) == len(by["tt.solve"])
+    for s in by["tt.solve"]:
+        inner = sorted((e for n in stages[:3] for e in by[n] if _inside(e, s)), key=lambda e: e.time_range.start)
+        assert [e.name for e in inner] == list(stages[:3])

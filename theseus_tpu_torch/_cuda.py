@@ -44,6 +44,7 @@ build_seconds: Optional[float] = None
 KERNELS = (
     "between_se3", "assemble_blocks", "level_factor", "level_fwd_subst", "level_bwd_subst",
     "reprojection", "whole_factor", "whole_fwd_subst", "whole_bwd_subst", "between_se3_aos", "tail_update",
+    "reprojection_intr",
 )
 launches = {name: 0 for name in KERNELS}
 
@@ -158,6 +159,10 @@ _SIGNATURES = {
     # K, B, threads, shared-memory bytes (ops/reprojection.py
     # reprojection_geometry), jpose, jpt, err, stream
     "th_reprojection": [_P] * 6 + [_L] * 8 + [_I, _I, _I, _L, _P, _P, _P, _P],
+    # pose, point, intrinsics, feat, feat's (k, b) strides, K, B, threads,
+    # shared-memory bytes (reprojection_geometry with REPROJECTION_INTR_TILE),
+    # jpose, jpt, jintr, err, stream
+    "th_reprojection_intr": [_P] * 4 + [_L] * 2 + [_I, _I, _I, _L] + [_P] * 5,
     # ata, level records, lvl (n_levels, 4), n_levels, factor slots, largest
     # record's ints, shared-memory bytes (0: the factor in device memory), B,
     # d, lflat, stream

@@ -50,6 +50,15 @@
 // buffer: RP_TILE values a thread (float64 at 256 threads: 47,104 bytes,
 // under the 48 KB a block takes without opting in). Indexing is 64-bit; the
 // wrapper refuses K B >= 2^31.
+//
+// The intrinsics variant (`reprojection_intr_kernel`, BAL's 9-parameter
+// camera with f, k1, k2 optimised): the intrinsics are a third gathered
+// stack (K, B, 3), staged like the point tile, the feature the only strided
+// operand, and the kernel also writes
+//   jintr  = [proj s | f r2 proj | f r2^2 proj]  (2, 3), s = 1 + r2 (k1 + r2 k2)
+// into a fourth output tile (row 7). An item reads 20 values and writes 26:
+// 184 bytes in float32. RP_TILE_INTR values a thread (float64 at 256
+// threads: 61,440 bytes, past 48 KB: the launcher opts in).
 
 #include "common.cuh"
 
@@ -60,12 +69,15 @@ constexpr int RP_JS = 13;  // jpose's row in the output tile (12 values)
 constexpr int RP_TS = 7;   // jpt's row (6)
 constexpr int RP_ES = 3;   // err's row (2)
 constexpr int RP_TILE = RP_JS + RP_TS + RP_ES;  // values a thread (>= the 15 of pose and point)
+constexpr int RP_IS = 7;  // jintr's row (6), intrinsics variant
+constexpr int RP_TILE_INTR = RP_JS + RP_TS + RP_IS + RP_ES;  // (>= the 18 of pose, point, intrinsics)
 
 // One (k, b): the first design's statements, in their order. jpose, jpt and
 // er point at the thread's rows of the output tile.
-template <typename T>
+// jintr: the thread's row of the intrinsics tile (INTR only).
+template <typename T, bool INTR>
 __device__ __forceinline__ void linearize(const T (&r)[3][3], const T (&t)[3], const T (&p)[3], T f, T k1,
-                                          T k2, const T (&ft)[2], T* jpose, T* jpt, T* er) {
+                                          T k2, const T (&ft)[2], T* jpose, T* jpt, T* jintr, T* er) {
   T pc[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) pc[i] = (r[i][0] * p[0] + r[i][1] * p[1] + r[i][2] * p[2]) + t[i];
@@ -102,15 +114,27 @@ __device__ __forceinline__ void linearize(const T (&r)[3][3], const T (&t)[3], c
       jpose[6 * i + 3 + j] = -(row[0] * hatp[0][j] + row[1] * hatp[1][j] + row[2] * hatp[2][j]);
     er[i] = proj[i] * factor - ft[i];
   }
+  if constexpr (INTR) {
+    const T sc = T(1) + r2 * (k1 + r2 * k2);
+    const T fr2 = f * r2;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      jintr[3 * i] = proj[i] * sc;
+      jintr[3 * i + 1] = fr2 * proj[i];
+      jintr[3 * i + 2] = (fr2 * r2) * proj[i];
+    }
+  }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(RP_THREADS_MAX)
-    reprojection_kernel(const T* __restrict__ pose, const T* __restrict__ point, const T* __restrict__ focal,
-                        const T* __restrict__ feat, const T* __restrict__ k1p, const T* __restrict__ k2p,
-                        long long f_ks, long long f_bs, long long x_ks, long long x_bs, long long k1_ks,
-                        long long k1_bs, long long k2_ks, long long k2_bs, int K, int B, bool vec,
-                        T* __restrict__ jpose_out, T* __restrict__ jpt_out, T* __restrict__ err_out) {
+// The block's work. INTR: the intrinsics come from the stack `intr`
+// (K, B, 3) and jintr is written; else from the strided focal, k1 and k2.
+template <typename T, bool INTR>
+__device__ __forceinline__ void reprojection_body(
+    const T* __restrict__ pose, const T* __restrict__ point, const T* __restrict__ intr,
+    const T* __restrict__ focal, const T* __restrict__ feat, const T* __restrict__ k1p, const T* __restrict__ k2p,
+    long long f_ks, long long f_bs, long long x_ks, long long x_bs, long long k1_ks, long long k1_bs,
+    long long k2_ks, long long k2_bs, int K, int B, bool vec, T* __restrict__ jpose_out, T* __restrict__ jpt_out,
+    T* __restrict__ jintr_out, T* __restrict__ err_out) {
   extern __shared__ __align__(16) unsigned char rp_smem[];
   T* sh = reinterpret_cast<T*>(rp_smem);
   const int nt = blockDim.x;
@@ -118,11 +142,14 @@ __global__ void __launch_bounds__(RP_THREADS_MAX)
   const long long left = static_cast<long long>(K) * B - base;
   const int cnt = left < nt ? static_cast<int>(left) : nt;
 
-  // the block's pose and point tiles (cnt items of 12 and 3 values)
+  // the block's pose and point tiles (cnt items of 12 and 3 values), and
+  // the intrinsics tile (3) after them
   T* sp = sh;
   T* sq = sh + nt * 12;
+  T* si = sh + nt * 15;
   th_stage_tile(sp, pose + base * 12, cnt * 12, vec);
   th_stage_tile(sq, point + base * 3, cnt * 3, vec);
+  if constexpr (INTR) th_stage_tile(si, intr + base * 3, cnt * 3, vec);
   __pipeline_commit();
   const int tid = threadIdx.x;
   const bool mine = tid < cnt;
@@ -131,9 +158,11 @@ __global__ void __launch_bounds__(RP_THREADS_MAX)
     const long long idx = base + tid;
     const long long k = idx / B;
     const long long b = idx % B;
-    f = __ldg(focal + k * f_ks + b * f_bs);
-    k1 = __ldg(k1p + k * k1_ks + b * k1_bs);
-    k2 = __ldg(k2p + k * k2_ks + b * k2_bs);
+    if constexpr (!INTR) {
+      f = __ldg(focal + k * f_ks + b * f_bs);
+      k1 = __ldg(k1p + k * k1_ks + b * k1_bs);
+      k2 = __ldg(k2p + k * k2_ks + b * k2_bs);
+    }
     ft[0] = __ldg(feat + k * x_ks + b * x_bs);
     ft[1] = __ldg(feat + k * x_ks + b * x_bs + 1);
   }
@@ -149,15 +178,47 @@ __global__ void __launch_bounds__(RP_THREADS_MAX)
       t[i] = g[4 * i + 3];
       p[i] = sq[tid * 3 + i];
     }
+    if constexpr (INTR) {
+      f = si[tid * 3];
+      k1 = si[tid * 3 + 1];
+      k2 = si[tid * 3 + 2];
+    }
   }
   __syncthreads();  // the input tiles are read before the outputs overwrite them
+  constexpr int IS = INTR ? RP_IS : 0;  // the jintr tile's row, none without it
+  T* oj = sh;
+  T* ot = sh + nt * RP_JS;
+  T* oi = sh + nt * (RP_JS + RP_TS);
+  T* oe = sh + nt * (RP_JS + RP_TS + IS);
   if (mine)
-    linearize(r, t, p, f, k1, k2, ft, sh + tid * RP_JS, sh + nt * RP_JS + tid * RP_TS,
-              sh + nt * (RP_JS + RP_TS) + tid * RP_ES);
+    linearize<T, INTR>(r, t, p, f, k1, k2, ft, oj + tid * RP_JS, ot + tid * RP_TS, oi + tid * IS,
+                       oe + tid * RP_ES);
   __syncthreads();
-  th_store_tile<T, 12, RP_JS>(sh, jpose_out + base * 12, cnt, vec);
-  th_store_tile<T, 6, RP_TS>(sh + nt * RP_JS, jpt_out + base * 6, cnt, vec);
-  th_store_tile<T, 2, RP_ES>(sh + nt * (RP_JS + RP_TS), err_out + base * 2, cnt, vec);
+  th_store_tile<T, 12, RP_JS>(oj, jpose_out + base * 12, cnt, vec);
+  th_store_tile<T, 6, RP_TS>(ot, jpt_out + base * 6, cnt, vec);
+  if constexpr (INTR) th_store_tile<T, 6, RP_IS>(oi, jintr_out + base * 6, cnt, vec);
+  th_store_tile<T, 2, RP_ES>(oe, err_out + base * 2, cnt, vec);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(RP_THREADS_MAX)
+    reprojection_kernel(const T* __restrict__ pose, const T* __restrict__ point, const T* __restrict__ focal,
+                        const T* __restrict__ feat, const T* __restrict__ k1p, const T* __restrict__ k2p,
+                        long long f_ks, long long f_bs, long long x_ks, long long x_bs, long long k1_ks,
+                        long long k1_bs, long long k2_ks, long long k2_bs, int K, int B, bool vec,
+                        T* __restrict__ jpose_out, T* __restrict__ jpt_out, T* __restrict__ err_out) {
+  reprojection_body<T, false>(pose, point, nullptr, focal, feat, k1p, k2p, f_ks, f_bs, x_ks, x_bs, k1_ks, k1_bs,
+                              k2_ks, k2_bs, K, B, vec, jpose_out, jpt_out, nullptr, err_out);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(RP_THREADS_MAX)
+    reprojection_intr_kernel(const T* __restrict__ pose, const T* __restrict__ point, const T* __restrict__ intr,
+                             const T* __restrict__ feat, long long x_ks, long long x_bs, int K, int B, bool vec,
+                             T* __restrict__ jpose_out, T* __restrict__ jpt_out, T* __restrict__ jintr_out,
+                             T* __restrict__ err_out) {
+  reprojection_body<T, true>(pose, point, intr, nullptr, feat, nullptr, nullptr, 0, 0, x_ks, x_bs, 0, 0, 0, 0, K,
+                             B, vec, jpose_out, jpt_out, jintr_out, err_out);
 }
 
 // threads and smem from ops/reprojection.py reprojection_geometry; the
@@ -193,6 +254,35 @@ int launch(const void* pose, const void* point, const void* focal, const void* f
   return static_cast<int>(cudaGetLastError());
 }
 
+// the intrinsics variant's launcher: threads and smem as above, its tile
+// RP_TILE_INTR values a thread
+template <typename T>
+int launch_intr(const void* pose, const void* point, const void* intr, const void* feat, long long x_ks,
+                long long x_bs, int K, int B, int threads, long long smem, void* jpose, void* jpt, void* jintr,
+                void* err, void* stream) {
+  const long long n = static_cast<long long>(K) * B;
+  if (n <= 0) return 0;
+  if (threads < 32 || threads % 32 || threads > RP_THREADS_MAX ||
+      smem < static_cast<long long>(RP_TILE_INTR) * threads * static_cast<long long>(sizeof(T)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (n + threads - 1) / threads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const bool vec = ((reinterpret_cast<size_t>(pose) | reinterpret_cast<size_t>(point) |
+                     reinterpret_cast<size_t>(intr) | reinterpret_cast<size_t>(jpose) |
+                     reinterpret_cast<size_t>(jpt) | reinterpret_cast<size_t>(jintr) |
+                     reinterpret_cast<size_t>(err)) % 16) == 0;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(reprojection_intr_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  reprojection_intr_kernel<T><<<static_cast<unsigned>(blocks), threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(pose), static_cast<const T*>(point), static_cast<const T*>(intr),
+      static_cast<const T*>(feat), x_ks, x_bs, K, B, vec, static_cast<T*>(jpose), static_cast<T*>(jpt),
+      static_cast<T*>(jintr), static_cast<T*>(err));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 TH_EXPORT int th_reprojection_f32(const void* pose, const void* point, const void* focal, const void* feat,
@@ -211,4 +301,18 @@ TH_EXPORT int th_reprojection_f64(const void* pose, const void* point, const voi
                                   void* jpose, void* jpt, void* err, void* stream) {
   return launch<double>(pose, point, focal, feat, k1, k2, f_ks, f_bs, x_ks, x_bs, k1_ks, k1_bs, k2_ks, k2_bs,
                         K, B, threads, smem, jpose, jpt, err, stream);
+}
+
+TH_EXPORT int th_reprojection_intr_f32(const void* pose, const void* point, const void* intr, const void* feat,
+                                       long long x_ks, long long x_bs, int K, int B, int threads, long long smem,
+                                       void* jpose, void* jpt, void* jintr, void* err, void* stream) {
+  return launch_intr<float>(pose, point, intr, feat, x_ks, x_bs, K, B, threads, smem, jpose, jpt, jintr, err,
+                            stream);
+}
+
+TH_EXPORT int th_reprojection_intr_f64(const void* pose, const void* point, const void* intr, const void* feat,
+                                       long long x_ks, long long x_bs, int K, int B, int threads, long long smem,
+                                       void* jpose, void* jpt, void* jintr, void* err, void* stream) {
+  return launch_intr<double>(pose, point, intr, feat, x_ks, x_bs, K, B, threads, smem, jpose, jpt, jintr, err,
+                             stream);
 }

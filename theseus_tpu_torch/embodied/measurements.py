@@ -124,10 +124,16 @@ class Reprojection(CostFunction):
     (BAL camera convention: proj = -P_xy / P_z, factor = f (1 + r2 (k1 + r2 k2))),
     over an SE3 camera pose (world to camera) and a Point3 landmark.
 
+    The intrinsics (f, k1, k2) are aux (`focal_length`, `calib_k1`,
+    `calib_k2`), or, with `intrinsics` given, a Vector3 optimisation
+    variable of the camera (BAL's 9-parameter camera): the variables are
+    then (camera_pose, world_point, intrinsics) and the image feature is the
+    only aux.
+
     The JAX cost has no analytic jacobians and differentiates `error_impl`
     with jacfwd through the retract. Here `jacobians_impl` is the closed form
     (the plain twin of the fused kernel), which equals that jacfwd to float64
-    rounding (tests/test_torch_reprojection.py)."""
+    rounding (tests/test_torch_reprojection.py, tests/test_torch_ba_intrinsics.py)."""
 
     has_analytic_jacobians = True
 
@@ -141,25 +147,39 @@ class Reprojection(CostFunction):
         calib_k2=None,
         cost_weight: Optional[CostWeight] = None,
         name: Optional[str] = None,
+        intrinsics: Optional[ManifoldVariable] = None,
     ):
-        focal_length = as_variable(focal_length)
         image_feature_point = as_variable(image_feature_point)
-        calib_k1 = as_variable(calib_k1 if calib_k1 is not None else np.zeros((1, 1)))
-        calib_k2 = as_variable(calib_k2 if calib_k2 is not None else np.zeros((1, 1)))
-        super().__init__(
-            [camera_pose, world_point],
-            [focal_length, image_feature_point, calib_k1, calib_k2],
-            cost_weight,
-            name,
-        )
+        self.optimize_intrinsics = intrinsics is not None
+        if self.optimize_intrinsics:
+            if focal_length is not None or calib_k1 is not None or calib_k2 is not None:
+                raise ValueError("Reprojection takes the intrinsics as a variable or as aux, not both.")
+            if intrinsics.group.dof != 3:
+                raise ValueError(f"Reprojection intrinsics are (f, k1, k2), got {intrinsics.group.dof} dof.")
+            super().__init__([camera_pose, world_point, intrinsics], [image_feature_point], cost_weight, name)
+        else:
+            focal_length = as_variable(focal_length)
+            calib_k1 = as_variable(calib_k1 if calib_k1 is not None else np.zeros((1, 1)))
+            calib_k2 = as_variable(calib_k2 if calib_k2 is not None else np.zeros((1, 1)))
+            super().__init__(
+                [camera_pose, world_point],
+                [focal_length, image_feature_point, calib_k1, calib_k2],
+                cost_weight,
+                name,
+            )
         self.group = camera_pose.group
 
     def dim(self):
         return 2
 
     def error_impl(self, optim, aux):
-        pose, point = optim
-        focal, feat, k1, k2 = aux  # (K, B, s) or shared (B, s): right-aligned broadcast
+        if self.optimize_intrinsics:
+            pose, point, intr = optim
+            (feat,) = aux
+            focal, k1, k2 = intr[..., 0:1], intr[..., 1:2], intr[..., 2:3]
+        else:
+            pose, point = optim
+            focal, feat, k1, k2 = aux  # (K, B, s) or shared (B, s): right-aligned broadcast
         p_cam = mvp(pose[..., :3], point) + pose[..., 3]
         proj = -p_cam[..., :2] / p_cam[..., 2:3]
         r2 = torch.sum(proj * proj, dim=-1, keepdim=True)
@@ -167,18 +187,31 @@ class Reprojection(CostFunction):
         return proj * factor - feat
 
     def jacobians_impl(self, optim, aux):
-        from ..ops.reprojection import broadcast_aux, reprojection_linearize_plain
+        from ..ops.reprojection import (
+            broadcast_aux,
+            reprojection_intr_linearize_plain,
+            reprojection_linearize_plain,
+        )
 
+        if self.optimize_intrinsics:
+            pose, point, intr = optim
+            jpose, jpt, jintr, err = reprojection_intr_linearize_plain(pose, point, intr, *broadcast_aux(pose, aux))
+            return [jpose, jpt, jintr], err
         pose, point = optim
         jpose, jpt, err = reprojection_linearize_plain(pose, point, *broadcast_aux(pose, aux))
         return [jpose, jpt], err
 
     def fused_linearize(self, xs, aux):
         """Whole-bucket fused linearization. xs: (pose (K, B, 3, 4),
-        point (K, B, 3)); aux: focal, feat, k1, k2, each (K, B, s) or shared
-        (B, s). Returns ((jpose (K, B, 2, 6), jpt (K, B, 2, 3)), err (K, B, 2))."""
-        from ..ops.reprojection import reprojection_linearize
+        point (K, B, 3)[, intrinsics (K, B, 3)]); aux: focal, feat, k1, k2,
+        or feat alone with the intrinsics, each (K, B, s) or shared (B, s).
+        Returns ((jpose (K, B, 2, 6), jpt (K, B, 2, 3)[, jintr (K, B, 2, 3)]),
+        err (K, B, 2))."""
+        from ..ops.reprojection import reprojection_intr_linearize, reprojection_linearize
 
+        if self.optimize_intrinsics:
+            jpose, jpt, jintr, err = reprojection_intr_linearize(*xs, *aux)
+            return (jpose, jpt, jintr), err
         jpose, jpt, err = reprojection_linearize(*xs, *aux)
         return (jpose, jpt), err
 

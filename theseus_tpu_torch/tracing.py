@@ -36,6 +36,10 @@ SPANS = (
     "tt.solve",  # optim/nonlinear.py iteration: damping and the linear solve
     "tt.factor",  # sparse/cholesky.py factorize
     "tt.subst",  # sparse/cholesky.py solve_with_factor, _refine_with_factor
+    "tt.schur.eliminate",  # optim/schur.py: the landmark Choleskys and W
+    "tt.schur.reduce",  # optim/schur.py: Hcc and the pair sum into S
+    "tt.schur.factor",  # optim/schur.py: the Cholesky of S
+    "tt.schur.backsub",  # optim/schur.py: each apply of the factors
     "tt.implicit_step",  # layer.py _implicit_final_step
     "tt.backward.solve",  # sparse/cholesky.py _SparseBlockSolve.backward
     "tt.backward.assemble",  # sparse/assemble_kernel.py _AssembleBlocks.backward
