@@ -307,6 +307,8 @@ KERNEL_INFO = {
     "tail_update": ("theseus_tpu_torch/csrc/tail_update.cu", "none: theseus_tpu/sparse/cholesky.py _tail_* are jnp"),
     "reprojection_intr": ("theseus_tpu_torch/csrc/reprojection.cu",
                           "none: the JAX kernel (theseus_tpu/ops/pallas_reprojection.py) takes intrinsics as aux"),
+    "schur_pairs": ("theseus_tpu_torch/csrc/schur_pairs.cu",
+                    "none: theseus_tpu/optim/schur.py scans the padded pair sum in jnp"),
 }
 
 # The training path (the JAX package's __graft_entry__ step): PGO 256 x 128
@@ -747,16 +749,21 @@ def phase_build():
     print(f"[build] native symbolic analysis {npath.relative_to(ROOT)} ready in {time.perf_counter() - t0:.2f} s "
           f"(g++ time {native.build_seconds:.2f} s; 0 means a cached build was reused)")
     # the -Xptxas -v report for the d = 6 instantiations the PGO path runs
+    # and schur_pairs' dp = 3
     log = _cuda.build_log().splitlines()
     for i, line in enumerate(log):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if not m:
             continue
         name = m.group(1)
-        if not ("between_se3" in name or "reprojection" in name or "Li6E" in name):
+        if "schur_pairs" in name:  # the BA path's point dof, 3
+            if "Li3E" not in name:
+                continue
+        elif not ("between_se3" in name or "reprojection" in name or "Li6E" in name):
             continue
         kind = next(k for k in ("between_se3", "reprojection_intr", "reprojection", "assemble", "whole_factor", "whole_fwd",
-                                "whole_bwd", "level_factor", "fwd_subst", "bwd_subst", "tail_update") if k in name)
+                                "whole_bwd", "level_factor", "fwd_subst", "bwd_subst", "tail_update", "schur_pairs")
+                    if k in name)
         if kind in ("whole_fwd", "whole_bwd", "whole_factor"):  # shared memory or device memory
             kind += " smem" if "Lb1E" in name else " global"
         dt = "f64" if "kernelId" in name else "f32"
@@ -1252,8 +1259,10 @@ def phase_ba_intr(dev, card):
     """BAL's 9-parameter cameras at BAL_MAIN: `reprojection_intr` against
     its twin in float32 and float64 (and a ragged K B, each launched twice);
     a Schur LM solve through TheseusLayer.forward with its launch counts;
-    the kernel's time back to back, on the device and of its twin, and its
-    bound. Returns (launches, {"max_abs", "times", "dev_times", "bounds"})."""
+    `schur_pairs` on the solve's pair table against its twin in float32,
+    launched twice; each kernel's time back to back, on the device and of
+    its twin, and its bound. Returns (launches, {"max_abs", "times",
+    "dev_times", "bounds"})."""
     import torch
 
     from theseus_tpu_torch import _cuda
@@ -1321,6 +1330,7 @@ def phase_ba_intr(dev, card):
     expect = {
         name: 2 * ITERS + 1,  # linearize + tentative error per iteration, + initial error
         "assemble_blocks": ITERS,
+        "schur_pairs": ITERS,  # one S build an iteration
         "reprojection": 0, "between_se3": 0, "level_factor": 0, "level_fwd_subst": 0, "level_bwd_subst": 0,
     }
     for k, v in expect.items():
@@ -1329,7 +1339,40 @@ def phase_ba_intr(dev, card):
     check(min(step) > 0.01, "BAL: the solve left the intrinsics where they started")
     check(useful == int((torch.bincount(torch.as_tensor(prob.obs_pt), minlength=BAL_MAIN[1]) ** 2).sum()),
           "BAL: pair_counts' useful pairs are not the tracks' sum of k^2")
+    del res, info, inputs, prob, obj, pts
+    _phase_schur_pairs(solve.builder, dev, card, out)
     return launches, out
+
+
+def _phase_schur_pairs(builder, dev, card, out):
+    """`schur_pairs` on BAL_MAIN's pair table (the solve's builder), blocks
+    drawn at random, float32: against its twin, two launches bitwise equal,
+    timed beside its bound; adds its entries to out's dicts."""
+    import torch
+
+    from theseus_tpu_torch.optim.schur_pairs import schur_pairs, schur_pairs_plain
+
+    name = "schur_pairs"
+    table = builder.pair_table(dev)
+    n_cams, dc, dp, n_obs = builder.n_cams, builder.cam_d, builder.pt_d, len(builder.cp_pt)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w, hcp = (torch.randn((n_obs, 1, dc, dp), generator=gen, device=dev) for _ in range(2))
+    s = torch.randn((1, n_cams * dc, n_cams * dc), generator=gen, device=dev)
+    note = f"C={n_cams} dc={dc} entries={table['obs'].shape[0]}"
+    got = _repeatable(name, lambda: (schur_pairs(s.clone(), w, hcp, table),), f"float32 BAL {note}")[0]
+    out["max_abs"][name] = {"float32": _dev_report(name, "float32", got, schur_pairs_plain(s.clone(), w, hcp, table),
+                                                   note)}
+    del got
+    work = s.clone()  # updated in place by every timed call
+    out["times"][name] = (cuda_ms(lambda: schur_pairs(work, w, hcp, table)),
+                          cuda_ms(lambda: schur_pairs_plain(work, w, hcp, table), reps=3))
+    out["dev_times"][name] = device_ms(lambda: schur_pairs(work, w, hcp, table))
+    pairs = builder.pair_counts()[0]
+    out["bounds"][name] = _bound(_nbytes(w, hcp, s), pairs * 2 * dc * dc * dp)
+    bms, by = out["bounds"][name]
+    print(f"[timing] {name:<19} BAL {note} float32, one call: kernel {out['times'][name][0]:.4f} ms back "
+          f"to back, {out['dev_times'][name]:.4f} ms device (queue prefilled), plain twin "
+          f"{out['times'][name][1]:.4f} ms (CUDA events); bound {bms:.4f} ms ({by}) on {card}")
 
 
 def train_problem(n, b, dtype, dev, iters=ITERS):

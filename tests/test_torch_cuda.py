@@ -439,6 +439,114 @@ def test_schur_run_scan_never_syncs_with_the_host(cuda_device):
     assert torch.isfinite(carry["err"]).all()
 
 
+def _pair_problem(case, dc, batch, dtype, device, seed=0):
+    """(s, w, hcp, table) of a pair sum with random blocks, dp = 3:
+    "split": cameras 0-4 and 5-8 see disjoint points, so no camera of one
+    group shares a point with one of the other; "long": camera 0 sees all
+    2500 points (a diagonal segment of 2500 entries), each point 1 to 3
+    more of the 8 others."""
+    from theseus_tpu_torch.optim.schur_pairs import pair_table
+
+    rng = np.random.default_rng(seed)
+    n_cams, n_pts = (9, 300) if case == "split" else (9, 2500)
+    cam, pt = [], []
+    for p in range(n_pts):
+        if case == "split":
+            group = np.arange(5) if p % 2 else np.arange(5, 9)
+            seen = rng.choice(group, size=int(rng.integers(1, len(group) + 1)), replace=False)
+        else:
+            seen = np.concatenate([[0], 1 + rng.choice(8, size=int(rng.integers(1, 4)), replace=False)])
+        cam += seen.tolist()
+        pt += [p] * len(seen)
+    perm = rng.permutation(len(pt))
+    cam, pt = np.asarray(cam)[perm], np.asarray(pt)[perm]
+    table = {k: torch.as_tensor(v, device=device) for k, v in pair_table(cam, pt, n_cams).items()}
+    t = lambda *shape: torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=device)  # noqa: E731
+    return t(batch, n_cams * dc, n_cams * dc), t(len(pt), batch, dc, 3), t(len(pt), batch, dc, 3), table
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dc", [6, 9])
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("case", ["split", "long"])
+def test_schur_pairs_kernel_matches_twin(cuda_device, dtype, dc, batch, case):
+    """The pair sum into S against its twin, two launches equal bit for
+    bit; a pair that shares no point keeps S's block as it was."""
+    from theseus_tpu_torch.optim.schur_pairs import schur_pairs, schur_pairs_plain
+
+    s, w, hcp, table = _pair_problem(case, dc, batch, dtype, cuda_device)
+    if case == "long":
+        assert int((table["ptr"][1:] - table["ptr"][:-1]).max()) == 2500
+    _cuda.reset_launches()
+    got = schur_pairs(s.clone(), w, hcp, table)
+    again = schur_pairs(s.clone(), w, hcp, table)
+    assert _cuda.launches["schur_pairs"] == 2
+    want = schur_pairs_plain(s.clone(), w, hcp, table)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got, want, dtype, float(want.abs().max()))
+    if case == "split":
+        assert torch.equal(got[:, :dc, 5 * dc:], s[:, :dc, 5 * dc:])
+
+
+def test_schur_pairs_rejects_what_it_cannot_take(cuda_device):
+    from theseus_tpu_torch.optim.schur_pairs import schur_pairs
+
+    s, w, hcp, table = _pair_problem("split", 6, 2, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        schur_pairs(s.transpose(1, 2), w, hcp, table)
+    with pytest.raises(ValueError, match="do not agree"):
+        schur_pairs(s, w[:, :1], hcp, table)
+    with pytest.raises(ValueError, match="dtype"):
+        schur_pairs(s, w.double(), hcp, table)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        schur_pairs(s.half(), w.half(), hcp.half(), table)
+
+
+@pytest.fixture
+def pair_path():
+    """Every Schur build through the pair sum (a zero dense budget)."""
+    old = config.SCHUR_DENSE_BUDGET_BYTES
+    config.set_schur_dense_budget(0)
+    yield
+    config.set_schur_dense_budget(old)
+
+
+def test_ba_schur_pairs_solve_on_card_matches_cpu_twins(cuda_device, pair_path):
+    """The 6-dof BA solve with S built by `schur_pairs`, one launch an
+    LM iteration, float64, against the CPU twins."""
+    import theseus_tpu_torch as tt
+
+    results = {}
+    for dev in ("cpu", cuda_device):
+        opt, _, vals = _ba_layer(dev, torch.float64)
+        _cuda.reset_launches()
+        _, info = tt.TheseusLayer(opt).forward(vals)
+        results[str(dev)] = info.last_err.cpu()
+        if dev != "cpu":
+            assert not opt.normal_builder.use_dense_elimination(3, torch.float64)
+            assert _cuda.launches["schur_pairs"] == 15
+    torch.testing.assert_close(results["cuda"], results["cpu"], rtol=1e-9, atol=1e-12)
+
+
+def test_schur_pairs_run_scan_never_syncs_with_the_host(cuda_device, pair_path):
+    opt, obj, vals = _ba_layer(cuda_device, torch.float32, iters=3)
+    co = obj.compile()
+    values = obj.default_values(vals)
+    state, aux = co.pack(values), co.build_aux(values)
+    with torch.no_grad():
+        carry = opt.run_scan(opt.init_carry(state, aux, opt.opts), aux, 1, opt.opts)
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            carry = opt.run_scan(carry, aux, 3, opt.opts)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert _cuda.launches["schur_pairs"] == 3
+    assert torch.isfinite(carry["err"]).all()
+
+
 # ---------------------------------------------------------------------------
 # whole-sweep kernels (sparse/whole.py) and the backward on the card
 # ---------------------------------------------------------------------------

@@ -6,7 +6,8 @@ with utils/convert.py; both add the same scale pin on landmark 0 (without
 it the reduced camera system is singular at zero damping). The port's
 Schur step is then held to JAX's on the very same assembled AtA (the JAX
 one, fed to the port): 1e-9 relative, float64, on both elimination paths
-(dense W, and the chunked path that a zero budget forces).
+(dense W, and the pair sum's path that a zero budget forces, its "chunked"
+cases).
 """
 
 import functools
@@ -27,7 +28,7 @@ from theseus_tpu.utils.examples.bundle_adjustment import (
 )
 import theseus_tpu_torch as tt
 from theseus_tpu_torch import config
-from theseus_tpu_torch.optim import schur
+from theseus_tpu_torch.optim import schur, schur_pairs
 from theseus_tpu_torch.optim.schur import SchurNormal, SchurNormalBuilder, eliminate_points
 from theseus_tpu_torch.utils.convert import ba_problem_from_arrays
 from theseus_tpu_torch.utils.examples.bundle_adjustment import ba_values, build_ba_objective
@@ -124,20 +125,66 @@ def test_quad_and_diag_match_jax():
 
 @pytest.mark.parametrize("chunk_points", [None, 3])
 def test_dense_and_chunked_elimination_agree(budget, monkeypatch, chunk_points):
-    """Within the port: the chunked path (in one chunk, or in chunks of 3
-    points with the segment sums as scatter-adds over repeated cameras)
-    gives the dense path's step."""
+    """Within the port: the pair sum's plain twin (in one piece, or 3
+    entries at a time, with the segment sums as scatter-adds over repeated
+    cameras) gives the dense path's step."""
     _, ns, _ = _systems()
     dense, _ = ns.solve(1e-3, False)
     budget(0)
     if chunk_points is not None:
-        bld, bsz = ns.builder, ns.Atb.shape[0]
-        k = bld.ppad_tables()[0].shape[1]
-        monkeypatch.setattr(schur, "_CHUNK_BYTES", chunk_points * k * k * bsz * bld.cam_d ** 2 * 4)
+        monkeypatch.setattr(schur_pairs, "PLAIN_ENTRIES", chunk_points)
         monkeypatch.setattr(schur, "_ONEHOT_MAX_ELEMS", 0)
-        assert len(bld.chunk_tables(torch.device("cpu"), bsz, bld.cam_d)[0]) > 1
+        assert ns.builder.pair_counts()[0] > chunk_points
     chunked, _ = ns.solve(1e-3, False)
     _close(chunked, dense.numpy())
+
+
+def _two_groups(seed=0, cams=7, pts=40):
+    """Couplings (cam, pt) of cameras 0-3 seeing points 0-19 and cameras
+    4-6 seeing the rest, 1 to 4 cameras a point: no camera of one group
+    shares a point with one of the other."""
+    rng = np.random.default_rng(seed)
+    cam, pt = [], []
+    for p in rng.permutation(pts):
+        group = np.arange(4) if p < pts // 2 else np.arange(4, cams)
+        seen = rng.choice(group, size=int(rng.integers(1, len(group) + 1)), replace=False)
+        cam += seen.tolist()
+        pt += [int(p)] * len(seen)
+    return np.asarray(cam), np.asarray(pt), cams
+
+
+@pytest.mark.parametrize("case", ["ba", "two_groups"])
+def test_pair_table_lists_each_camera_pairs_shared_points(case):
+    """Every entry of the pair table is a point that both cameras of its
+    segment see, each segment lists all of them in point order, a pair
+    that shares no point has no segment, and the entries number the sum
+    over points of k^2 (pair_counts()'s useful pairs)."""
+    if case == "ba":
+        (_, _), (obj, _) = _problems()
+        bld = SchurNormalBuilder(obj.compile(), eliminate_points)
+        cam, pt, n_cams = bld.cp_cam, bld.cp_pt, bld.n_cams
+        assert bld.pair_counts()[0] == int((np.bincount(pt) ** 2).sum())
+    else:
+        cam, pt, n_cams = _two_groups()
+    t = schur_pairs.pair_table(cam, pt, n_cams)
+    ptr, blk, obs = t["ptr"], t["blk"], t["obs"]
+    assert obs.shape == (int((np.bincount(pt) ** 2).sum()), 2) and ptr[-1] == len(obs)
+    sees = {}
+    for o, (c, p) in enumerate(zip(cam, pt)):
+        sees.setdefault(int(c), {})[int(p)] = o
+    want = {}
+    for a in sorted(sees):
+        for b in sorted(sees):
+            shared = sorted(set(sees[a]) & set(sees[b]))
+            if shared:
+                want[(a, b)] = [(sees[a][p], sees[b][p]) for p in shared]
+    got = {(int(a), int(b)): [tuple(e) for e in obs[lo:hi].tolist()]
+           for (a, b), lo, hi in zip(blk, ptr[:-1], ptr[1:])}
+    assert got == want and list(got) == list(want)  # in (a, b) order
+    if case == "two_groups":
+        assert (0, 4) not in got and (6, 3) not in got and len(got) == 4 * 4 + 3 * 3
+    lens = np.diff(ptr)[t["order"]]
+    assert sorted(t["order"].tolist()) == list(range(len(blk))) and (np.diff(lens) <= 0).all()
 
 
 @pytest.mark.parametrize("path", ["dense", "chunked"])

@@ -27,7 +27,7 @@ _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 SOURCES = (
     "between_se3.cu", "assemble_blocks.cu", "level_factor.cu", "level_subst.cu", "reprojection.cu",
-    "whole_factor.cu", "whole_subst.cu", "tail_update.cu",
+    "whole_factor.cu", "whole_subst.cu", "tail_update.cu", "schur_pairs.cu",
 )
 HEADERS = ("common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -44,7 +44,7 @@ build_seconds: Optional[float] = None
 KERNELS = (
     "between_se3", "assemble_blocks", "level_factor", "level_fwd_subst", "level_bwd_subst",
     "reprojection", "whole_factor", "whole_fwd_subst", "whole_bwd_subst", "between_se3_aos", "tail_update",
-    "reprojection_intr",
+    "reprojection_intr", "schur_pairs",
 )
 launches = {name: 0 for name in KERNELS}
 
@@ -176,6 +176,9 @@ _SIGNATURES = {
     # ata, lflat, output table, pair pointers, pairs (sparse/cholesky.py
     # NumericSchedule.tail_on), outputs, K, B, d, dense, stream
     "th_tail_update": [_P] * 5 + [_I] * 4 + [_P, _P],
+    # w, hcp, pair table ptr, blk, obs, order (optim/schur.py pair_table),
+    # n_seg, C, B, dc, dp, s (updated in place), stream
+    "th_schur_pairs": [_P] * 6 + [_I] * 5 + [_P, _P],
 }
 
 

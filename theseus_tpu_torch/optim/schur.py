@@ -17,8 +17,9 @@ Two ways to form S, chosen by `config.SCHUR_DENSE_BUDGET_BYTES`:
   matrices and S, the reduced rhs and the landmark back-substitution are
   three batched products (torch.matmul, as the JAX package leaves them to
   XLA); the 128-camera x 4000-point problem takes this path;
-- chunked: the per-point pair products W_k H_l^T are summed into S over
-  fixed-size point chunks (a Python loop where the JAX package scans), and
+- pairs: the pair products W_k H_l^T of each camera pair's shared points
+  are summed into S by one `schur_pairs` launch (optim/schur_pairs.py,
+  csrc/schur_pairs.cu; the JAX package scans padded point chunks), and
   the rhs products are segment sums.
 
 Where PyTorch and JAX part ways, the port follows JAX's semantics:
@@ -35,7 +36,8 @@ camera (BAL's 9-parameter camera: its SE3 pose and its (f, k1, k2)
 intrinsics). S then has one block per camera, of the camera's summed dof
 (6 + 3 = 9, not padded), and the pair sum runs over camera pairs, k^2 per
 landmark seen by k cameras. A camera of one variable is that variable.
-`pair_counts()` gives the pair sum's useful and padded pairs.
+`pair_counts()` gives the pair sum's pairs, and the pairs a sum that pads
+every point to the most cameras would form.
 
 Spans (tracing.py): `tt.schur.eliminate` (the landmark Choleskys and W),
 `tt.schur.reduce` (S), `tt.schur.factor` (its Cholesky), `tt.schur.backsub`
@@ -61,12 +63,11 @@ from ..sparse.assemble import apply_block_damping
 from ..sparse.refine import block_matvec, hp_dtype, refine, refine_active, solve_vjp
 from ..tracing import span
 from .normal import BlockNormal, BlockNormalBuilder, finite_or_zero
+from .schur_pairs import pair_table, schur_pairs
 
 # one-hot matmuls make segment sums fixed-order products; past this many
 # one-hot elements the segment sum is a scatter-add instead
 _ONEHOT_MAX_ELEMS = 1 << 22
-# bytes of the (Pc, K, K, B, dc, dc) pair tensor of one point chunk
-_CHUNK_BYTES = 256 << 20
 
 
 def _seg_sum(values, idx, n_out: int):
@@ -75,7 +76,8 @@ def _seg_sum(values, idx, n_out: int):
     k = values.shape[0]
     if n_out * k <= _ONEHOT_MAX_ELEMS:
         onehot = torch.zeros((n_out, k), dtype=values.dtype, device=values.device)
-        onehot[idx, torch.arange(k, device=values.device)] = 1.0
+        # a device-side one: a host scalar would be a copy that syncs
+        onehot[idx, torch.arange(k, device=values.device)] = torch.ones((), dtype=values.dtype, device=values.device)
         return (onehot @ values.reshape(k, -1)).reshape((n_out,) + values.shape[1:])
     out = torch.zeros((n_out,) + values.shape[1:], dtype=values.dtype, device=values.device)
     return out.index_add_(0, idx, values)
@@ -152,18 +154,9 @@ class SchurNormal(BlockNormal):
                 w2, h2 = bld.densify(w, t), bld.densify(hcp, t)  # (B, C*dc, P*dp)
                 s_mat = s_matrix(hcc) - w2 @ h2.transpose(1, 2)
             else:
-                # chunked: S -= sum over points of W_k H_l^T for the camera
-                # pairs (k, l) of each point, accumulated chunk by chunk into
-                # the C*C pair blocks, the padded pairs' products left out
-                obs_x, val_x, keep_x, pair_x = bld.chunk_tables(ata.device, bsz, dc)
-                s_acc = torch.zeros((C * C, bsz, dc, dc), dtype=dtype, device=ata.device)
-                for obs_c, val_c, keep_c, pair_c in zip(obs_x, val_x, keep_x, pair_x):
-                    vmask = val_c[:, :, None, None, None]
-                    wg = torch.where(vmask, w[obs_c], 0.0)  # (Pc, K, B, dc, dp)
-                    hg = torch.where(vmask, hcp[obs_c], 0.0)
-                    pair_s = torch.einsum("pkbij,plbmj->pklbim", wg, hg)
-                    s_acc.index_add_(0, pair_c, pair_s.reshape(-1, bsz, dc, dc)[keep_c])
-                s_mat = s_matrix(hcc - s_acc.reshape(C, C, bsz, dc, dc))
+                # S -= sum over points of W_k H_l^T for the camera pairs
+                # (k, l) of each point, in place in a fresh S
+                s_mat = schur_pairs(s_matrix(hcc).contiguous(), w, hcp, bld.pair_table(ata.device))
         with span("tt.schur.factor"):
             ls = _cholesky(s_mat)
 
@@ -348,7 +341,7 @@ class SchurNormalBuilder(BlockNormalBuilder):
             self.rhs_rows[base:base + dofs[v]] = v * d + np.arange(dofs[v])
         self.pt_diag_slots = np.asarray([pattern.pair_slot[(v, v)] for v in self.pt_vars], np.int64)
         self._tables: Dict[str, Dict[str, torch.Tensor]] = {}
-        self._chunks: Dict[tuple, tuple] = {}
+        self._pairs: Dict[str, Dict[str, torch.Tensor]] = {}
 
     def tables(self, device) -> Dict[str, torch.Tensor]:
         """The index tables as tensors on `device`, built once: a copy from
@@ -403,9 +396,9 @@ class SchurNormalBuilder(BlockNormalBuilder):
         return torch.where(t["rhs_valid"][..., None], flat[t["rhs_rows"]], 0.0).movedim(1, 2)
 
     def pair_counts(self):
-        """(useful, padded): the camera-pair products of the chunked pair
-        sum, sum over points of k^2 for a point seen by k cameras, and
-        P K^2 with every point padded to the largest k, K."""
+        """(useful, padded): the camera-pair products of the pair sum, sum
+        over points of k^2 for a point seen by k cameras, and P K^2 with
+        every point padded to the largest k, K."""
         k = np.bincount(self.cp_pt, minlength=len(self.pt_vars)).astype(np.int64)
         return int(np.sum(k * k)), int(len(self.pt_vars) * max(1, int(k.max()) if len(k) else 1) ** 2)
 
@@ -424,63 +417,15 @@ class SchurNormalBuilder(BlockNormalBuilder):
         dd[t["cp_cam"], t["cp_pt"]] = blocks  # each (camera, point) pair once
         return dd.permute(2, 0, 3, 1, 4).reshape(bsz, C * dc, P * dp)
 
-    def ppad_tables(self):
-        """(ppad_obs (P, K), ppad_valid (P, K)): each point's observations
-        padded to the largest count K."""
-        P, O = len(self.pt_vars), len(self.cp_pt)
-        counts = np.bincount(self.cp_pt, minlength=P)
-        K = max(1, int(counts.max()) if O else 1)
-        order = np.argsort(self.cp_pt, kind="stable")
-        starts = np.cumsum(counts) - counts
-        pos = np.arange(O) - starts[self.cp_pt[order]]
-        ppad_obs = np.zeros((P, K), dtype=np.int64)
-        ppad_valid = np.zeros((P, K), dtype=bool)
-        ppad_obs[self.cp_pt[order], pos] = order
-        ppad_valid[self.cp_pt[order], pos] = True
-        return ppad_obs, ppad_valid
-
-    def chunk_tables(self, device, bsz: int, dc: int):
-        """The padded per-point tables cut into chunks of points sized so that
-        one chunk's pair tensor (Pc, K, K, B, dc, dc) stays within
-        _CHUNK_BYTES, on `device`: per chunk (obs (Pc, K), valid (Pc, K),
-        keep, pair), keep the positions in the chunk's Pc K K pair products
-        of the valid ones, point by point and pair by pair, and pair each
-        one's (camera, camera) block of S, as a * C + b.
-
-        Only the valid products are summed: a padded pair would add a zero
-        product, and the padding's products summed into a spare block took
-        most of a call at BAL Dubrovnik-356's size (PERF.md)."""
-        key = (str(device), bsz, dc, _CHUNK_BYTES)
-        if key not in self._chunks:
-            ppad_obs, ppad_valid = self.ppad_tables()
-            C, P, K = self.n_cams, len(self.pt_vars), ppad_obs.shape[1]
-            chunk = max(1, min(P, _CHUNK_BYTES // max(1, K * K * bsz * dc * dc * 4)))
-            n_chunks = -(-P // chunk)
-            pad = n_chunks * chunk - P
-
-            def cut(a, fill, dtype):
-                a = np.concatenate([a, np.full((pad,) + a.shape[1:], fill, a.dtype)])
-                return torch.as_tensor(a.reshape((n_chunks, chunk) + a.shape[1:]), dtype=dtype,
-                                       device=device).unbind(0)
-
-            # every valid pair (a, b) of each point p, in the padded order
-            k = ppad_valid.sum(1)
-            kk = k * k
-            p_rep = np.repeat(np.arange(P), kk)
-            j = np.arange(int(kk.sum())) - np.repeat(np.cumsum(kk) - kk, kk)
-            a, b = j // k[p_rep], j % k[p_rep]
-            cam_at = self.cp_cam[ppad_obs]
-            pair = cam_at[p_rep, a] * C + cam_at[p_rep, b]
-            keep = (p_rep % chunk) * K * K + a * K + b
-            cuts = np.searchsorted(p_rep // chunk, np.arange(n_chunks + 1))
-
-            def split(x):
-                return tuple(torch.as_tensor(x[lo:hi], dtype=torch.long, device=device)
-                             for lo, hi in zip(cuts[:-1], cuts[1:]))
-
-            self._chunks[key] = (cut(ppad_obs, 0, torch.long), cut(ppad_valid, False, torch.bool),
-                                 split(keep), split(pair))
-        return self._chunks[key]
+    def pair_table(self, device) -> Dict[str, torch.Tensor]:
+        """`schur_pairs.pair_table` of the couplings as int32 tensors on
+        `device`, built once (a Dubrovnik-356-sized table holds 10.6e6
+        entries, ~85 MB)."""
+        key = str(device)
+        if key not in self._pairs:
+            self._pairs[key] = {k: torch.as_tensor(v, device=device)
+                                for k, v in pair_table(self.cp_cam, self.cp_pt, self.n_cams).items()}
+        return self._pairs[key]
 
     def scatter_x(self, xc, xp):
         """(C, B, dc) camera and (P, B, dp) landmark steps -> (n, B, d)."""
