@@ -393,10 +393,8 @@ WHOLE_SHAPES = ((256, 128), (2048, 8))
 GRID = (16, 16, 128)
 # the dense tail's external update at the benchmark's shape: the
 # sphere2500-sized 50 x 50 snake grid (portbench) at batch 64, a 123-column
-# tail; the plain twin, which gathers 22.6 GB in float32 at this batch, is
-# held against the kernel in slices of TAIL_UPDATE_SLICE batch elements
+# tail
 TAIL_UPDATE_GRID = (50, 50, 64)
-TAIL_UPDATE_SLICE = 8
 # device ms of the first designs of the redesigned rows 5, 8 and 4b
 # (PERF.md, kernel table, the previous design's last measurement: NVIDIA
 # H100 80GB HBM3, 700 W; reprojection at BA 128 x 4000 x 1, the others at
@@ -818,12 +816,13 @@ def _repeatable(name, fn, note):
     return first
 
 
-def level_inputs(prob, ata, lflat, y, x, b_perm):
+def level_inputs(prob, ata, factor, y, x, b_perm):
     """Per-level operands of the three level kernels, gathered by the
     solver's own functions from a plain-twin factorization and solve."""
     from theseus_tpu_torch.sparse.cholesky import bwd_operands, factor_operands, fwd_operands
 
     _, _, levels = prob.builder.sched.on(ata.device)
+    lflat = factor.blocks
     return [(factor_operands(t, ata, lflat), fwd_operands(t, lflat, y, b_perm),
              bwd_operands(t, lflat, x, y)) for t in levels]
 
@@ -840,12 +839,12 @@ def plain_system(prob):
         blocks = prob.co.linearize_blocks(prob.state, prob.aux)
         ata, atb = assemble(bld.pattern, blocks)
         ata = apply_block_damping(bld.pattern, ata, 1e-3, False, 1e-8)
-        lflat = factorize(bld.sched, ata)
+        factor = factorize(bld.sched, ata)
         perm, _, _ = bld.sched.on(ata.device)
         b_perm = atb[perm]
-        y = forward_sweep(bld.sched, lflat, b_perm)
-        x = backward_sweep(bld.sched, lflat, y)
-    return blocks, ata, lflat, y, x, b_perm
+        y = forward_sweep(bld.sched, factor, b_perm)
+        x = backward_sweep(bld.sched, factor, y)
+    return blocks, ata, factor, y, x, b_perm
 
 
 def between_operands(prob):
@@ -883,7 +882,7 @@ def phase_kernels(dev):
         e = max(e, _dev_report("between_se3", dn, got, between_linearize_plain(r1, r2, rm), note))
         max_abs.setdefault("between_se3", {})[dn] = e
 
-        _, ata, lflat, y, x, b_perm = plain_system(prob)
+        _, ata, factor, y, x, b_perm = plain_system(prob)
         padded = padded_blocks(prob)
         note = "buckets K=" + ",".join(str(err.shape[0]) for _, err in padded)
         got = _repeatable("assemble_blocks", lambda: assemble_blocks(prob.builder.pattern, padded),
@@ -892,7 +891,7 @@ def phase_kernels(dev):
         max_abs.setdefault("assemble_blocks", {})[dn] = e
 
         worst = {"level_factor": 0.0, "level_fwd_subst": 0.0, "level_bwd_subst": 0.0}
-        lv = level_inputs(prob, ata, lflat, y, x, b_perm)
+        lv = level_inputs(prob, ata, factor, y, x, b_perm)
         shapes[dn] = [(f[0].shape[0], f[0].shape[1], f[1].shape[1]) for f, _, _ in lv]
         for li, (fact, fwd, bwd) in enumerate(lv):
             C, ul, rl = fact[0].shape[0], fact[1].shape[1], fact[0].shape[1]
@@ -1008,20 +1007,21 @@ def phase_whole_kernels(dev, max_abs):
                 e = _dev_report("level_fwd_subst", dn, g, level_fwd_subst_plain(*f),
                                 f"{n}x{b} level {li:2d} C={f[0].shape[0]} ul={f[0].shape[1]}")
                 max_abs["level_fwd_subst"][dn] = max(max_abs["level_fwd_subst"][dn], e)
-            lflat = whole_factor(sched, ata)
-            lflat_l = factorize_levels(sched, ata)
+            factor = whole_factor(sched, ata)
+            factor_l = factorize_levels(sched, ata)
             with config.plain_path():
-                lflat_p, f_ms = once_ms(lambda: whole_factor(sched, ata))
-                y_p, y_ms = once_ms(lambda: whole_fwd_subst(sched, lflat_p, atb))
-                x_p, x_ms = once_ms(lambda: whole_bwd_subst(sched, lflat_p, y_p))
+                factor_p, f_ms = once_ms(lambda: whole_factor(sched, ata))
+                y_p, y_ms = once_ms(lambda: whole_fwd_subst(sched, factor_p, atb))
+                x_p, x_ms = once_ms(lambda: whole_bwd_subst(sched, factor_p, y_p))
             if dtype == torch.float32 and (n, b) == WHOLE_SHAPES[1]:
                 for name, ms in (("whole_factor", f_ms), ("whole_fwd_subst", y_ms), ("whole_bwd_subst", x_ms)):
                     twin_ms[f"{name} {n}x{b}"] = ms
-            y = whole_fwd_subst(sched, lflat_p, atb)
-            x = whole_bwd_subst(sched, lflat_p, y_p)
+            y = whole_fwd_subst(sched, factor_p, atb)
+            x = whole_bwd_subst(sched, factor_p, y_p)
             torch.cuda.synchronize()
+            lflat, lflat_l = factor.blocks, factor_l.blocks
             check(float(lflat[0].abs().max()) == 0.0, "whole_factor: slot 0 is not zero")
-            for name, got, want, what in (("whole_factor", lflat, lflat_p, "twin"),
+            for name, got, want, what in (("whole_factor", lflat, factor_p.blocks, "twin"),
                                           ("whole_factor", lflat, lflat_l, "level kernels"),
                                           ("whole_fwd_subst", y, y_p, "twin"),
                                           ("whole_bwd_subst", x, x_p, "twin")):
@@ -1039,9 +1039,9 @@ def phase_whole_kernels(dev, max_abs):
             # sweep's bits, on the same factor
             plan = get_tables(sched).fwd_plan(d, isz)
             perm, _, _ = sched.on(atb.device)
-            y_w = _repeatable("whole_fwd_subst", lambda: [whole_fwd_subst(sched, lflat_l, atb)],
+            y_w = _repeatable("whole_fwd_subst", lambda: [whole_fwd_subst(sched, factor_l, atb)],
                               f"{dn} PGO {n}x{b}")[0]
-            y_l = forward_sweep(sched, lflat_l, atb[perm])
+            y_l = forward_sweep(sched, factor_l, atb[perm])
             torch.cuda.synchronize()
             diff = float((y_w - y_l).abs().max())
             print(f"[kernel] whole_fwd_subst {dn} {note}: {plan.n_stages} stages over {len(plan.gu)} levels, "
@@ -1054,9 +1054,9 @@ def phase_whole_kernels(dev, max_abs):
             # level backward sweep's bits, on the same factor and y
             plan = get_tables(sched).bwd_plan(d, isz)
             _, iperm, _ = sched.on(atb.device)
-            x_w = _repeatable("whole_bwd_subst", lambda: [whole_bwd_subst(sched, lflat_l, y_l)],
+            x_w = _repeatable("whole_bwd_subst", lambda: [whole_bwd_subst(sched, factor_l, y_l)],
                               f"{dn} PGO {n}x{b}")[0]
-            x_l = backward_sweep(sched, lflat_l, y_l)[iperm]
+            x_l = backward_sweep(sched, factor_l, y_l)[iperm]
             torch.cuda.synchronize()
             diff = float((x_w - x_l).abs().max())
             print(f"[kernel] whole_bwd_subst {dn} {note}: {plan.n_stages} stages over {get_tables(sched).n_levels} "
@@ -2362,7 +2362,7 @@ def phase_pgo2d(dev, card):
               + ", ".join(f"{k} {_synced_ms(f, reps=3):.3f}" for k, f in stages.items()) + f" on {card}")
 
     # rows 2-4b at d = 3, float32: one assembly and one sweep of each level kernel
-    _, ata, lflat, y, x, b_perm = sys32
+    _, ata, _, y, x, b_perm = sys32
     fns = {
         "assemble_blocks": (lambda: assemble_blocks(pattern, padded32), lambda: assemble_blocks_plain(pattern, padded32)),
         "level_factor": (lambda: [level_factor(*f) for f, _, _ in lv32],
@@ -2614,7 +2614,7 @@ def phase_planning(dev, card):
     from theseus_tpu_torch import _cuda, config
     from theseus_tpu_torch.sparse.assemble import assemble
     from theseus_tpu_torch.sparse.assemble_kernel import assemble_blocks, assemble_blocks_plain
-    from theseus_tpu_torch.sparse.cholesky import factorize, sample_with_factor
+    from theseus_tpu_torch.sparse.cholesky import Factor, factorize, sample_with_factor
     from theseus_tpu_torch.sparse.level_kernels import (
         level_bwd_subst, level_bwd_subst_plain, level_factor, level_factor_plain,
         level_fwd_subst, level_fwd_subst_plain)
@@ -2671,11 +2671,12 @@ def phase_planning(dev, card):
             atb = b_perm[sched_b.on(dev)[1]]
             cond = _plan_cond(pattern_b, ata)
             with config.plain_path():
-                lflat_p = whole_factor(sched_b, ata)
-                y_p = whole_fwd_subst(sched_b, lflat_p, atb)
+                factor_p = whole_factor(sched_b, ata)
+                y_p = whole_fwd_subst(sched_b, factor_p, atb)
 
-            def whole(fn, *args):
-                return lambda cast, plain: [_maybe_plain(plain, fn, sched_b, *[cast(a) for a in args])]
+            def whole(fn, *args):  # a Factor's blocks cast (a schedule of the whole plan has no tail)
+                return lambda cast, plain: [_maybe_plain(plain, fn, sched_b, *[
+                    Factor(cast(a.blocks)) if isinstance(a, Factor) else cast(a) for a in args])]
 
             runs = {
                 "assemble_blocks": lambda cast, plain: list(
@@ -2688,9 +2689,9 @@ def phase_planning(dev, card):
                                             ("level_bwd_subst", level_bwd_subst, level_bwd_subst_plain, 2))},
             }
             if whole_ok:
-                runs.update({"whole_factor": whole(whole_factor, ata),
-                             "whole_fwd_subst": whole(whole_fwd_subst, lflat_p, atb),
-                             "whole_bwd_subst": whole(whole_bwd_subst, lflat_p, y_p)})
+                runs.update({"whole_factor": whole(lambda s, a: whole_factor(s, a).blocks, ata),
+                             "whole_fwd_subst": whole(whole_fwd_subst, factor_p, atb),
+                             "whole_bwd_subst": whole(whole_bwd_subst, factor_p, y_p)})
             for name, run in runs.items():
                 got = _repeatable(name, lambda run=run: run(lambda t: t, False), f"{dn} plan B={b}")
                 twin = run(lambda t: t, True)
@@ -2809,13 +2810,16 @@ def phase_planning(dev, card):
         state, aux = co.pack(v, bmax), co.build_aux(v, bmax)
         nb = planner.optimizer.normal_builder
         ns = nb.build(state, aux)
-        lflat = factorize(nb.sched, ns.ata).repeat(1, PLAN_SAMPLES, 1, 1)
+        factor = factorize(nb.sched, ns.ata).repeat(PLAN_SAMPLES)
         y = torch.randn((pattern.n_vars, PLAN_SAMPLES * bmax, 2), generator=gen, dtype=dtype).to(dev)
-        got = _repeatable("level_bwd_subst", lambda: [sample_with_factor(nb.sched, lflat, y)],
+        got = _repeatable("level_bwd_subst", lambda: [sample_with_factor(nb.sched, factor, y)],
                           f"{dn} samples B={bmax}x{PLAN_SAMPLES}")
         with config.plain_path():
-            twin = [sample_with_factor(nb.sched, lflat, y)]
-            ref = [sample_with_factor(nb.sched, lflat.double(), y.double())] if dtype == torch.float32 else None
+            twin = [sample_with_factor(nb.sched, factor, y)]
+            ref = None
+            if dtype == torch.float32:
+                factor64 = Factor(*(None if t is None else t.double() for t in factor))
+                ref = [sample_with_factor(nb.sched, factor64, y.double())]
         e = _plan_report("level_bwd_subst", dn, got, twin, ref, _plan_cond(nb.pattern, ns.ata),
                          f"samples S={PLAN_SAMPLES}")
         max_abs["level_bwd_subst"][dn] = max(max_abs["level_bwd_subst"][dn], e)
@@ -2911,7 +2915,7 @@ def phase_planning(dev, card):
     # rows 2-4b (and 6-8) at d = 2, float32, at each batch
     times, bounds, library = {}, {}, {}
     for b in PLAN_BATCHES:
-        _, ata, lflat, y, x, b_perm = sys_by[b]
+        _, ata, factor, y, x, b_perm = sys_by[b]
         lv, padded = lv_by[b], padded_by[b]
         sched, pattern = probs[b].builder.sched, probs[b].builder.pattern
         fns = {
@@ -2934,9 +2938,10 @@ def phase_planning(dev, card):
         if whole_ok:
             fns.update({
                 "whole_factor": (lambda: whole_factor(sched, ata), None),
-                "whole_fwd_subst": (lambda: whole_fwd_subst(sched, lflat, atb), None),
-                "whole_bwd_subst": (lambda: whole_bwd_subst(sched, lflat, y), None),
+                "whole_fwd_subst": (lambda: whole_fwd_subst(sched, factor, atb), None),
+                "whole_bwd_subst": (lambda: whole_bwd_subst(sched, factor, y), None),
             })
+            lflat = factor.blocks
             bounds[b].update({
                 "whole_factor": _bound(_nbytes(ata, lflat), factor_flops(sched, b, 2)),
                 "whole_fwd_subst": _bound(_nbytes(lflat, atb, y), subst_flops(sched, b, 2, True)),
@@ -3234,7 +3239,7 @@ def phase_tactile(dev, card):
         }
         print(f"[tactile] B={TAC_BATCH} stages (ms, each synced, mean of 3): "
               + ", ".join(f"{k} {_synced_ms(f, reps=3):.3f}" for k, f in stages.items()) + f" on {card}")
-    _, ata, lflat, y, x, b_perm = system
+    _, ata, _, y, x, b_perm = system
     fns = {
         "assemble_blocks": (lambda: assemble_blocks(pattern, padded), lambda: assemble_blocks_plain(pattern, padded)),
         "level_factor": (lambda: [level_factor(*f) for f, _, _ in lv], lambda: [level_factor_plain(*f) for f, _, _ in lv]),
@@ -3828,14 +3833,16 @@ def _tensors(x):
 
 
 def _detached(x):
-    """A detached copy of the tensors of a (list | tuple) tree; other leaves
-    (a pattern, a schedule) as they are."""
+    """A detached copy of the tensors of a (list | tuple) tree, named tuples
+    (a `Factor`) included; other leaves (a pattern, a schedule) as they
+    are."""
     import torch
 
     if isinstance(x, torch.Tensor):
         return x.detach().clone()
     if isinstance(x, (list, tuple)):
-        return type(x)(_detached(v) for v in x)
+        items = [_detached(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
     return x
 
 
@@ -4530,11 +4537,11 @@ def phase_timing(dev, card, twin_ms, max_abs):
 
     prob = synthetic_problem(*TRAIN, torch.float32, dev)
     v1, v2, meas = between_operands(prob)
-    _, ata, lflat, y, x, b_perm = plain_system(prob)
+    _, ata, factor, y, x, b_perm = plain_system(prob)
     padded = padded_blocks(prob)
     pattern = prob.builder.pattern
     sched = prob.builder.sched
-    lv = level_inputs(prob, ata, lflat, y, x, b_perm)
+    lv = level_inputs(prob, ata, factor, y, x, b_perm)
     _, w_ata, w_atb = whole_system(*TRAIN, torch.float32, dev)
     with config.plain_path():
         w_l = whole_factor(sched, w_ata)
@@ -4658,21 +4665,18 @@ def phase_timing(dev, card, twin_ms, max_abs):
           f"{floor_fwd_us:.2f} us per launch (device, queue prefilled) on {card}")
 
     # the dense tail of the grid: its POTRF alone, the tail's elimination
-    # (assembly of C, POTRF, scatter) and the whole factorization
+    # (its external update and POTRF) and the whole factorization
     from theseus_tpu_torch.sparse import cholesky as chol
 
     g_prob = grid_prob(torch.float32, dev)
     g_sched = g_prob.builder.sched
     _, g_ata, g_l, g_y, g_x, g_bp = plain_system(g_prob)
-    tail_t = g_sched.tail_on(dev)
-    K = g_sched.tail_k
-    g_dense = chol.tail_blocks_to_mat(g_l[tail_t["col_slots"]], tail_t["valid"], K, d)
-    g_dense = g_dense @ g_dense.transpose(-1, -2)
+    g_dense = g_l.tail @ g_l.tail.transpose(-1, -2)
     # back to back (CUDA events): each call's device time (0.5 ms and more)
     # exceeds its host time, so the queue stays full
     tail_ms = {
         "cholesky_ex": cuda_ms(lambda: torch.linalg.cholesky_ex(g_dense)),
-        "tail eliminate": cuda_ms(lambda: chol._tail_dense_eliminate(g_sched, g_ata, g_l)),
+        "tail eliminate": cuda_ms(lambda: chol._tail_dense_eliminate(g_sched, g_ata, g_l.blocks)),
         "factorize (head levels + tail)": cuda_ms(lambda: chol.factorize(g_sched, g_ata)),
     }
     print(f"[timing] grid {GRID[0]}x{GRID[1]}x{GRID[2]} float32 dense tail ({tuple(g_dense.shape)} a POTRF, "
@@ -4743,13 +4747,13 @@ def phase_timing(dev, card, twin_ms, max_abs):
         "level_bwd_subst 2048x8": _bound(sum(_nbytes(*bw) + _nbytes(bw[2]) for _, _, bw in lv_deep),
                                          subst_flops(deep.builder.sched, WHOLE_SHAPES[1][1], d, False)),
         "reprojection": _bound(_nbytes(*rops, *rops_out), REPROJECTION_FLOPS * rops[0].shape[0] * rops[0].shape[1]),
-        "whole_factor": _bound(_nbytes(w_ata, w_l), factor_flops(sched, bsz, d)),
+        "whole_factor": _bound(_nbytes(w_ata, w_l.blocks), factor_flops(sched, bsz, d)),
         "whole_factor 2048x8": _bound(_nbytes(dw_ata) + (deep_sched.sym.nnz_l + 1) * dw_ata[0].numel() * 4,
                                       factor_flops(deep_sched, WHOLE_SHAPES[1][1], d)),
-        "whole_fwd_subst": _bound(_nbytes(w_l, w_atb, w_y), subst_flops(sched, bsz, d, True)),
-        "whole_fwd_subst 2048x8": _bound(_nbytes(dw_l, dw_atb, dw_y), subst_flops(deep_sched, WHOLE_SHAPES[1][1], d, True)),
-        "whole_bwd_subst": _bound(_nbytes(w_l, w_y, w_y), subst_flops(sched, bsz, d, False)),
-        "whole_bwd_subst 2048x8": _bound(_nbytes(dw_l, dw_y, dw_y), subst_flops(deep_sched, WHOLE_SHAPES[1][1], d, False)),
+        "whole_fwd_subst": _bound(_nbytes(w_l.blocks, w_atb, w_y), subst_flops(sched, bsz, d, True)),
+        "whole_fwd_subst 2048x8": _bound(_nbytes(dw_l.blocks, dw_atb, dw_y), subst_flops(deep_sched, WHOLE_SHAPES[1][1], d, True)),
+        "whole_bwd_subst": _bound(_nbytes(w_l.blocks, w_y, w_y), subst_flops(sched, bsz, d, False)),
+        "whole_bwd_subst 2048x8": _bound(_nbytes(dw_l.blocks, dw_y, dw_y), subst_flops(deep_sched, WHOLE_SHAPES[1][1], d, False)),
         "level_bwd_subst grid": _bound(sum(_nbytes(*bw) + _nbytes(bw[2]) for bw in g_bwd),
                                        subst_flops(g_sched, GRID[2], d, False)),
         "tail_update": tail_update_bound,
@@ -4768,7 +4772,7 @@ def phase_timing(dev, card, twin_ms, max_abs):
 
 def tail_update_timing(dev, card, max_abs):
     """`tail_update` at TAIL_UPDATE_GRID, float32 and float64: two launches
-    bitwise equal, against the plain twin (in slices), max_abs["tail_update"]
+    bitwise equal, against the plain twin, max_abs["tail_update"]
     filled; then float32 timed back to back, as device time and against the
     twin at the whole batch. Returns ((kernel ms, twin ms), device ms,
     bound)."""
@@ -4789,12 +4793,11 @@ def tail_update_timing(dev, card, max_abs):
         with config.plain_path():
             ata, _ = assemble(prob.builder.pattern, prob.co.linearize_blocks(prob.state, prob.aux))
             ata = apply_block_damping(prob.builder.pattern, ata, 1e-3, False, 1e-8)
-        lflat = factorize(sched, ata)
+        lflat = factorize(sched, ata).blocks
         note = f"{rows}x{cols}x{batch} K={sched.tail_k}"
         got = _repeatable("tail_update", lambda: (tail_update(sched, ata, lflat),), f"{dn} {note}")[0]
         with config.plain_path():
-            want = torch.cat([tail_update(sched, ata[:, s:s + TAIL_UPDATE_SLICE], lflat[:, s:s + TAIL_UPDATE_SLICE])
-                              for s in range(0, batch, TAIL_UPDATE_SLICE)])
+            want = tail_update(sched, ata, lflat)
         max_abs["tail_update"][dn] = _dev_report("tail_update", dn, got, want, note)
         del got, want
         if dtype == torch.float32:

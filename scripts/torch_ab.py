@@ -99,19 +99,19 @@ def measure(tree: Path) -> dict:
         for n, b in ((256, 128), (2048, 8)):
             prob, ata, atb = cs.whole_system(n, b, dtype, dev)
             sched = prob.builder.sched
-            lflat = factorize_levels(sched, ata)
+            factor = factorize_levels(sched, ata)
             key = f"whole_fwd_subst {n}x{b} {dn}"
-            sha_in[key] = digest([lflat, atb])
-            sha[key] = digest([whole_fwd_subst(sched, lflat, atb)])
-            ms[key] = cs.device_ms(lambda: whole_fwd_subst(sched, lflat, atb))
+            sha_in[key] = digest([factor.blocks, atb])
+            sha[key] = digest([whole_fwd_subst(sched, factor, atb)])
+            ms[key] = cs.device_ms(lambda: whole_fwd_subst(sched, factor, atb))
             perm, iperm, _ = sched.on(dev)
-            y = forward_sweep(sched, lflat, atb[perm])
+            y = forward_sweep(sched, factor, atb[perm])
             key = f"whole_bwd_subst {n}x{b} {dn}"
-            sha_in[key] = digest([lflat, y])
-            x = whole_bwd_subst(sched, lflat, y)
+            sha_in[key] = digest([factor.blocks, y])
+            x = whole_bwd_subst(sched, factor, y)
             sha[key] = digest([x])
-            bwd_equal[key] = bool(torch.equal(x, backward_sweep(sched, lflat, y)[iperm]))
-            ms[key] = cs.device_ms(lambda: whole_bwd_subst(sched, lflat, y))
+            bwd_equal[key] = bool(torch.equal(x, backward_sweep(sched, factor, y)[iperm]))
+            ms[key] = cs.device_ms(lambda: whole_bwd_subst(sched, factor, y))
         cpu = torch.device("cpu")
         for label, make in (("PGO 256x128", lambda: cs.synthetic_problem(256, 128, dtype, cpu)),
                             ("PGO 2048x8", lambda: cs.synthetic_problem(2048, 8, dtype, cpu)),

@@ -261,13 +261,15 @@ def rebuilt_sizes(dev, card, libs):
             t_dev = tb.on(dev)
             smem_f = whole_factor_smem_bytes(sched, d, ata.element_size())
             smem_f = smem_f if smem_f <= WHOLE_FACTOR_SMEM_MAX else 0
-            lflat = factorize_levels(sched, ata)
-            y = forward_sweep(sched, lflat, atb[sched.on(dev)[0]])
+            factor = factorize_levels(sched, ata)
+            lflat = factor.blocks
+            y = forward_sweep(sched, factor, atb[sched.on(dev)[0]])
             plans = {"whole_fwd_subst": (tb.fwd_plan(d, ata.element_size()), atb),
                      "whole_bwd_subst": (tb.bwd_plan(d, ata.element_size()), y)}
             p_dev = {k: plan.on(dev) for k, (plan, _) in plans.items()}
-            refs = {"whole_factor": whole_factor(sched, ata), "whole_fwd_subst": whole_fwd_subst(sched, lflat, atb),
-                    "whole_bwd_subst": whole_bwd_subst(sched, lflat, y)}
+            refs = {"whole_factor": whole_factor(sched, ata).blocks,
+                    "whole_fwd_subst": whole_fwd_subst(sched, factor, atb),
+                    "whole_bwd_subst": whole_bwd_subst(sched, factor, y)}
 
             def sweep_args(kernel, out):
                 plan, v = plans[kernel]

@@ -140,11 +140,12 @@ def test_level_kernels_match_twins(cuda_device, dtype):
     bld, blocks = _pgo_normal(64, 8, dtype, cuda_device)
     with config.plain_path():
         ata, atb = assemble(bld.pattern, blocks)
-        lflat_p = factorize(bld.sched, ata)
-        x_p = solve_with_factor(bld.sched, lflat_p, atb)
+        factor_p = factorize(bld.sched, ata)
+        x_p = solve_with_factor(bld.sched, factor_p, atb)
     _cuda.reset_launches()
-    lflat = factorize(bld.sched, ata)
-    x = solve_with_factor(bld.sched, lflat, atb)
+    factor = factorize(bld.sched, ata)
+    x = solve_with_factor(bld.sched, factor, atb)
+    lflat, lflat_p = factor.blocks, factor_p.blocks
     n_levels = len(bld.sched.level_tables)
     assert _cuda.launches["level_factor"] == n_levels
     assert _cuda.launches["level_fwd_subst"] == n_levels
@@ -372,8 +373,8 @@ def test_level_factor_bit_equal_to_whole_factor(cuda_device, dtype, n_poses, bat
     bld, ata, _ = _whole_system(n_poses, batch, dtype, cuda_device)
     assert whole_factor_variant(bld.sched, ata.shape[-1], ata.element_size()) == variant
     _cuda.reset_launches()
-    lflat_l = factorize_levels(bld.sched, ata)
-    lflat_w = whole_factor(bld.sched, ata)
+    lflat_l = factorize_levels(bld.sched, ata).blocks
+    lflat_w = whole_factor(bld.sched, ata).blocks
     torch.cuda.synchronize()
     assert _cuda.launches["level_factor"] == len(bld.sched.level_tables)
     assert _cuda.launches["whole_factor"] == 1
@@ -397,11 +398,11 @@ def test_whole_factor_long_columns(cuda_device, dtype, n_poses, batch, variant):
     assert whole_factor_variant(bld.sched, d, ata.element_size()) == variant
     assert (int(get_tables(bld.sched).host["fact_lvl"][:, 2].max()) - 1) * d > 32
     _cuda.reset_launches()
-    lflat_l = factorize_levels(bld.sched, ata)
-    lflat_w = whole_factor(bld.sched, ata)
+    lflat_l = factorize_levels(bld.sched, ata).blocks
+    lflat_w = whole_factor(bld.sched, ata).blocks
     assert _cuda.launches["whole_factor"] == 1
     with config.plain_path():
-        lflat_p = whole_factor(bld.sched, ata)
+        lflat_p = whole_factor(bld.sched, ata).blocks
     torch.cuda.synchronize()
     assert bool(torch.isfinite(lflat_w).all())
     assert float((lflat_l - lflat_w).abs().max()) == 0.0
@@ -577,15 +578,15 @@ def test_whole_kernels_match_twins(cuda_device, dtype, n_poses, batch):
     assert whole_factor_variant(sched, ata.shape[-1], ata.element_size()) == (
         "shared" if n_poses == 40 else "device")
     _cuda.reset_launches()
-    lflat = whole_factor(sched, ata)
-    y = whole_fwd_subst(sched, lflat, atb)
-    x = whole_bwd_subst(sched, lflat, y)
+    factor = whole_factor(sched, ata)
+    y = whole_fwd_subst(sched, factor, atb)
+    x = whole_bwd_subst(sched, factor, y)
     assert [_cuda.launches[k] for k in ("whole_factor", "whole_fwd_subst", "whole_bwd_subst")] == [1, 1, 1]
     with config.plain_path():
-        lflat_p = whole_factor(sched, ata)
-        y_p = whole_fwd_subst(sched, lflat, atb)
-        x_p = whole_bwd_subst(sched, lflat, y_p)
-    lflat_l = factorize_levels(sched, ata)
+        lflat_p = whole_factor(sched, ata).blocks
+        y_p = whole_fwd_subst(sched, factor, atb)
+        x_p = whole_bwd_subst(sched, factor, y_p)
+    lflat, lflat_l = factor.blocks, factorize_levels(sched, ata).blocks
     torch.cuda.synchronize()
     assert float(lflat[0].abs().max()) == 0.0
     scale = float(lflat_p.abs().max())
@@ -601,7 +602,7 @@ def test_whole_factor_nonpositive_pivot_is_nan(cuda_device):
     bld, ata, _ = _whole_system(16, 3, torch.float32, cuda_device)
     ata = ata.clone()
     ata[1:, 1] = -ata[1:, 1].abs()  # batch element 1: negative diagonal blocks
-    lflat = whole_factor(bld.sched, ata)
+    lflat = whole_factor(bld.sched, ata).blocks
     assert torch.isnan(lflat[1:, 1]).any() and bool(torch.isfinite(lflat[:, 0]).all())
 
 
@@ -729,12 +730,12 @@ def _whole_fwd_pair(bld, ata, atb):
     from theseus_tpu_torch.sparse.cholesky import factorize_levels, forward_sweep
     from theseus_tpu_torch.sparse.whole import whole_fwd_subst
 
-    lflat = factorize_levels(bld.sched, ata)
+    factor = factorize_levels(bld.sched, ata)
     perm, _, _ = bld.sched.on(atb.device)
     _cuda.reset_launches()
-    y_w = whole_fwd_subst(bld.sched, lflat, atb)
-    y_w2 = whole_fwd_subst(bld.sched, lflat, atb)
-    y_l = forward_sweep(bld.sched, lflat, atb[perm])
+    y_w = whole_fwd_subst(bld.sched, factor, atb)
+    y_w2 = whole_fwd_subst(bld.sched, factor, atb)
+    y_l = forward_sweep(bld.sched, factor, atb[perm])
     torch.cuda.synchronize()
     assert _cuda.launches["whole_fwd_subst"] == 2
     assert torch.equal(y_w, y_w2)
@@ -872,13 +873,13 @@ def _whole_bwd_pair(bld, ata, atb):
     from theseus_tpu_torch.sparse.cholesky import backward_sweep, factorize_levels, forward_sweep
     from theseus_tpu_torch.sparse.whole import whole_bwd_subst
 
-    lflat = factorize_levels(bld.sched, ata)
+    factor = factorize_levels(bld.sched, ata)
     perm, iperm, _ = bld.sched.on(atb.device)
-    y = forward_sweep(bld.sched, lflat, atb[perm])
+    y = forward_sweep(bld.sched, factor, atb[perm])
     _cuda.reset_launches()
-    x_w = whole_bwd_subst(bld.sched, lflat, y)
-    x_w2 = whole_bwd_subst(bld.sched, lflat, y)
-    x_l = backward_sweep(bld.sched, lflat, y)[iperm]
+    x_w = whole_bwd_subst(bld.sched, factor, y)
+    x_w2 = whole_bwd_subst(bld.sched, factor, y)
+    x_l = backward_sweep(bld.sched, factor, y)[iperm]
     torch.cuda.synchronize()
     assert _cuda.launches["whole_bwd_subst"] == 2
     assert torch.equal(x_w, x_w2)
@@ -944,11 +945,11 @@ def _grid_bwd_levels(device, dtype, batch):
     with config.plain_path():
         ata, atb = assemble(bld.pattern, co.linearize_blocks(state, aux))
         ata = apply_block_damping(bld.pattern, ata, 1e-3, False, 1e-8)
-        lflat = factorize(bld.sched, ata)
+        factor = factorize(bld.sched, ata)
         perm, _, levels = bld.sched.on(device)
-        y = forward_sweep(bld.sched, lflat, atb[perm])
-        x = backward_sweep(bld.sched, lflat, y)
-    return [bwd_operands(t, lflat, x, y) for t in levels]
+        y = forward_sweep(bld.sched, factor, atb[perm])
+        x = backward_sweep(bld.sched, factor, y)
+    return [bwd_operands(t, factor.blocks, x, y) for t in levels]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -1251,10 +1252,11 @@ def test_se2_kernels_match_twins_at_block_size_3(cuda_device, dtype, tmp_path):
     with config.plain_path():
         blocks = co.linearize_blocks(state, aux)
         ata, atb = assemble(bld.pattern, blocks)
-        lflat = factorize(bld.sched, ata)
+        factor = factorize(bld.sched, ata)
         perm, _, levels = bld.sched.on(ata.device)
-        y = forward_sweep(bld.sched, lflat, atb[perm])
-        x = backward_sweep(bld.sched, lflat, y)
+        y = forward_sweep(bld.sched, factor, atb[perm])
+        x = backward_sweep(bld.sched, factor, y)
+        lflat = factor.blocks
     padded = [([_pad_jac(j, 3) for j in jacs], err) for jacs, err in blocks]
     _cuda.reset_launches()
     got = assemble_blocks(bld.pattern, padded)
@@ -1362,7 +1364,7 @@ def test_planner_kernels_match_twins_at_block_size_2(cuda_device, dtype, batch):
     (_as_accurate_as_twin)."""
     from theseus_tpu_torch.sparse.assemble import _pad_jac
     from theseus_tpu_torch.sparse.cholesky import (
-        backward_sweep, bwd_operands, factor_operands, forward_sweep, fwd_operands, sample_with_factor)
+        Factor, backward_sweep, bwd_operands, factor_operands, forward_sweep, fwd_operands, sample_with_factor)
 
     planner = _planner(dtype, cuda_device)
     co = planner.objective.compile()
@@ -1375,10 +1377,11 @@ def test_planner_kernels_match_twins_at_block_size_2(cuda_device, dtype, batch):
         ata, atb = assemble(bld.pattern, blocks)
         ata = ata.clone()
         ata[1:bld.pattern.n_vars + 1] += 1e-3 * torch.eye(2, dtype=dtype, device=cuda_device)
-        lflat = factorize(bld.sched, ata)
+        factor = factorize(bld.sched, ata)
         perm, _, levels = bld.sched.on(ata.device)
-        y = forward_sweep(bld.sched, lflat, atb[perm])
-        x = backward_sweep(bld.sched, lflat, y)
+        y = forward_sweep(bld.sched, factor, atb[perm])
+        x = backward_sweep(bld.sched, factor, y)
+        lflat = factor.blocks
     ys = torch.randn((bld.pattern.n_vars, batch, 2), dtype=dtype, device=cuda_device)
 
     def plain(fn):
@@ -1398,8 +1401,8 @@ def test_planner_kernels_match_twins_at_block_size_2(cuda_device, dtype, batch):
             _as_accurate_as_twin(k, pl, ops, dtype)
     assert _cuda.launches["assemble_blocks"] == 1
     assert _cuda.launches["level_factor"] == _cuda.launches["level_bwd_subst"] == len(levels)
-    _as_accurate_as_twin(lambda l_, y_: sample_with_factor(bld.sched, l_, y_),
-                         plain(lambda l_, y_: sample_with_factor(bld.sched, l_, y_)), (lflat, ys), dtype)
+    _as_accurate_as_twin(lambda l_, y_: sample_with_factor(bld.sched, Factor(l_), y_),
+                         plain(lambda l_, y_: sample_with_factor(bld.sched, Factor(l_), y_)), (lflat, ys), dtype)
     assert _cuda.launches["level_bwd_subst"] == 2 * len(levels)
 
 

@@ -125,11 +125,12 @@ def test_sample_with_factor_matches_jax():
     jns = jbld.build(jco.pack(jvals, 2), jco.build_aux(jvals, 2))
     ns = bld.build(co.pack(vals, 2), co.build_aux(vals, 2))
     np.testing.assert_allclose(ns.ata.numpy(), np.asarray(jns.ata), rtol=1e-12, atol=1e-12)
-    jl, lflat = jfactorize(jbld.sched, jns.ata), factorize(bld.sched, ns.ata)
-    np.testing.assert_allclose(lflat.numpy(), np.asarray(jl), rtol=TOL, atol=TOL)
+    jl, factor = jfactorize(jbld.sched, jns.ata), factorize(bld.sched, ns.ata)
+    assert factor.tail is None
+    np.testing.assert_allclose(factor.blocks.numpy(), np.asarray(jl), rtol=TOL, atol=TOL)
     y = np.random.default_rng(5).standard_normal((5, 2, 3))
     want = np.asarray(jsample_with_factor(jbld.sched, jl, jnp.asarray(y)))
-    got = sample_with_factor(bld.sched, lflat, torch.as_tensor(y))
+    got = sample_with_factor(bld.sched, factor, torch.as_tensor(y))
     np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
 
 

@@ -214,9 +214,10 @@ def test_level_factorization_and_solve_match(n):
         fact, solve = jchol._factorize_scan, jchol._solve_scan
     want_l = jax.jit(lambda a: fact(sched, a))(jata)
     want_x = jax.jit(lambda l, b: solve(sched, l, b))(want_l, jatb)
-    lflat = pchol.factorize(pbld.sched, pata)
-    x = pchol.solve_with_factor(pbld.sched, lflat, patb)
-    _rel_close(lflat, want_l, 1e-10)
+    factor = pchol.factorize(pbld.sched, pata)
+    x = pchol.solve_with_factor(pbld.sched, factor, patb)
+    assert factor.tail is None
+    _rel_close(factor.blocks, want_l, 1e-10)
     _rel_close(x, want_x, 1e-10)
     _rel_close(pchol.sparse_block_solve(pbld.sched, pata, patb), want_x, 1e-10)
 

@@ -10,9 +10,12 @@ made from a numpy seed and handed to both packages, float64:
   a tail of 16 to 22 columns);
 - a 16-pose clique (all of it tail, no head).
 
-Checked: the tail tables equal the JAX `NumericSchedule`'s; factor and
-solve against the JAX solve to 1e-10 relative (a Cholesky solve amplifies
-rounding by the system's condition, as in tests/test_torch_sparse.py); a
+Checked: the tail tables the port keeps equal the JAX `NumericSchedule`'s,
+and the `tail_update` kernel's lists equal lists built from the JAX
+package's padded tables; the factor's head blocks against JAX's Lflat and
+its dense tail against JAX's `_tail_dense_L`, and the solve against the JAX
+solve, to 1e-10 relative (a Cholesky solve amplifies rounding by the
+system's condition, as in tests/test_torch_sparse.py); a
 30-iteration LM solve's final error to 1e-8 relative (converged float64
 plateaus); the implicit outer gradient to 1e-6 (tests/test_torch_backward.py's
 bound); a tail that is not positive definite gives NaN for its batch
@@ -117,8 +120,25 @@ def _rel_close(got, want, rtol):
     np.testing.assert_allclose(got, want, atol=rtol * max(np.abs(want).max(), 1e-300), rtol=0)
 
 
-TAIL_TABLES = ("tail_col_slots", "tail_a_src", "tail_a_tr", "tail_valid", "tail_upd_slots", "tail_upd_jk",
-               "tail_upd_k", "tail_upd_valid")
+TAIL_TABLES = ("tail_upd_jk", "tail_upd_k", "tail_upd_valid")
+
+
+def kernel_lists(js):
+    """(out, pair_ptr, pairs) of the `tail_update` kernel from the JAX
+    schedule's padded tables: the K (K + 1) / 2 output blocks (j, r >= j)
+    j-major, each with its AtA slot and transpose flag, and the pairs
+    (slot of L[r, k], slot of L[j, k]) of its external updates whose both
+    blocks exist, in update order."""
+    K = js.tail_k
+    jj, rr = np.triu_indices(K)
+    out = np.stack([jj, rr, js.tail_a_src[jj, rr], js.tail_a_tr[jj, rr]], axis=1)
+    pairs, ptr = [], [0]
+    for j, r in zip(jj, rr):
+        for u in range(js.tail_ue):
+            if js.tail_upd_valid[j, u] and js.tail_upd_slots[j, u, r]:
+                pairs.append((js.tail_upd_slots[j, u, r], js.tail_upd_jk[j, u]))
+        ptr.append(len(pairs))
+    return out, np.asarray(ptr), np.asarray(pairs).reshape(-1, 2)
 
 
 @pytest.mark.parametrize("name", ["grid6", "grid8", "clique16"])
@@ -130,18 +150,33 @@ def test_tail_tables_equal(name):
     assert ps.tail_ue == js.tail_ue
     for k in TAIL_TABLES:
         np.testing.assert_array_equal(getattr(ps, k), getattr(js, k), err_msg=k)
+    for k, want in zip(("tail_out", "tail_pair_ptr", "tail_pairs"), kernel_lists(js)):
+        assert getattr(ps, k).dtype == np.int32
+        np.testing.assert_array_equal(getattr(ps, k), want, err_msg=k)
     assert len(ps.level_tables) == len(pb.sym.levels) == len(jb.sym.levels)
     assert (len(ps.level_tables) > 0) == (ps.n_head > 0)
 
 
+def _tail_slots(js):
+    """Lflat slots of the JAX package's tail blocks."""
+    return np.unique(js.tail_col_slots[js.tail_valid])
+
+
 @pytest.mark.parametrize("name", ["grid6", "grid8", "clique16"])
 def test_factor_and_solve_match_jax(name):
+    """The head's blocks equal JAX's Lflat outside the tail's slots (which
+    stay zero), the dense tail JAX's `_tail_dense_L`."""
     jb, jata, jatb, pb, pata, patb = _system(name)
     want_l = jax.jit(lambda a: jchol.factorize(jb.sched, a))(jata)
+    want_tail = jchol._tail_dense_L(jb.sched, want_l)
     want_x = jax.jit(lambda a, b: jchol.sparse_block_solve(jb.sched, a, b))(jata, jatb)
-    lflat = pchol.factorize(pb.sched, pata)
-    _rel_close(lflat, want_l, 1e-10)
-    _rel_close(pchol.solve_with_factor(pb.sched, lflat, patb), want_x, 1e-10)
+    factor = pchol.factorize(pb.sched, pata)
+    head = np.ones(factor.blocks.shape[0], dtype=bool)
+    head[_tail_slots(jb.sched)] = False
+    _rel_close(factor.blocks[torch.as_tensor(head)], np.asarray(want_l)[head], 1e-10)
+    assert not factor.blocks[torch.as_tensor(~head)].any()
+    _rel_close(factor.tail, want_tail, 1e-10)
+    _rel_close(pchol.solve_with_factor(pb.sched, factor, patb), want_x, 1e-10)
     _rel_close(pchol.sparse_block_solve(pb.sched, pata, patb), want_x, 1e-10)
 
 
@@ -169,10 +204,10 @@ def test_nonpositive_definite_tail_is_nan_for_its_batch_element():
     bad = pata.clone()
     slot = pb.pattern.pair_slot[(var, var)]
     bad[slot, 1] = -bad[slot, 1] - 100.0 * torch.eye(6, dtype=bad.dtype)
-    lflat = pchol.factorize(sched, bad)
-    tail = lflat[torch.as_tensor(sched.tail_col_slots[sched.tail_valid])]
-    assert torch.isnan(tail[:, 1]).all()
-    assert torch.isfinite(lflat[:, 0]).all() and torch.isfinite(lflat[:, 2]).all()
+    factor = pchol.factorize(sched, bad)
+    assert torch.isnan(factor.tail[1]).all()
+    assert torch.isfinite(factor.tail[0]).all() and torch.isfinite(factor.tail[2]).all()
+    assert torch.isfinite(factor.blocks).all()
     x = pchol.sparse_block_solve(sched, bad, patb)
     assert not torch.isfinite(x[:, 1]).any()
     assert torch.isfinite(x[:, 0]).all() and torch.isfinite(x[:, 2]).all()

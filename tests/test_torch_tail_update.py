@@ -1,12 +1,14 @@
 """The dense tail's external update (`tail_update`, csrc/tail_update.cu) and its lists.
 
 CPU: a numpy model of the kernel, which walks each output block's pair
-list (`NumericSchedule.tail_out`, `tail_pair_ptr`, `tail_pairs`), against
-the plain twin's symmetric dense matrix in float64, on the 6 x 6 grid and a
-16-pose clique; and the lists' sizes on the benchmark's 50 x 50 snake grid.
-CUDA (skipped without a card; this file imports no JAX): the kernel against
-the twin at that grid's shape, batch 64, float32 and float64; two launches
-equal bit for bit; one launch a factorization.
+list (`NumericSchedule.tail_out`, `tail_pair_ptr`, `tail_pairs`), and the
+JAX package's `_tail_assemble_C` (symmetrised here) against the plain
+twin's symmetric dense matrix in float64, on the 6 x 6 and 8 x 8 grids and
+a 16-pose clique; the lists' sizes on the benchmark's 50 x 50 snake grid,
+and the twin against the numpy model there at batch 1.
+CUDA (skipped without a card; this file imports JAX only inside a CPU
+test): the kernel against the twin at that grid's shape, batch 64, float32
+and float64; two launches equal bit for bit; one launch a factorization.
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_tail_update.py
 """
@@ -40,8 +42,8 @@ def clique_edges(n):
 
 
 def _system(n, edges, batch, dtype, device, seed=0):
-    """(schedule, LM-damped AtA, its factor) of a PGO problem drawn from a
-    numpy seed."""
+    """(schedule, LM-damped AtA, its factor's blocks) of a PGO problem drawn
+    from a numpy seed."""
     rng = np.random.default_rng(seed)
     normal = lambda *s: torch.as_tensor(rng.standard_normal(s))  # noqa: E731
     gt = se3.exp(0.5 * normal(n, batch, 6))
@@ -57,7 +59,7 @@ def _system(n, edges, batch, dtype, device, seed=0):
     with config.plain_path():
         ata, _ = assemble(bld.pattern, co.linearize_blocks(state, aux))
         ata = apply_block_damping(bld.pattern, ata, 1e-3, False, 1e-8)
-    return bld.sched, ata, factorize(bld.sched, ata)
+    return bld.sched, ata, factorize(bld.sched, ata).blocks
 
 
 def kernel_model(sched, ata, lflat):
@@ -65,11 +67,12 @@ def kernel_model(sched, ata, lflat):
     block from the schedule's lists, each pair list summed in order."""
     K, d = sched.tail_k, ata.shape[-1]
     a, l = ata.numpy(), lflat.numpy()
+    products = np.einsum("pbik,pbjk->pbij", l[sched.tail_pairs[:, 0]], l[sched.tail_pairs[:, 1]])
     dense = np.zeros((a.shape[1], K * d, K * d))
     for o, (j, r, a_slot, tr) in enumerate(sched.tail_out):
         acc = np.zeros((a.shape[1], d, d))
-        for lr, lj in sched.tail_pairs[sched.tail_pair_ptr[o]:sched.tail_pair_ptr[o + 1]]:
-            acc += l[lr] @ l[lj].transpose(0, 2, 1)
+        for p in range(sched.tail_pair_ptr[o], sched.tail_pair_ptr[o + 1]):
+            acc += products[p]
         c = (a[a_slot].transpose(0, 2, 1) if tr else a[a_slot]) - acc
         if j == r:
             dense[:, r * d:(r + 1) * d, j * d:(j + 1) * d] = 0.5 * (c + c.transpose(0, 2, 1))
@@ -79,17 +82,46 @@ def kernel_model(sched, ata, lflat):
     return dense
 
 
-@pytest.mark.parametrize("n,edges", [(36, grid_edges(6, 6)), (16, clique_edges(16))], ids=["grid6", "clique16"])
+def jax_tail_matrix(n, edges, ata, lflat):
+    """The JAX package's `_tail_assemble_C` on the same AtA and blocks (its
+    schedule numbers the slots as the port's does), symmetrised as its
+    `_tail_dense_eliminate` does: the strict lower blocks, their transposes,
+    the diagonal blocks as 0.5 (C + C^T). numpy (B, K d, K d)."""
+    import jax.numpy as jnp
+
+    from theseus_tpu.optim.normal import SparseNormalBuilder as JBuilder
+    from theseus_tpu.sparse.cholesky import _tail_assemble_C
+    from theseus_tpu.utils.examples.pose_graph import build_pgo_objective as jbuild
+
+    eye = np.eye(3, 4)
+    jobj, _ = jbuild(n, edges, np.tile(eye, (len(edges), 1, 1, 1)), eye[None], dtype=jnp.float64)
+    js = JBuilder(jobj.compile()).sched
+    c = np.asarray(_tail_assemble_C(js, jnp.asarray(ata.numpy()), jnp.asarray(lflat.numpy())))
+    K, bsz, d = js.tail_k, c.shape[2], c.shape[-1]
+    dense = np.zeros((bsz, K * d, K * d))
+    for j in range(K):
+        for r in range(j, K):
+            blk = 0.5 * (c[j, r] + c[j, r].transpose(0, 2, 1)) if r == j else c[j, r]
+            dense[:, r * d:(r + 1) * d, j * d:(j + 1) * d] = blk
+            dense[:, j * d:(j + 1) * d, r * d:(r + 1) * d] = blk.transpose(0, 2, 1)
+    return dense
+
+
+@pytest.mark.parametrize("n,edges", [(36, grid_edges(6, 6)), (64, grid_edges(8, 8)), (16, clique_edges(16))],
+                         ids=["grid6", "grid8", "clique16"])
 def test_lists_reproduce_the_twin(n, edges):
-    """The kernel's lists, walked in numpy, give the plain twin's symmetric
-    dense matrix to 1e-12 (float64)."""
+    """The kernel's lists, walked in numpy, and the JAX package's padded
+    update give the plain twin's symmetric dense matrix to 1e-12 of its
+    largest entry (float64)."""
     sched, ata, lflat = _system(n, edges, 3, torch.float64, "cpu")
     K = sched.tail_k
     assert K > 0 and len(sched.tail_out) == K * (K + 1) // 2
     assert sched.tail_pair_ptr[-1] == len(sched.tail_pairs)
     assert (len(sched.tail_pairs) > 0) == (sched.n_head > 0)
     want = tail_update_plain(sched.tail_on(ata.device), ata, lflat).numpy()
-    np.testing.assert_allclose(kernel_model(sched, ata, lflat), want, rtol=0, atol=1e-12 * np.abs(want).max())
+    tol = 1e-12 * np.abs(want).max()
+    np.testing.assert_allclose(kernel_model(sched, ata, lflat), want, rtol=0, atol=tol)
+    np.testing.assert_allclose(jax_tail_matrix(n, edges, ata, lflat), want, rtol=0, atol=tol)
     # the entry point takes the twin on a CPU tensor
     assert torch.equal(tail_update(sched, ata, lflat), torch.as_tensor(want))
 
@@ -106,17 +138,25 @@ def _sphere2500_schedule():
 
 def test_sphere2500_lists():
     """The benchmark's 50 x 50 snake grid under the auto ordering: a tail of
-    123 columns, 7,626 output blocks and 124,956 pairs of nonzero blocks,
-    of the 2,450,898 block products the padded tables name a batch element."""
+    123 columns, 7,626 output blocks and 124,956 pairs of nonzero blocks.
+    The twin walks them at batch 1 on the CPU and gives the numpy model's
+    matrix (random AtA and blocks: the arithmetic does not need a factor)."""
     sched = _sphere2500_schedule()
     K = sched.tail_k
     assert (K, sched.tail_ue) == (123, 162)
     assert len(sched.tail_out) == 7626 == K * (K + 1) // 2
     assert len(sched.tail_pairs) == 124956 == sched.tail_pair_ptr[-1]
-    assert sched.tail_upd_slots.size == 2450898
     # every pair is two nonzero slots, L[r, k] and L[j, k] of one head column
     assert (sched.tail_pairs > 0).all()
     assert sum(len(u) for u in sched.sym.tail_ext_upd) == len(np.unique(sched.tail_upd_jk[sched.tail_upd_valid])) == 9661
+    gen = torch.Generator().manual_seed(0)
+    ata = torch.randn((sched.pattern.n_slots, 1, 6, 6), generator=gen, dtype=torch.float64)
+    lflat = torch.randn((sched.sym.nnz_l + 1, 1, 6, 6), generator=gen, dtype=torch.float64)
+    lflat[0] = 0.0
+    got = tail_update_plain(sched.tail_on(ata.device), ata, lflat).numpy()
+    want = kernel_model(sched, ata, lflat)
+    assert got.shape == (1, 738, 738)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())
 
 
 # ---------------------------------------------------------------------------
@@ -137,17 +177,16 @@ def _sphere2500_system(dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_kernel_matches_twin_at_sphere2500(cuda_device, dtype):
-    """Batch 64 at the benchmark's shape; the twin (which gathers 22.6 GB
-    in float32 at this batch) runs in slices of 8 batch elements. float64
-    to 1e-12 of the largest entry, float32 to 2e-5: the twin sums each
-    entry in a GEMM's order, the kernel pair by pair."""
+    """Batch 64 at the benchmark's shape. float64 to 1e-12 of the largest
+    entry, float32 to 2e-5: the twin sums each output's pair products with
+    the card's atomic `index_add_`, the kernel pair by pair in list order."""
     sched, ata, lflat = _sphere2500_system(dtype)
     _cuda.reset_launches()
     got = tail_update(sched, ata, lflat)
     again = tail_update(sched, ata, lflat)
     assert _cuda.launches["tail_update"] == 2
     with config.plain_path():
-        want = torch.cat([tail_update(sched, ata[:, s:s + 8], lflat[:, s:s + 8]) for s in range(0, 64, 8)])
+        want = tail_update(sched, ata, lflat)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     assert got.shape == (64, 738, 738) and bool(torch.isfinite(got).all())
@@ -162,7 +201,8 @@ def test_one_launch_a_factorization(cuda_device):
     CPU twins'."""
     sched, ata, _ = _system(36, grid_edges(6, 6), 37, torch.float64, cuda_device)
     _cuda.reset_launches()
-    lflat = [factorize(sched, ata) for _ in range(3)][-1]
+    got = [factorize(sched, ata) for _ in range(3)][-1]
     assert _cuda.launches["tail_update"] == 3
     want = factorize(sched, ata.cpu())
-    torch.testing.assert_close(lflat.cpu(), want, rtol=1e-9, atol=1e-12)
+    torch.testing.assert_close(got.blocks.cpu(), want.blocks, rtol=1e-9, atol=1e-12)
+    torch.testing.assert_close(got.tail.cpu(), want.tail, rtol=1e-9, atol=1e-12)

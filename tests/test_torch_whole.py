@@ -80,10 +80,11 @@ def test_whole_twin_matches_jax(n, b):
     jb, ata, atb, pb = _system(n, b)
     lref = jchol.factorize(jb.sched, ata)
     xref = jchol.solve_with_factor(jb.sched, lref, atb)
-    lflat = whole.whole_factor(pb.sched, torch.as_tensor(np.array(ata)))
-    _rel_close(lflat, lref, 1e-12)
-    assert float(lflat[0].abs().max()) == 0.0
-    x = whole.solve_whole(pb.sched, lflat, torch.as_tensor(np.array(atb)))
+    factor = whole.whole_factor(pb.sched, torch.as_tensor(np.array(ata)))
+    assert factor.tail is None
+    _rel_close(factor.blocks, lref, 1e-12)
+    assert float(factor.blocks[0].abs().max()) == 0.0
+    x = whole.solve_whole(pb.sched, factor, torch.as_tensor(np.array(atb)))
     _rel_close(x, xref, 1e-12)
 
 
@@ -97,10 +98,10 @@ def test_whole_twin_matches_jax_interpret_kernels():
     d = jb.pattern.d
     lsoa = pw.factorize_whole(jb.sched, ata, interpret=True)
     laos = soa_to_aos(lsoa[: jb.sched.sym.nnz_l + 1, : d * d, :4], d)
-    lflat = whole.whole_factor(pb.sched, torch.as_tensor(np.array(ata)))
-    _rel_close(lflat, laos, 1e-12)
+    factor = whole.whole_factor(pb.sched, torch.as_tensor(np.array(ata)))
+    _rel_close(factor.blocks, laos, 1e-12)
     xk = pw.solve_whole(jb.sched, lsoa, atb, interpret=True)
-    _rel_close(whole.solve_whole(pb.sched, lflat, torch.as_tensor(np.array(atb))), xk, 1e-12)
+    _rel_close(whole.solve_whole(pb.sched, factor, torch.as_tensor(np.array(atb))), xk, 1e-12)
 
 
 def test_whole_wrappers_orders_and_level_plan():
@@ -110,13 +111,13 @@ def test_whole_wrappers_orders_and_level_plan():
     _, ata, atb, pb = _system(48, 8)
     sched = pb.sched
     ata, atb = torch.as_tensor(np.array(ata)), torch.as_tensor(np.array(atb))
-    lflat = whole.whole_factor(sched, ata)
+    factor = whole.whole_factor(sched, ata)
     llev = pchol.factorize_levels(sched, ata)
-    _rel_close(lflat, llev, 1e-12)
+    _rel_close(factor.blocks, llev.blocks, 1e-12)
     perm, _, _ = sched.on(atb.device)
-    y = whole.whole_fwd_subst(sched, lflat, atb)
+    y = whole.whole_fwd_subst(sched, factor, atb)
     _rel_close(y, pchol.forward_sweep(sched, llev, atb[perm]), 1e-12)
-    x = whole.whole_bwd_subst(sched, lflat, y)
+    x = whole.whole_bwd_subst(sched, factor, y)
     _rel_close(x, pchol.solve_levels(sched, llev, atb), 1e-12)
 
 

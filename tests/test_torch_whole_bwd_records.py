@@ -34,7 +34,7 @@ from test_torch_whole_fwd_records import _builder, _system
 from test_torch_whole_records import _pgo
 from theseus_tpu_torch import _cuda
 from theseus_tpu_torch.sparse import whole
-from theseus_tpu_torch.sparse.cholesky import _bwd_scan, bwd_operands, forward_sweep
+from theseus_tpu_torch.sparse.cholesky import Factor, _bwd_scan, bwd_operands, forward_sweep
 from theseus_tpu_torch.sparse.whole import (
     WHOLE_SUBST_RECORD_BUFS,
     bwd_records,
@@ -199,7 +199,7 @@ def test_order_model_is_the_level_sweeps_bit_for_bit(n, clique, data):
     sched, lflat, atb = _system(n, 3, clique)
     tb = get_tables(sched)
     perm, _, _ = sched.on(atb.device)
-    y = forward_sweep(sched, lflat, atb[perm])
+    y = forward_sweep(sched, Factor(lflat), atb[perm])
     stages = bwd_stages(tb.host, tb.levels, 6, 8, data)
     got = whole_bwd_model(tb.host, stages, lflat.numpy(), y.numpy())
     want_elim = level_sweep_model(sched, lflat, y)
@@ -221,9 +221,9 @@ def test_order_model_matches_jax_interpret_kernels():
     lsoa = pw.factorize_whole(jb.sched, ata, interpret=True)
     xk = pw.solve_whole(jb.sched, lsoa, atb, interpret=True)
     sched = pb.sched
-    lflat = whole.whole_factor(sched, torch.as_tensor(np.array(ata)))
-    y = whole.whole_fwd_subst(sched, lflat, torch.as_tensor(np.array(atb)))
+    factor = whole.whole_factor(sched, torch.as_tensor(np.array(ata)))
+    y = whole.whole_fwd_subst(sched, factor, torch.as_tensor(np.array(atb)))
     tb = get_tables(sched)
     stages = tb.bwd_plan(6, 8).stages
-    x = whole_bwd_model(tb.host, stages, lflat.numpy(), y.numpy())
+    x = whole_bwd_model(tb.host, stages, factor.blocks.numpy(), y.numpy())
     _rel_close(x, xk, 1e-12)

@@ -187,7 +187,7 @@ def _system(n, b, clique):
     with config.plain_path():
         ata, atb = assemble(bld.pattern, co.linearize_blocks(state, aux))
         ata = apply_block_damping(bld.pattern, ata, 1e-3, False, 1e-8)
-    return bld.sched, factorize_levels(bld.sched, ata), atb
+    return bld.sched, factorize_levels(bld.sched, ata).blocks, atb
 
 
 def level_sweep_model(sched, lflat, b_perm):

@@ -199,12 +199,12 @@ class TheseusLayer:
             if isinstance(ns, SparseNormal) and ns.builder.sched is not None:  # not PCG
                 bld = ns.builder
                 delta, _ = ns.solve(0.0, False)  # (B, D)
-                lflat = factorize(bld.sched, ns.ata)
+                factor = factorize(bld.sched, ns.ata)
                 n_blk, d = bld.pattern.n_vars, bld.pattern.d
                 ys = draw(True, (n_samples, n_blk, bsz, d), generator, delta.dtype, dev)
                 # samples folded into the batch, sample-major: s * B + b
                 y = ys.movedim(0, 1).reshape(n_blk, n_samples * bsz, d)
-                x = sample_with_factor(bld.sched, lflat.repeat(1, n_samples, 1, 1), y)
+                x = sample_with_factor(bld.sched, factor.repeat(n_samples), y)
                 pert = bld.flatten(x).reshape(n_samples, bsz, -1).permute(1, 2, 0)  # (B, D, S)
             else:
                 ns = self._dense_normal(co, ns, state, aux)
@@ -251,14 +251,14 @@ class TheseusLayer:
             if isinstance(ns, SparseNormal) and ns.builder.sched is not None:  # not PCG
                 bld = ns.builder
                 ata = apply_block_damping(bld.pattern, ns.ata, damping, False, bld.damping_eps)
-                lflat = factorize(bld.sched, ata)
+                factor = factorize(bld.sched, ata)
                 n_blk, d = bld.pattern.n_vars, bld.pattern.d
                 for name in names:
                     i, dv = var_index[name], co.var_groups[name].dof
                     # unit column c of variable i in batch slot c * B + b
                     rhs = torch.zeros((n_blk, dv, bsz, d), dtype=ata.dtype, device=ata.device)
                     rhs[i, torch.arange(dv), :, torch.arange(dv)] = 1.0
-                    x = solve_with_factor(bld.sched, lflat.repeat(1, dv, 1, 1), rhs.reshape(n_blk, dv * bsz, d))
+                    x = solve_with_factor(bld.sched, factor.repeat(dv), rhs.reshape(n_blk, dv * bsz, d))
                     cov = x[i].reshape(dv, bsz, d)[..., :dv].movedim(0, 1)  # (B, column, row)
                     out[name] = 0.5 * (cov + cov.mT)
                 return out

@@ -1,7 +1,7 @@
 """Batched block-sparse Cholesky: level and per-column plans, factorization, solves, and the solve's backward (JAX counterpart: theseus_tpu/sparse/cholesky.py).
 
-Two numeric plans over one factor layout, the AoS (nnz_l+1, B, d, d) with
-slot 0 zero:
+Two numeric plans give one factor value, `Factor`: the head's blocks in
+the AoS (nnz_l+1, B, d, d) with slot 0 zero, and the dense tail's matrix:
 
 - the level plan (the default): every elimination-tree level is eliminated
   by one gather, one `level_factor` launch and one scatter, and both
@@ -18,10 +18,12 @@ slot 0 zero:
 Both plans cover the head columns. When the symbolic analysis amalgamates a
 dense trailing supernode (`config.SPARSE_DENSE_TAIL`, any graph denser than
 a chain), its K columns are factored after the head by one batched dense
-POTRF (`torch.linalg.cholesky_ex`) and solved by two dense triangular
-solves, as the JAX package's `_tail_*` functions do; the head's level
-kernels write the head's L blocks whose rows lie in the tail, and the
-backward sweep solves the tail before the head levels read its x. A clique
+POTRF (`torch.linalg.cholesky_ex`), kept as that dense matrix
+(`Factor.tail`) and solved from it by two dense triangular solves, as the
+JAX package's `_tail_*` functions do (which also copy it into the tail's
+slots of Lflat; here those slots stay zero); the head's level kernels write
+the head's L blocks whose rows lie in the tail, and the backward sweep
+solves the tail before the head levels read its x. A clique
 of 16 or more poses is the tail alone. The whole-sweep plan takes only
 schedules without a tail (the JAX gate's rule); a tailed schedule runs the
 level plan.
@@ -33,7 +35,7 @@ factorization.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -42,10 +44,32 @@ from .. import config
 from ..ops.batched_linalg import chol_small, rt_solve_lower, solve_lower_vec, solve_upper_vec
 from ..tracing import span
 from .assemble import BlockPattern
-from .level_kernels import level_bwd_subst, level_factor, level_fwd_subst, tail_blocks_to_mat, tail_update
+from .level_kernels import level_bwd_subst, level_factor, level_fwd_subst, tail_update
 from .refine import block_matvec, hp_dtype, refine, refine_active, solve_vjp
 from .structure import SymbolicFactor
 from .whole import solve_whole, whole_factor
+
+
+class Factor(NamedTuple):
+    """A numeric factor L of a schedule, H = P^T L L^T P: `blocks`, the AoS
+    (nnz_l + 1, B, d, d) blocks of the head's columns with slot 0 zero (the
+    tail's own slots stay zero), and `tail`, the dense trailing supernode's
+    (B, K d, K d) lower factor from its POTRF, None when the schedule has no
+    tail."""
+
+    blocks: torch.Tensor
+    tail: Optional[torch.Tensor] = None
+
+    def repeat(self, n: int) -> "Factor":
+        """n copies folded into the batch, copy-major: batch slot c * B + b."""
+        tail = None if self.tail is None else self.tail.repeat(n, 1, 1)
+        return Factor(self.blocks.repeat(1, n, 1, 1), tail)
+
+
+def _index_tensor(a: np.ndarray, device) -> torch.Tensor:
+    """A numpy table on `device`: a bool table as a mask, any other as long
+    indices."""
+    return torch.as_tensor(a, dtype=torch.bool if a.dtype == bool else torch.long, device=device)
 
 
 class NumericSchedule:
@@ -77,12 +101,10 @@ class NumericSchedule:
         """Tables of the dense trailing supernode (the JAX package's
         `_build_tail_tables`), numpy. For tail column j (absolute
         cj = n_head + j):
-        - tail_col_slots (K, K): factor slot of block (n_head + r, cj), 0
-          where r < j (the strict upper part of the supernode);
-        - tail_a_src / tail_a_tr (K, K): AtA slot and transpose flag;
-        - tail_upd_* (K, ue, ...): the external left-looking updates, head
-          columns k < n_head with L[cj, k] in the pattern (the updates inside
-          the tail are the dense POTRF's own);
+        - tail_upd_jk / tail_upd_k / tail_upd_valid (K, ue): the external
+          left-looking updates, head columns k < n_head with L[cj, k] in the
+          pattern (the updates inside the tail are the dense POTRF's own):
+          the slot of L[cj, k], k, and the mask of the padding;
         - the `tail_update` kernel's lists, over the K (K + 1) / 2 output
           blocks (j, r >= j) in j-major order: tail_out (n_out, 4) int32
           (j, r, AtA slot, transpose flag), tail_pair_ptr (n_out + 1) int32
@@ -99,70 +121,43 @@ class NumericSchedule:
         ue = max(1, max((len(e) for e in ext), default=1))
         self.tail_ue = ue
 
-        col_slots = np.zeros((K, K), dtype=np.int32)
-        a_src = np.zeros((K, K), dtype=np.int32)
-        a_tr = np.zeros((K, K), dtype=bool)
-        valid = np.zeros((K, K), dtype=bool)
-        upd_slots = np.zeros((K, ue, K), dtype=np.int32)
         upd_jk = np.zeros((K, ue), dtype=np.int32)
         upd_k = np.zeros((K, ue), dtype=np.int32)
         upd_valid = np.zeros((K, ue), dtype=bool)
+        out, ptr, pairs = [], [0], []
         for j in range(K):
             cj = nh + j
             pj = int(sym.perm[cj])
+            jk = [block_of[(cj, k)] for k in ext[j]]
+            upd_jk[j, :len(jk)] = jk
+            upd_k[j, :len(jk)] = ext[j]
+            upd_valid[j, :len(jk)] = True
             for r in range(j, K):
-                cr = nh + r
-                col_slots[j, r] = block_of[(cr, cj)]
-                valid[j, r] = True
-                pr = int(sym.perm[cr])
+                pr = int(sym.perm[nh + r])
                 lo, hi = (pr, pj) if pr <= pj else (pj, pr)
                 s = pattern.pair_slot.get((lo, hi), 0)
-                a_src[j, r] = s
-                a_tr[j, r] = pr > pj and s != 0
-            for u, k in enumerate(ext[j]):
-                upd_jk[j, u] = block_of[(cj, k)]
-                upd_k[j, u] = k
-                upd_valid[j, u] = True
-                for r in range(j, K):
-                    upd_slots[j, u, r] = block_of.get((nh + r, k), 0)
+                out.append((j, r, s, pr > pj and s != 0))
+                for k, sjk in zip(ext[j], jk):
+                    srk = block_of.get((nh + r, k), 0)
+                    if srk:
+                        pairs.append((srk, sjk))
+                ptr.append(len(pairs))
 
-        self.tail_col_slots = col_slots
-        self.tail_a_src = a_src
-        self.tail_a_tr = a_tr
-        self.tail_valid = valid
-        self.tail_upd_slots = upd_slots
         self.tail_upd_jk = upd_jk
         self.tail_upd_k = upd_k
         self.tail_upd_valid = upd_valid
-
-        jj, rr = np.triu_indices(K)
-        self.tail_out = np.stack([jj, rr, a_src[jj, rr], a_tr[jj, rr]], axis=1).astype(np.int32)
-        # (j, r, u) in lexicographic order: each output's pairs in list order
-        has = upd_valid[:, None, :] & (upd_slots.transpose(0, 2, 1) != 0)
-        has &= (np.arange(K)[None, :] >= np.arange(K)[:, None])[:, :, None]
-        pj, pr, pu = np.nonzero(has)
-        self.tail_pairs = np.stack([upd_slots[pj, pu, pr], upd_jk[pj, pu]], axis=1).astype(np.int32)
-        self.tail_pair_ptr = np.concatenate([[0], np.cumsum(has[jj, rr].sum(axis=1))]).astype(np.int32)
+        self.tail_out = np.asarray(out, dtype=np.int32)
+        self.tail_pair_ptr = np.asarray(ptr, dtype=np.int32)
+        self.tail_pairs = np.asarray(pairs, dtype=np.int32).reshape(-1, 2)
 
     def tail_on(self, device: torch.device) -> Dict[str, torch.Tensor]:
-        """The tail tables as index tensors (bool tables as masks) on
-        `device`, built once per device, with the supernode's strict-lower
-        mask `strict` and the diagonal's indices `diag`, and the
+        """The tail tables on `device`, built once per device: the forward
+        solve's `upd_jk`, `upd_k`, `upd_valid` (`_index_tensor`) and the
         `tail_update` kernel's int32 lists `out`, `pair_ptr`, `pairs`, so
         that no solve copies an index from the host."""
         key = ("tail", str(device))
         if key not in self._device:
-            K = self.tail_k
-            host = {
-                "col_slots": self.tail_col_slots, "a_src": self.tail_a_src, "a_tr": self.tail_a_tr,
-                "valid": self.tail_valid, "upd_slots": self.tail_upd_slots, "upd_jk": self.tail_upd_jk,
-                "upd_k": self.tail_upd_k, "upd_valid": self.tail_upd_valid,
-                "strict": self.tail_valid & ~np.eye(K, dtype=bool), "diag": np.arange(K),
-            }
-            tables = {
-                k: torch.as_tensor(v, dtype=torch.bool if v.dtype == bool else torch.long, device=device)
-                for k, v in host.items()
-            }
+            tables = {k: _index_tensor(getattr(self, f"tail_{k}"), device) for k in ("upd_jk", "upd_k", "upd_valid")}
             for k in ("out", "pair_ptr", "pairs"):
                 tables[k] = torch.as_tensor(getattr(self, f"tail_{k}"), device=device)
             self._device[key] = tables
@@ -258,15 +253,10 @@ class NumericSchedule:
         key = ("rect", str(device))
         if key not in self._device:
             r = self._build_rect()
-            out = {
-                k: torch.as_tensor(v, dtype=torch.bool if v.dtype == bool else torch.long, device=device)
-                for k, v in r.items()
-            }
+            out = {k: _index_tensor(v, device) for k, v in r.items()}
             rmax = r["row_valid"].shape[1]
-            out["below"] = torch.as_tensor(
-                r["row_valid"] & (np.arange(rmax)[None, :] > 0), device=device
-            )
-            out["diag_slots"] = torch.as_tensor(self.diag_slots, dtype=torch.long, device=device)
+            out["below"] = _index_tensor(r["row_valid"] & (np.arange(rmax)[None, :] > 0), device)
+            out["diag_slots"] = _index_tensor(self.diag_slots, device)
             self._device[key] = out
         return self._device[key]
 
@@ -276,17 +266,13 @@ class NumericSchedule:
         sweep's `below` mask (valid rows under the diagonal) is added."""
         key = str(device)
         if key not in self._device:
-            def conv(a):
-                dt = torch.bool if a.dtype == bool else torch.long
-                return torch.as_tensor(a, dtype=dt, device=device)
-
             levels: List[dict] = []
             for t in self.level_tables:
-                lt = {k: conv(v) for k, v in t.items()}
+                lt = {k: _index_tensor(v, device) for k, v in t.items()}
                 rl = t["row_valid"].shape[1]
-                lt["below"] = conv(t["row_valid"] & (np.arange(rl)[None, :] > 0))
+                lt["below"] = _index_tensor(t["row_valid"] & (np.arange(rl)[None, :] > 0), device)
                 levels.append(lt)
-            self._device[key] = (conv(self.perm), conv(self.iperm), levels)
+            self._device[key] = (_index_tensor(self.perm, device), _index_tensor(self.iperm, device), levels)
         return self._device[key]
 
 
@@ -312,9 +298,9 @@ def bwd_operands(t, lflat, x, y):
     return lflat[t["col_slots"]], xr, y[t["cols"]]
 
 
-def factorize_levels(sched: NumericSchedule, ata_flat: torch.Tensor) -> torch.Tensor:
-    """Level plan: ata_flat (n_slots, B, d, d) -> Lflat (nnz_l+1, B, d, d):
-    the head level by level, then the dense tail."""
+def factorize_levels(sched: NumericSchedule, ata_flat: torch.Tensor) -> Factor:
+    """Level plan: ata_flat (n_slots, B, d, d) -> the Factor: the head level
+    by level into its blocks, then the dense tail."""
     _, _, levels = sched.on(ata_flat.device)
     bsz, d = ata_flat.shape[1], ata_flat.shape[-1]
     lflat = torch.zeros(
@@ -325,41 +311,40 @@ def factorize_levels(sched: NumericSchedule, ata_flat: torch.Tensor) -> torch.Te
         newcol = torch.where(t["valid"][:, :, None, None, None], newcol, 0.0)
         # invalid rows all write zeros into the slot-0 sentinel
         lflat[t["col_slots"]] = newcol
-    if sched.tail_k:
-        _tail_dense_eliminate(sched, ata_flat, lflat)
-    return lflat
+    tail = _tail_dense_eliminate(sched, ata_flat, lflat) if sched.tail_k else None
+    return Factor(lflat, tail)
 
 
-def forward_sweep(sched: NumericSchedule, lflat, b_perm):
+def forward_sweep(sched: NumericSchedule, factor: Factor, b_perm):
     """L y = b_perm in elimination order: the head level by level, then the
     dense tail."""
     _, _, levels = sched.on(b_perm.device)
     y = torch.zeros_like(b_perm)
     for t in levels:
-        y[t["cols"]] = level_fwd_subst(*fwd_operands(t, lflat, y, b_perm))
+        y[t["cols"]] = level_fwd_subst(*fwd_operands(t, factor.blocks, y, b_perm))
     if sched.tail_k:
-        y[sched.n_head:] = _tail_fwd_solve(sched, lflat, y, b_perm)
+        y[sched.n_head:] = _tail_fwd_solve(sched, factor, y, b_perm)
     return y
 
 
-def backward_sweep(sched: NumericSchedule, lflat, y):
+def backward_sweep(sched: NumericSchedule, factor: Factor, y):
     """L^T x = y in elimination order: the dense tail first (the head's
     columns read its x), then the head levels in reverse."""
     _, _, levels = sched.on(y.device)
     x = torch.zeros_like(y)
     if sched.tail_k:
-        x[sched.n_head:] = _tail_bwd_solve(sched, lflat, y)
+        x[sched.n_head:] = _tail_bwd_solve(sched, factor, y)
     for t in reversed(levels):
-        x[t["cols"]] = level_bwd_subst(*bwd_operands(t, lflat, x, y))
+        x[t["cols"]] = level_bwd_subst(*bwd_operands(t, factor.blocks, x, y))
     return x
 
 
-def solve_levels(sched: NumericSchedule, lflat: torch.Tensor, atb: torch.Tensor):
+def solve_levels(sched: NumericSchedule, factor: Factor, atb: torch.Tensor):
     """Level plan: solve H x = atb given L. atb (n, B, d) original var
     order -> x same."""
     perm, iperm, _ = sched.on(atb.device)
-    y = forward_sweep(sched, lflat, atb[perm])
-    return backward_sweep(sched, lflat, y)[iperm]
+    y = forward_sweep(sched, factor, atb[perm])
+    return backward_sweep(sched, factor, y)[iperm]
 
 
 # ---------------------------------------------------------------------------
@@ -369,55 +354,40 @@ def solve_levels(sched: NumericSchedule, lflat: torch.Tensor, atb: torch.Tensor)
 # torch. The JAX package computes all of it with jnp outside any Pallas
 # kernel.
 # ---------------------------------------------------------------------------
-def _tail_mat_to_blocks(m, K, d):
-    """dense (B, K d, K d) -> blocks (K_col, K_row, B, d, d)."""
-    bsz = m.shape[0]
-    # [b, r, i, j, m] -> [j, r, b, i, m]
-    return m.reshape(bsz, K, d, K, d).permute(3, 1, 0, 2, 4)
-
-
 def _tail_dense_eliminate(sched: NumericSchedule, ata_flat, lflat):
-    """Factor the trailing supernode with one batched dense POTRF and write
-    its blocks into lflat (in place), so that every substitution reads one
-    layout. `cholesky_ex` reports a matrix that is not positive definite in
-    `info` without a host sync; such a batch element's tail becomes NaN, as
-    jnp.linalg.cholesky gives, so that LM rejects its step."""
-    t = sched.tail_on(ata_flat.device)
-    K, d = sched.tail_k, ata_flat.shape[-1]
+    """The trailing supernode's dense (B, K d, K d) lower factor: one
+    batched POTRF of its matrix after the head's updates (lflat holds the
+    head's columns). `cholesky_ex` reports a matrix that is not positive
+    definite in `info` without a host sync; such a batch element's tail
+    becomes NaN, as jnp.linalg.cholesky gives, so that LM rejects its step.
+    Row-major: `solve_triangular` picks its library call, and so its
+    rounding, by the layout. The copy is masked in place, so that no more
+    than two such matrices are alive at once."""
     ld, info = torch.linalg.cholesky_ex(tail_update(sched, ata_flat, lflat))
-    ld = torch.where((info != 0)[:, None, None], torch.nan, ld)
-    blocks = torch.where(t["valid"][:, :, None, None, None], _tail_mat_to_blocks(ld, K, d), 0.0)
-    # the strict upper entries all write zeros into the slot-0 sentinel
-    lflat[t["col_slots"]] = blocks
+    return ld.contiguous().masked_fill_((info != 0)[:, None, None], torch.nan)
 
 
-def _tail_dense_l(sched: NumericSchedule, lflat):
-    """The dense (B, K d, K d) tail factor from the factor's blocks."""
-    t = sched.tail_on(lflat.device)
-    return tail_blocks_to_mat(lflat[t["col_slots"]], t["valid"], sched.tail_k, lflat.shape[-1])
-
-
-def _tail_fwd_solve(sched: NumericSchedule, lflat, y, b_perm):
+def _tail_fwd_solve(sched: NumericSchedule, factor: Factor, y, b_perm):
     """y of the tail columns (K, B, d): the dense lower solve of the
     supernode after subtracting the head's contributions (y holds the
     head's y)."""
-    t = sched.tail_on(lflat.device)
+    t = sched.tail_on(b_perm.device)
     K, d, nh = sched.tail_k, b_perm.shape[-1], sched.n_head
     yk = torch.where(t["upd_valid"][:, :, None, None], y[t["upd_k"]], 0.0)
-    acc = b_perm[nh:] - torch.einsum("kubij,kubj->kbi", lflat[t["upd_jk"]], yk)
+    acc = b_perm[nh:] - torch.einsum("kubij,kubj->kbi", factor.blocks[t["upd_jk"]], yk)
     bsz = acc.shape[1]
     rhs = acc.movedim(0, 1).reshape(bsz, K * d, 1)
-    yt = torch.linalg.solve_triangular(_tail_dense_l(sched, lflat), rhs, upper=False)
+    yt = torch.linalg.solve_triangular(factor.tail, rhs, upper=False)
     return yt.reshape(bsz, K, d).movedim(1, 0)
 
 
-def _tail_bwd_solve(sched: NumericSchedule, lflat, y):
+def _tail_bwd_solve(sched: NumericSchedule, factor: Factor, y):
     """x of the tail columns (K, B, d): the dense upper solve L^T x = y_tail
     (the tail is eliminated last, so no rows below it contribute)."""
     K, d, nh = sched.tail_k, y.shape[-1], sched.n_head
     bsz = y.shape[1]
     rhs = y[nh:].movedim(0, 1).reshape(bsz, K * d, 1)
-    xt = torch.linalg.solve_triangular(_tail_dense_l(sched, lflat).transpose(-1, -2), rhs, upper=True)
+    xt = torch.linalg.solve_triangular(factor.tail.transpose(-1, -2), rhs, upper=True)
     return xt.reshape(bsz, K, d).movedim(1, 0)
 
 
@@ -484,34 +454,34 @@ def _use_whole(sched: NumericSchedule) -> bool:
     return config.WHOLE_SWEEP and sched.tail_k == 0 and sched.n_head > 0
 
 
-def factorize(sched: NumericSchedule, ata_flat: torch.Tensor) -> torch.Tensor:
-    """ata_flat (n_slots, B, d, d) -> Lflat (nnz_l+1, B, d, d), by the plan
-    config selects; both plans give the same layout."""
+def factorize(sched: NumericSchedule, ata_flat: torch.Tensor) -> Factor:
+    """ata_flat (n_slots, B, d, d) -> the Factor, by the plan config
+    selects; both plans give the same blocks."""
     with span("tt.factor"):
         if _use_whole(sched):
             return whole_factor(sched, ata_flat)
         return factorize_levels(sched, ata_flat)
 
 
-def solve_with_factor(sched: NumericSchedule, lflat: torch.Tensor, atb: torch.Tensor):
+def solve_with_factor(sched: NumericSchedule, factor: Factor, atb: torch.Tensor):
     """Solve H x = atb given L. atb (n, B, d) original var order -> x same."""
     with span("tt.subst"):
         if _use_whole(sched):
-            return solve_whole(sched, lflat, atb)
-        return solve_levels(sched, lflat, atb)
+            return solve_whole(sched, factor, atb)
+        return solve_levels(sched, factor, atb)
 
 
-def sample_with_factor(sched: NumericSchedule, lflat: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def sample_with_factor(sched: NumericSchedule, factor: Factor, y: torch.Tensor) -> torch.Tensor:
     """y (n, B, d) iid N(0, 1) in elimination order -> x = P^T L^{-T} y,
     original variable order, whose covariance is H^{-1} (H = P^T L L^T P).
     The backward sweep only: the dense tail's transposed solve, then one
     `level_bwd_subst` launch per head level, whichever plan factored L (both
-    give the same layout)."""
+    give the same blocks)."""
     _, iperm, _ = sched.on(y.device)
-    return backward_sweep(sched, lflat, y)[iperm]
+    return backward_sweep(sched, factor, y)[iperm]
 
 
-def _refine_with_factor(sched, lflat, ata_flat, b, x0):
+def _refine_with_factor(sched, factor, ata_flat, b, x0):
     """config.REFINE_STEPS mixed-precision refinement sweeps reusing the
     factor (a no-op unless the high-precision tier is active)."""
     if not refine_active(b.dtype):
@@ -520,7 +490,7 @@ def _refine_with_factor(sched, lflat, ata_flat, b, x0):
         tables = sched.pattern.matvec_tables(b.device)
         hp = hp_dtype(b.dtype)
         return refine(
-            lambda r: solve_with_factor(sched, lflat, r),
+            lambda r: solve_with_factor(sched, factor, r),
             lambda xv: block_matvec(tables, ata_flat, xv, hp),
             b, x0, config.REFINE_STEPS,
         )
@@ -534,20 +504,21 @@ class _SparseBlockSolve(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, sched, ata_flat, atb):
-        lflat = factorize(sched, ata_flat)
-        x = solve_with_factor(sched, lflat, atb)
-        x = _refine_with_factor(sched, lflat, ata_flat, atb, x)
+        factor = factorize(sched, ata_flat)
+        x = solve_with_factor(sched, factor, atb)
+        x = _refine_with_factor(sched, factor, ata_flat, atb, x)
         ctx.sched = sched
-        ctx.save_for_backward(lflat, ata_flat, x)
+        ctx.save_for_backward(factor.blocks, factor.tail, ata_flat, x)
         return x
 
     @staticmethod
     def backward(ctx, g):
         sched = ctx.sched
-        lflat, ata_flat, x = ctx.saved_tensors
+        blocks, tail, ata_flat, x = ctx.saved_tensors
+        factor = Factor(blocks, tail)
 
         def solve(r):  # H is symmetric
-            return _refine_with_factor(sched, lflat, ata_flat, r, solve_with_factor(sched, lflat, r))
+            return _refine_with_factor(sched, factor, ata_flat, r, solve_with_factor(sched, factor, r))
 
         with span("tt.backward.solve"):
             d_ata, h = solve_vjp(solve, sched.pattern.matvec_tables(g.device), ata_flat, x, g,
@@ -560,6 +531,6 @@ def sparse_block_solve(sched: NumericSchedule, ata_flat, atb):
     both inputs."""
     if config.needs_grad(ata_flat, atb):
         return _SparseBlockSolve.apply(sched, ata_flat, atb)
-    lflat = factorize(sched, ata_flat)
-    x = solve_with_factor(sched, lflat, atb)
-    return _refine_with_factor(sched, lflat, ata_flat, atb, x)
+    factor = factorize(sched, ata_flat)
+    x = solve_with_factor(sched, factor, atb)
+    return _refine_with_factor(sched, factor, ata_flat, atb, x)

@@ -15,8 +15,8 @@ the results stay in sparse/cholesky.py. The twins follow cholesky.py's
 `_factorize_levels` / `_solve_levels` arithmetic through the unrolled
 ops/batched_linalg routines. The substitution kernels' launch geometry is
 chosen here (`fwd_subst_geometry`, `bwd_subst_geometry`), where the CPU
-tests reach it. `tail_update` reads the factor and AtA in place through the
-schedule's lists (`NumericSchedule.tail_on`).
+tests reach it. `tail_update` and its twin read the factor and AtA in
+place through the schedule's lists (`NumericSchedule.tail_on`).
 """
 
 from __future__ import annotations
@@ -69,33 +69,26 @@ def level_bwd_subst_plain(lcol, xr, y):
     return solve_upper_vec(lcol[:, 0].transpose(-1, -2), acc)
 
 
-def tail_blocks_to_mat(c, valid, K, d):
-    """c (K_col, K_row, B, d, d) masked lower blocks -> dense (B, K d, K d),
-    lower triangular by blocks (the strict upper part zero)."""
-    bsz = c.shape[2]
-    c = torch.where(valid[:, :, None, None, None], c, 0.0)
-    # (col j, row r, B, i, m) -> (B, r, i, j, m)
-    return c.permute(2, 1, 3, 0, 4).reshape(bsz, K * d, K * d)
-
-
 def tail_update_plain(t, ata_flat, lflat):
-    """t: `NumericSchedule.tail_on`'s tables. Per tail column j and row
-    r >= j the block C = A - sum_k L[r, k] L[j, k]^T over the external
-    updates, then the symmetric dense (B, K d, K d): the strict lower
-    blocks, their transposes and the diagonal blocks as 0.5 (C + C^T)."""
-    K, d = t["diag"].shape[0], ata_flat.shape[-1]
-    col_a = ata_flat[t["a_src"]]
-    col_a = torch.where(t["a_tr"][:, :, None, None, None], col_a.transpose(-1, -2), col_a)
-    ks = lflat[t["upd_slots"]]  # (K, ue, K, B, d, d)
-    kj = torch.where(t["upd_valid"][:, :, None, None, None], lflat[t["upd_jk"]], 0.0)
-    c = col_a - torch.einsum("curbik,cubjk->crbij", ks, kj)
-    lower = tail_blocks_to_mat(c, t["strict"], K, d)
-    cd = c[t["diag"], t["diag"]]  # (K, B, d, d)
-    bsz = c.shape[2]
-    dmat = torch.zeros((bsz, K, d, K, d), dtype=c.dtype, device=c.device)
-    # advanced indices split by a slice land in front: values (K, B, d, d)
-    dmat[:, t["diag"], :, t["diag"], :] = 0.5 * (cd + cd.transpose(-1, -2))
-    return lower + lower.transpose(-1, -2) + dmat.reshape(bsz, K * d, K * d)
+    """t: `NumericSchedule.tail_on`'s tables. The kernel's arithmetic from
+    its lists: for each output block (j, r >= j) C = A - sum of
+    L[r, k] L[j, k]^T over its pairs, then the symmetric dense
+    (B, K d, K d): C at block (r, j), C^T at (j, r), the diagonal blocks as
+    0.5 (C + C^T)."""
+    K, bsz, d = t["upd_jk"].shape[0], ata_flat.shape[1], ata_flat.shape[-1]
+    out, pairs = t["out"].long(), t["pairs"].long()
+    seg = torch.repeat_interleave(torch.arange(out.shape[0], device=out.device), t["pair_ptr"].diff())
+    prod = lflat[pairs[:, 0]] @ lflat[pairs[:, 1]].transpose(-1, -2)
+    acc = torch.zeros((out.shape[0], bsz, d, d), dtype=prod.dtype, device=prod.device).index_add_(0, seg, prod)
+    a = ata_flat[out[:, 2]]
+    c = torch.where(out[:, 3, None, None, None] != 0, a.transpose(-1, -2), a) - acc
+    j, r = out[:, 0], out[:, 1]
+    c = torch.where((j == r)[:, None, None, None], 0.5 * (c + c.transpose(-1, -2)), c)
+    dense = torch.zeros((bsz, K, d, K, d), dtype=c.dtype, device=c.device)
+    # advanced indices split by a slice land in front: values (n_out, B, d, d)
+    dense[:, r, :, j, :] = c
+    dense[:, j, :, r, :] = c.transpose(-1, -2)
+    return dense.reshape(bsz, K * d, K * d)
 
 
 # ---------------------------------------------------------------------------

@@ -4,18 +4,20 @@ Three entry points, each launching its CUDA kernel on a CUDA tensor and
 running its plain twin, the per-column left-looking plan of
 sparse/cholesky.py, on a CPU tensor:
 
-- `whole_factor(sched, ata)` -> Lflat (`csrc/whole_factor.cu`,
+- `whole_factor(sched, ata)` -> the Factor (`csrc/whole_factor.cu`,
   replaces `_fact_kernel`, pallas_call pallas_whole.py:319);
-- `whole_fwd_subst(sched, lflat, b)` -> y (`csrc/whole_subst.cu`,
+- `whole_fwd_subst(sched, factor, b)` -> y (`csrc/whole_subst.cu`,
   replaces `_fwd_kernel`, pallas_call :508);
-- `whole_bwd_subst(sched, lflat, y)` -> x (`csrc/whole_subst.cu`,
+- `whole_bwd_subst(sched, factor, y)` -> x (`csrc/whole_subst.cu`,
   replaces `_bwd_kernel`, pallas_call :523).
 
-The factor keeps the level plan's AoS layout (nnz_l+1, B, d, d) with slot 0
-zero, so either plan's solve, the refinement and the solve's backward take
-one layout. `b` comes in the original variable order and `y` leaves in the
-elimination order; `x` leaves in the original order: the permutations are
-folded into the kernels' index records, so a solve is two launches.
+The schedule has no dense tail, and the factor (sparse/cholesky.py
+`Factor`, its `tail` None) keeps the level plan's AoS blocks
+(nnz_l+1, B, d, d) with slot 0 zero, so either plan's solve, the
+refinement and the solve's backward take one layout. `b` comes in the
+original variable order and `y` leaves in the elimination order; `x` leaves
+in the original order: the permutations are folded into the kernels' index
+records, so a solve is two launches.
 
 None of the TPU layout carries over: no 128-lane batch padding (and no
 identity diagonals in pad lanes), no 8-sublane block padding, no zero
@@ -394,12 +396,13 @@ def _check(name, *operands):
             raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
-def whole_factor(sched, ata: torch.Tensor) -> torch.Tensor:
-    """ata (n_slots, B, d, d) -> Lflat (nnz_l+1, B, d, d), slot 0 zero."""
-    if not use_kernel(ata):
-        from .cholesky import _factorize_scan
+def whole_factor(sched, ata: torch.Tensor):
+    """ata (n_slots, B, d, d) -> the Factor, its blocks (nnz_l+1, B, d, d)
+    with slot 0 zero."""
+    from .cholesky import Factor, _factorize_scan
 
-        return _factorize_scan(sched, ata)
+    if not use_kernel(ata):
+        return Factor(_factorize_scan(sched, ata))
     tb = get_tables(sched)
     bsz, d = ata.shape[1], ata.shape[-1]
     _check("whole_factor", (ata, (sched.pattern.n_slots, bsz, d, d)))
@@ -416,12 +419,13 @@ def whole_factor(sched, ata: torch.Tensor) -> torch.Tensor:
                 _cuda.stream_of(ata))
     _cuda.check(rc, "whole_factor")
     _cuda.launches["whole_factor"] += 1
-    return lflat
+    return Factor(lflat)
 
 
-def whole_fwd_subst(sched, lflat: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def whole_fwd_subst(sched, factor, b: torch.Tensor) -> torch.Tensor:
     """L y = b[perm]: b (n, B, d) in the original variable order -> y
     (n, B, d) in the elimination order."""
+    lflat = factor.blocks
     if not use_kernel(lflat):
         from .cholesky import _fwd_scan
 
@@ -444,9 +448,10 @@ def whole_fwd_subst(sched, lflat: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     return y
 
 
-def whole_bwd_subst(sched, lflat: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def whole_bwd_subst(sched, factor, y: torch.Tensor) -> torch.Tensor:
     """L^T x = y: y (n, B, d) in the elimination order -> x (n, B, d) in the
     original variable order."""
+    lflat = factor.blocks
     if not use_kernel(lflat):
         from .cholesky import _bwd_scan
 
@@ -469,6 +474,6 @@ def whole_bwd_subst(sched, lflat: torch.Tensor, y: torch.Tensor) -> torch.Tensor
     return x
 
 
-def solve_whole(sched, lflat: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def solve_whole(sched, factor, b: torch.Tensor) -> torch.Tensor:
     """H x = b with the factor: b and x (n, B, d) in the original order."""
-    return whole_bwd_subst(sched, lflat, whole_fwd_subst(sched, lflat, b))
+    return whole_bwd_subst(sched, factor, whole_fwd_subst(sched, factor, b))
