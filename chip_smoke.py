@@ -817,14 +817,39 @@ def _repeatable(name, fn, note):
 
 
 def level_inputs(prob, ata, factor, y, x, b_perm):
-    """Per-level operands of the three level kernels, gathered by the
-    solver's own functions from a plain-twin factorization and solve."""
-    from theseus_tpu_torch.sparse.cholesky import bwd_operands, factor_operands, fwd_operands
+    """Per level, the (factor, forward, backward) stages of the three level
+    kernels (`level_kernels.LevelStage`: the arrays each reads and writes in
+    place) on a plain-twin factorization and solve. `stage.run(fn)` runs a
+    kernel or its twin on a copy of the written array and returns the rows
+    it wrote; `stage.launch(fn)` runs it in place, for timings."""
+    from theseus_tpu_torch.sparse.level_kernels import level_stages
 
     _, _, levels = prob.builder.sched.on(ata.device)
-    lflat = factor.blocks
-    return [(factor_operands(t, ata, lflat), fwd_operands(t, lflat, y, b_perm),
-             bwd_operands(t, lflat, x, y)) for t in levels]
+    return [level_stages(t, ata, factor.blocks, y, x, b_perm) for t in levels]
+
+
+def timing_sweeps(lv):
+    """The three sweeps over `level_inputs`' stages, in place on copies of
+    the factor, y and x, so that timed launches leave the checked arrays as
+    they were: {"factor" | "fwd" | "bwd": (levels, *arrays)}, `fn(*sweep)`
+    one sweep of the kernel or its twin, one launch a level (the backward
+    sweep's levels last to first)."""
+    (ata, lflat), (_, y, b), (_, x, _) = (st.arrays for st in lv[0])
+    lflat, y, x = lflat.clone(), y.clone(), x.clone()
+    levels = [st.t for st, _, _ in lv]
+    return {"factor": (levels, ata, lflat), "fwd": (levels, lflat, y, b), "bwd": (levels[::-1], lflat, x, y)}
+
+
+def _stage_bytes(st):
+    """Bytes a level stage reads and writes: its operands as the twin
+    gathers them, and its output."""
+    ops = st.operands()
+    return _nbytes(*ops) + _nbytes(ops[0 if st.kind == "factor" else 2])
+
+
+def _cast_stage(st, cast):
+    """A level stage on cast copies of its arrays (the tables as they are)."""
+    return st._replace(arrays=tuple(cast(a) for a in st.arrays))
 
 
 def plain_system(prob):
@@ -892,23 +917,23 @@ def phase_kernels(dev):
 
         worst = {"level_factor": 0.0, "level_fwd_subst": 0.0, "level_bwd_subst": 0.0}
         lv = level_inputs(prob, ata, factor, y, x, b_perm)
-        shapes[dn] = [(f[0].shape[0], f[0].shape[1], f[1].shape[1]) for f, _, _ in lv]
+        shapes[dn] = [(f.dims[0], f.dims[1], f.dims[2]) for f, _, _ in lv]
         for li, (fact, fwd, bwd) in enumerate(lv):
-            C, ul, rl = fact[0].shape[0], fact[1].shape[1], fact[0].shape[1]
+            C, rl, ul = fact.dims
             note = f"level {li:2d} C={C} rl={rl} ul={ul}"
             worst["level_factor"] = max(worst["level_factor"], _dev_report(
-                "level_factor", dn, level_factor(*fact), level_factor_plain(*fact), note))
+                "level_factor", dn, fact.run(level_factor), fact.run(level_factor_plain), note))
             worst["level_fwd_subst"] = max(worst["level_fwd_subst"], _dev_report(
-                "level_fwd_subst", dn, level_fwd_subst(*fwd), level_fwd_subst_plain(*fwd), note))
+                "level_fwd_subst", dn, fwd.run(level_fwd_subst), fwd.run(level_fwd_subst_plain), note))
             worst["level_bwd_subst"] = max(worst["level_bwd_subst"], _dev_report(
-                "level_bwd_subst", dn, level_bwd_subst(*bwd), level_bwd_subst_plain(*bwd), note))
+                "level_bwd_subst", dn, bwd.run(level_bwd_subst), bwd.run(level_bwd_subst_plain), note))
         # the grid's head levels: columns of 5 to 15 rows, batch tiles of 1 to 32
         g_prob = grid_prob(dtype, dev)
         for li, (_, _, bwd) in enumerate(level_inputs(g_prob, *plain_system(g_prob)[1:])):
-            note = "grid level {:2d} C={} rl={}".format(li, *bwd[0].shape[:2])
-            got = _repeatable("level_bwd_subst", lambda: [level_bwd_subst(*bwd)], f"{dn} {note}")
+            note = "grid level {:2d} C={} rl={}".format(li, *bwd.dims[:2])
+            got = _repeatable("level_bwd_subst", lambda: [bwd.run(level_bwd_subst)], f"{dn} {note}")
             worst["level_bwd_subst"] = max(worst["level_bwd_subst"], _dev_report(
-                "level_bwd_subst", dn, got, [level_bwd_subst_plain(*bwd)], note))
+                "level_bwd_subst", dn, got, [bwd.run(level_bwd_subst_plain)], note))
         for k, v in worst.items():
             max_abs.setdefault(k, {})[dn] = v
     torch.cuda.synchronize()
@@ -971,6 +996,89 @@ def whole_system(n, b, dtype, dev):
     return prob, ata, atb
 
 
+def sphere2500_system(dtype, dev, seed=7):
+    """The benchmark's sphere2500 cell at batch 64 (portbench/configs: 2500
+    poses, 94 head levels and a dense tail) in dtype: (its Problem, the
+    LM-damped system at its first pool draw, assembled by the kernel: ata,
+    atb)."""
+    import torch
+
+    from portbench.configs.pgo_se3_sphere2500 import Problem
+    from theseus_tpu_torch.sparse.assemble import apply_block_damping, assemble
+
+    cfg = json.loads((ROOT / "portbench/configs/pgo_se3_sphere2500.json").read_text())
+    cfg["dtype"] = str(dtype).split(".")[-1]
+    traffic = json.loads((ROOT / "portbench/traffic/solve_b64.json").read_text())
+    p = Problem(cfg, traffic, seed, dev)
+    co = p.layer.objective.compile()
+    values = p.layer.objective.default_values(p.inputs(0))
+    state, aux = co.pack(values, traffic["batch"]), co.build_aux(values, traffic["batch"])
+    pattern = p.layer.optimizer.normal_builder.pattern
+    ata, atb = assemble(pattern, co.linearize_blocks(state, aux))
+    torch.cuda.synchronize()
+    return p, apply_block_damping(pattern, ata, 1e-3, False, 1e-8), atb
+
+
+def phase_level_inplace(dev):
+    """The level plan at the sphere2500 cell, float32 and float64: one
+    factorization launches `level_factor` once a head level, each sweep its
+    kernel once a head level, and no indexing op (aten::index, where,
+    index_put) runs per level in the three stages (a profiler counts them:
+    the dense tail's few and the solve's two gathers remain); slot 0 stays
+    the zero block; two factorizations and solves give the same bits; every
+    level of each stage against its twin on the kernels' arrays. (Its bits
+    against the parent tree's: scripts/torch_ab.py --ab.)"""
+    import torch
+
+    from theseus_tpu_torch import _cuda
+    from theseus_tpu_torch.sparse import cholesky as chol
+
+    for dtype in (torch.float32, torch.float64):
+        dn = str(dtype).split(".")[-1]
+        p, ata, atb = sphere2500_system(dtype, dev)
+        sched = p.layer.optimizer.normal_builder.sched
+        perm, _, levels = sched.on(dev)
+        n_levels = len(levels)
+        note = f"sphere2500 B=64 {n_levels} head levels, tail {sched.tail_k}"
+
+        def solve():
+            factor = chol.factorize_levels(sched, ata)
+            y = chol.forward_sweep(sched, factor, atb[perm])
+            return factor, y, chol.backward_sweep(sched, factor, y)
+
+        solve()
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            factor, y, x = solve()
+            torch.cuda.synchronize()
+        counts = {k: _cuda.launches[k] for k in LEVEL_STAGES}
+        ops = {}
+        for e in prof.events():
+            if e.name in ("aten::index", "aten::where", "aten::index_put_", "aten::_index_put_impl_"):
+                ops[e.name] = ops.get(e.name, 0) + 1
+        print(f"[level_inplace] {dn} {note}: launches {counts}, indexing ops over a factorization and both "
+              f"sweeps {ops}")
+        check(all(v == n_levels for v in counts.values()),
+              f"level_inplace {dn}: launches {counts}, not one a head level ({n_levels})")
+        check(sum(ops.values()) < n_levels, f"level_inplace {dn}: indexing ops {ops} grow with the levels")
+        again = solve()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip((factor.blocks, factor.tail, y, x),
+                                                      (again[0].blocks, again[0].tail, again[1], again[2])))
+        print(f"[level_inplace] {dn} {note}: slot 0 zero {not bool(factor.blocks[0].any())}, two solves "
+              f"bitwise equal {same}")
+        check(same and not bool(factor.blocks[0].any()), f"level_inplace {dn}: slot 0 or repeatability")
+        b_perm = atb[perm]
+        for name, kind, args, written in (("level_factor", "factor", (levels, ata, factor.blocks), factor.blocks),
+                                          ("level_fwd_subst", "fwd", (levels, factor.blocks, y, b_perm), y),
+                                          ("level_bwd_subst", "bwd", (levels, factor.blocks, x, y), x)):
+            got, twin = _level_twins(kind, getattr(chol, name), args, written)
+            _dev_report(name, dn, got, twin, note)
+        del p, ata, atb, factor, y, x, again
+        torch.cuda.empty_cache()
+
+
 def phase_whole_kernels(dev, max_abs):
     """Rows 6-8 at PGO 256 x 128 and 2048 x 8, and row 9 at K=257, B=128:
     the factor against its per-column twin and against the level kernels'
@@ -1001,11 +1109,11 @@ def phase_whole_kernels(dev, max_abs):
                   f"(factor, level table and 3 record buffers {whole_factor_smem_bytes(sched, d, isz)} bytes)")
             lv = level_inputs(prob, *plain_system(prob)[1:])
             fwd_ops = [fw for _, fw, _ in lv]
-            got = _repeatable("level_fwd_subst", lambda: [level_fwd_subst(*f) for f in fwd_ops],
+            got = _repeatable("level_fwd_subst", lambda: [f.run(level_fwd_subst) for f in fwd_ops],
                               f"{dn} PGO {n}x{b} sweep")
             for li, (g, f) in enumerate(zip(got, fwd_ops)):
-                e = _dev_report("level_fwd_subst", dn, g, level_fwd_subst_plain(*f),
-                                f"{n}x{b} level {li:2d} C={f[0].shape[0]} ul={f[0].shape[1]}")
+                e = _dev_report("level_fwd_subst", dn, g, f.run(level_fwd_subst_plain),
+                                f"{n}x{b} level {li:2d} C={f.dims[0]} ul={f.dims[2]}")
                 max_abs["level_fwd_subst"][dn] = max(max_abs["level_fwd_subst"][dn], e)
             factor = whole_factor(sched, ata)
             factor_l = factorize_levels(sched, ata)
@@ -2275,7 +2383,7 @@ def phase_pgo2d(dev, card):
                                  ("level_fwd_subst", level_fwd_subst, level_fwd_subst_plain, 1),
                                  ("level_bwd_subst", level_bwd_subst, level_bwd_subst_plain, 2)):
             max_abs.setdefault(name, {})[dn] = _dev_report(
-                name, dn, [k(*ops[idx]) for ops in lv], [pl(*ops[idx]) for ops in lv], note)
+                name, dn, [ops[idx].run(k) for ops in lv], [ops[idx].run(pl) for ops in lv], note)
         if dn == "float32":
             lv32, sys32, padded32 = lv, system, padded
     step("kernels against twins")
@@ -2363,14 +2471,15 @@ def phase_pgo2d(dev, card):
 
     # rows 2-4b at d = 3, float32: one assembly and one sweep of each level kernel
     _, ata, _, y, x, b_perm = sys32
+    sw_lv32 = timing_sweeps(lv32)
     fns = {
         "assemble_blocks": (lambda: assemble_blocks(pattern, padded32), lambda: assemble_blocks_plain(pattern, padded32)),
-        "level_factor": (lambda: [level_factor(*f) for f, _, _ in lv32],
-                         lambda: [level_factor_plain(*f) for f, _, _ in lv32]),
-        "level_fwd_subst": (lambda: [level_fwd_subst(*fw) for _, fw, _ in lv32],
-                            lambda: [level_fwd_subst_plain(*fw) for _, fw, _ in lv32]),
-        "level_bwd_subst": (lambda: [level_bwd_subst(*bw) for _, _, bw in lv32],
-                            lambda: [level_bwd_subst_plain(*bw) for _, _, bw in lv32]),
+        "level_factor": (lambda: level_factor(*sw_lv32["factor"]),
+                         lambda: level_factor_plain(*sw_lv32["factor"])),
+        "level_fwd_subst": (lambda: level_fwd_subst(*sw_lv32["fwd"]),
+                            lambda: level_fwd_subst_plain(*sw_lv32["fwd"])),
+        "level_bwd_subst": (lambda: level_bwd_subst(*sw_lv32["bwd"]),
+                            lambda: level_bwd_subst_plain(*sw_lv32["bwd"])),
     }
     # few reps: a sweep is 92 launches, and the launch queue (about 1024
     # entries) must hold every timed call behind device_ms's sleep kernel
@@ -2378,16 +2487,16 @@ def phase_pgo2d(dev, card):
              for k, (kern, plain) in fns.items()}
     bounds = {
         "assemble_blocks": assembly_bound(pattern, padded32),
-        "level_factor": _bound(sum(_nbytes(*f) + _nbytes(f[0]) for f, _, _ in lv32), factor_flops(sched, 1, 3)),
-        "level_fwd_subst": _bound(sum(_nbytes(*fw) + _nbytes(fw[2]) for _, fw, _ in lv32),
+        "level_factor": _bound(sum(_stage_bytes(f) for f, _, _ in lv32), factor_flops(sched, 1, 3)),
+        "level_fwd_subst": _bound(sum(_stage_bytes(fw) for _, fw, _ in lv32),
                                   subst_flops(sched, 1, 3, True)),
-        "level_bwd_subst": _bound(sum(_nbytes(*bw) + _nbytes(bw[2]) for _, _, bw in lv32),
+        "level_bwd_subst": _bound(sum(_stage_bytes(bw) for _, _, bw in lv32),
                                   subst_flops(sched, 1, 3, False)),
     }
     # where a sweep's device time goes: each level's launch alone
     for name, kern, idx in (("level_factor", level_factor, 0), ("level_bwd_subst", level_bwd_subst, 2)):
-        per = [(device_ms(lambda ops=ops: kern(*ops[idx]), reps=3, warmup=1), ops[0][0].shape[0],
-                ops[0][0].shape[1], ops[0][1].shape[1]) for ops in lv32]
+        sw = sw_lv32[("factor", "fwd", "bwd")[idx]]
+        per = [(device_ms(lambda t=t: kern([t], *sw[1:]), reps=3, warmup=1), *t["dims"]) for t in sw[0]]
         total = sum(p[0] for p in per)
         top = sorted(per, reverse=True)[:5]
         print(f"[pgo2d] {name} per level, device ms (C, rl, ul), the 5 slowest of {len(per)}: "
@@ -2683,7 +2792,7 @@ def phase_planning(dev, card):
                     (assemble_blocks_plain if plain else assemble_blocks)(
                         pattern_b, [([cast(j) for j in jacs], cast(e)) for jacs, e in padded])),
                 **{name: (lambda cast, plain, k=k, pl=pl, idx=idx:
-                          [(pl if plain else k)(*[cast(t) for t in ops[idx]]) for ops in lv])
+                          [_cast_stage(ops[idx], cast).run(pl if plain else k) for ops in lv])
                    for name, k, pl, idx in (("level_factor", level_factor, level_factor_plain, 0),
                                             ("level_fwd_subst", level_fwd_subst, level_fwd_subst_plain, 1),
                                             ("level_bwd_subst", level_bwd_subst, level_bwd_subst_plain, 2))},
@@ -2918,21 +3027,22 @@ def phase_planning(dev, card):
         _, ata, factor, y, x, b_perm = sys_by[b]
         lv, padded = lv_by[b], padded_by[b]
         sched, pattern = probs[b].builder.sched, probs[b].builder.pattern
+        sw_lv = timing_sweeps(lv)
         fns = {
             "assemble_blocks": (lambda: assemble_blocks(pattern, padded), lambda: assemble_blocks_plain(pattern, padded)),
-            "level_factor": (lambda: [level_factor(*f) for f, _, _ in lv], lambda: [level_factor_plain(*f) for f, _, _ in lv]),
-            "level_fwd_subst": (lambda: [level_fwd_subst(*fw) for _, fw, _ in lv],
-                                lambda: [level_fwd_subst_plain(*fw) for _, fw, _ in lv]),
-            "level_bwd_subst": (lambda: [level_bwd_subst(*bw) for _, _, bw in lv],
-                                lambda: [level_bwd_subst_plain(*bw) for _, _, bw in lv]),
+            "level_factor": (lambda: level_factor(*sw_lv["factor"]), lambda: level_factor_plain(*sw_lv["factor"])),
+            "level_fwd_subst": (lambda: level_fwd_subst(*sw_lv["fwd"]),
+                                lambda: level_fwd_subst_plain(*sw_lv["fwd"])),
+            "level_bwd_subst": (lambda: level_bwd_subst(*sw_lv["bwd"]),
+                                lambda: level_bwd_subst_plain(*sw_lv["bwd"])),
         }
         atb = b_perm[sched.on(dev)[1]]
         bounds[b] = {
             "assemble_blocks": assembly_bound(pattern, padded),
-            "level_factor": _bound(sum(_nbytes(*f) + _nbytes(f[0]) for f, _, _ in lv), factor_flops(sched, b, 2)),
-            "level_fwd_subst": _bound(sum(_nbytes(*fw) + _nbytes(fw[2]) for _, fw, _ in lv),
+            "level_factor": _bound(sum(_stage_bytes(f) for f, _, _ in lv), factor_flops(sched, b, 2)),
+            "level_fwd_subst": _bound(sum(_stage_bytes(fw) for _, fw, _ in lv),
                                       subst_flops(sched, b, 2, True)),
-            "level_bwd_subst": _bound(sum(_nbytes(*bw) + _nbytes(bw[2]) for _, _, bw in lv),
+            "level_bwd_subst": _bound(sum(_stage_bytes(bw) for _, _, bw in lv),
                                       subst_flops(sched, b, 2, False)),
         }
         if whole_ok:
@@ -3121,7 +3231,7 @@ def phase_tactile(dev, card):
                 (assemble_blocks_plain if plain else assemble_blocks)(
                     pb, [([cast(j) for j in jacs], cast(err)) for jacs, err in padded])),
             **{name: (lambda cast, plain, k=k, pl=pl, idx=idx, lv=lv:
-                      [(pl if plain else k)(*[cast(t) for t in ops[idx]]) for ops in lv])
+                      [_cast_stage(ops[idx], cast).run(pl if plain else k) for ops in lv])
                for name, k, pl, idx in (("level_factor", level_factor, level_factor_plain, 0),
                                         ("level_fwd_subst", level_fwd_subst, level_fwd_subst_plain, 1),
                                         ("level_bwd_subst", level_bwd_subst, level_bwd_subst_plain, 2))},
@@ -3240,21 +3350,22 @@ def phase_tactile(dev, card):
         print(f"[tactile] B={TAC_BATCH} stages (ms, each synced, mean of 3): "
               + ", ".join(f"{k} {_synced_ms(f, reps=3):.3f}" for k, f in stages.items()) + f" on {card}")
     _, ata, _, y, x, b_perm = system
+    sw_lv = timing_sweeps(lv)
     fns = {
         "assemble_blocks": (lambda: assemble_blocks(pattern, padded), lambda: assemble_blocks_plain(pattern, padded)),
-        "level_factor": (lambda: [level_factor(*f) for f, _, _ in lv], lambda: [level_factor_plain(*f) for f, _, _ in lv]),
-        "level_fwd_subst": (lambda: [level_fwd_subst(*fw) for _, fw, _ in lv],
-                            lambda: [level_fwd_subst_plain(*fw) for _, fw, _ in lv]),
-        "level_bwd_subst": (lambda: [level_bwd_subst(*bw) for _, _, bw in lv],
-                            lambda: [level_bwd_subst_plain(*bw) for _, _, bw in lv]),
+        "level_factor": (lambda: level_factor(*sw_lv["factor"]), lambda: level_factor_plain(*sw_lv["factor"])),
+        "level_fwd_subst": (lambda: level_fwd_subst(*sw_lv["fwd"]),
+                            lambda: level_fwd_subst_plain(*sw_lv["fwd"])),
+        "level_bwd_subst": (lambda: level_bwd_subst(*sw_lv["bwd"]),
+                            lambda: level_bwd_subst_plain(*sw_lv["bwd"])),
     }
     bounds = {
         "assemble_blocks": assembly_bound(pattern, padded),
-        "level_factor": _bound(sum(_nbytes(*f) + _nbytes(f[0]) for f, _, _ in lv),
+        "level_factor": _bound(sum(_stage_bytes(f) for f, _, _ in lv),
                                factor_flops(sched, TAC_BATCH, 3)),
-        "level_fwd_subst": _bound(sum(_nbytes(*fw) + _nbytes(fw[2]) for _, fw, _ in lv),
+        "level_fwd_subst": _bound(sum(_stage_bytes(fw) for _, fw, _ in lv),
                                   subst_flops(sched, TAC_BATCH, 3, True)),
-        "level_bwd_subst": _bound(sum(_nbytes(*bw) + _nbytes(bw[2]) for _, _, bw in lv),
+        "level_bwd_subst": _bound(sum(_stage_bytes(bw) for _, _, bw in lv),
                                   subst_flops(sched, TAC_BATCH, 3, False)),
     }
     h = dense_h(pattern, ata)
@@ -3846,17 +3957,25 @@ def _detached(x):
     return x
 
 
+# the level kernels' entry points, which write their third argument in place
+# (`level_kernels.LevelStage` kinds)
+LEVEL_STAGES = {"level_factor": "factor", "level_fwd_subst": "fwd", "level_bwd_subst": "bwd"}
+
+
 @contextlib.contextmanager
 def _recording(records):
     """Inside the block, keep in `records` ({name: [(args, outputs)]}) the
     inputs and outputs of kernel launches (`_solver_entries`); a wrapper
-    call that ran its twin is not kept."""
+    call that ran its twin is not kept. A level kernel's output is the array
+    it wrote in place, after its sweep."""
     from theseus_tpu_torch import _cuda
 
     def wrap(name, orig):
         seen = set()
 
         def rec(*args):
+            if name in LEVEL_STAGES:  # the levels may come as an iterator
+                args = (list(args[0]),) + args[1:]
             key = tuple((tuple(t.shape), t.dtype) for t in _tensors(args))
             keep = key not in seen and len(records.get(name, ())) < RECORD_CAP
             saved = _detached(args) if keep else None
@@ -3864,7 +3983,7 @@ def _recording(records):
             out = orig(*args)
             if keep and _cuda.launches[name] > before:
                 seen.add(key)
-                records.setdefault(name, []).append((saved, _detached(out)))
+                records.setdefault(name, []).append((saved, _detached(args[2] if name in LEVEL_STAGES else out)))
             return out
 
         return rec
@@ -3873,6 +3992,24 @@ def _recording(records):
         for name, (mod, attr) in _solver_entries().items():
             stack.enter_context(mock.patch.object(mod, attr, wrap(name, getattr(mod, attr))))
         yield records
+
+
+def _level_twins(kind, entry, args, written):
+    """A recorded level sweep level by level: the rows each level wrote, and
+    its twin's on the same inputs (the sweep's written array, whose rows of
+    earlier levels are the kernel's)."""
+    from theseus_tpu_torch import config
+    from theseus_tpu_torch.sparse.level_kernels import LevelStage
+
+    levels, arrays = args[0], list(args[1:])
+    arrays[1] = written
+    got, twin = [], []
+    for t in levels:
+        st = LevelStage(kind, t, tuple(arrays), t["col_slots"] if kind == "factor" else t["cols"])
+        got.append(written[st.out])
+        with config.plain_path():
+            twin.append(st.run(entry))
+    return got, twin
 
 
 def _hold_recorded(label, records, launched):
@@ -3888,8 +4025,11 @@ def _hold_recorded(label, records, launched):
         mod, attr = entries[name]
         worst = {}
         for args, out in calls:
-            with config.plain_path():
-                twin = getattr(mod, attr)(*args)
+            if name in LEVEL_STAGES:
+                out, twin = _level_twins(LEVEL_STAGES[name], getattr(mod, attr), args, out)
+            else:
+                with config.plain_path():
+                    twin = getattr(mod, attr)(*args)
             dn = str(_tensors(out)[0].dtype).split(".")[-1]
             a, r = _twin_dev(name, dn, _tensors(out), _tensors(twin))
             wa, wr, k = worst.get(dn, (0.0, 0.0, 0))
@@ -4497,7 +4637,7 @@ def phase_timing(dev, card, twin_ms, max_abs):
     from theseus_tpu_torch.ops.reprojection import reprojection_linearize, reprojection_linearize_plain
     from theseus_tpu_torch.sparse.assemble_kernel import assemble_blocks, assemble_blocks_plain
     from theseus_tpu_torch.sparse.level_kernels import (
-        level_bwd_subst, level_bwd_subst_plain, level_factor, level_factor_plain,
+        factor_stage, fwd_stage, level_bwd_subst, level_bwd_subst_plain, level_factor, level_factor_plain,
         level_fwd_subst, level_fwd_subst_plain)
     from theseus_tpu_torch.sparse.cholesky import factorize_levels
     from theseus_tpu_torch.sparse.whole import whole_bwd_subst, whole_factor, whole_fwd_subst
@@ -4551,6 +4691,7 @@ def phase_timing(dev, card, twin_ms, max_abs):
     ba_padded, ba_pattern = padded_blocks(ba), ba.builder.pattern
     deep = synthetic_problem(*WHOLE_SHAPES[1], torch.float32, dev)
     lv_deep = level_inputs(deep, *plain_system(deep)[1:])
+    sw_lv, sw_lv_deep = timing_sweeps(lv), timing_sweeps(lv_deep)
     deep_w, dw_ata, dw_atb = whole_system(*WHOLE_SHAPES[1], torch.float32, dev)
     deep_sched = deep_w.builder.sched
     dw_l = factorize_levels(deep_sched, dw_ata)
@@ -4567,20 +4708,20 @@ def phase_timing(dev, card, twin_ms, max_abs):
                         lambda: between_linearize_plain(v1, v2, meas)),
         "assemble_blocks": (lambda: assemble_blocks(pattern, padded),
                             lambda: assemble_blocks_plain(pattern, padded)),
-        "level_factor": (lambda: [level_factor(*f) for f, _, _ in lv],
-                         lambda: [level_factor_plain(*f) for f, _, _ in lv]),
-        "level_fwd_subst": (lambda: [level_fwd_subst(*f) for _, f, _ in lv],
-                            lambda: [level_fwd_subst_plain(*f) for _, f, _ in lv]),
-        "level_bwd_subst": (lambda: [level_bwd_subst(*f) for _, _, f in lv],
-                            lambda: [level_bwd_subst_plain(*f) for _, _, f in lv]),
+        "level_factor": (lambda: level_factor(*sw_lv["factor"]),
+                         lambda: level_factor_plain(*sw_lv["factor"])),
+        "level_fwd_subst": (lambda: level_fwd_subst(*sw_lv["fwd"]),
+                            lambda: level_fwd_subst_plain(*sw_lv["fwd"])),
+        "level_bwd_subst": (lambda: level_bwd_subst(*sw_lv["bwd"]),
+                            lambda: level_bwd_subst_plain(*sw_lv["bwd"])),
         "reprojection": (lambda: reprojection_linearize(*rops),
                          lambda: reprojection_linearize_plain(*rops)),
         "assemble_blocks ba": (lambda: assemble_blocks(ba_pattern, ba_padded),
                                lambda: assemble_blocks_plain(ba_pattern, ba_padded)),
-        "level_factor 2048x8": (lambda: [level_factor(*f) for f, _, _ in lv_deep],
-                                lambda: [level_factor_plain(*f) for f, _, _ in lv_deep]),
-        "level_bwd_subst 2048x8": (lambda: [level_bwd_subst(*f) for _, _, f in lv_deep],
-                                   lambda: [level_bwd_subst_plain(*f) for _, _, f in lv_deep]),
+        "level_factor 2048x8": (lambda: level_factor(*sw_lv_deep["factor"]),
+                                lambda: level_factor_plain(*sw_lv_deep["factor"])),
+        "level_bwd_subst 2048x8": (lambda: level_bwd_subst(*sw_lv_deep["bwd"]),
+                                   lambda: level_bwd_subst_plain(*sw_lv_deep["bwd"])),
         "whole_factor": (lambda: whole_factor(sched, w_ata), plain(lambda: whole_factor(sched, w_ata))),
         "whole_factor 2048x8": (lambda: whole_factor(deep_sched, dw_ata),
                                 plain(lambda: whole_factor(deep_sched, dw_ata))),
@@ -4645,12 +4786,13 @@ def phase_timing(dev, card, twin_ms, max_abs):
     # the level factor and forward substitution per launch: the widest and
     # the deepest level of each sweep, and the floor (one column, one row,
     # one update, batch 1)
-    for label, levels in (("256x128", lv), ("2048x8", lv_deep)):
-        shapes = [(f[0].shape[0], f[0].shape[1], f[1].shape[1]) for f, _, _ in levels]
-        widest = max(range(len(levels)), key=lambda i: shapes[i][0] * shapes[i][1])
-        deepest = max(range(len(levels)), key=lambda i: shapes[i][2])
+    for label, sw in (("256x128", sw_lv), ("2048x8", sw_lv_deep)):
+        shapes = [t["dims"] for t in sw["factor"][0]]
+        widest = max(range(len(shapes)), key=lambda i: shapes[i][0] * shapes[i][1])
+        deepest = max(range(len(shapes)), key=lambda i: shapes[i][2])
         for which, i in (("widest", widest), ("deepest", deepest)):
-            f, fw = levels[i][0], levels[i][1]
+            f = ([sw["factor"][0][i]],) + sw["factor"][1:]
+            fw = ([sw["fwd"][0][i]],) + sw["fwd"][1:]
             us = device_ms(lambda: level_factor(*f), reps=50) * 1e3
             us_fwd = device_ms(lambda: level_fwd_subst(*fw), reps=50) * 1e3
             print(f"[timing] {label} {which} level {i} (C, rl, ul) = {shapes[i]}: level_factor {us:.2f} us, "
@@ -4658,9 +4800,10 @@ def phase_timing(dev, card, twin_ms, max_abs):
     d = pattern.d
     col_a1 = torch.eye(d, device=dev).expand(1, 1, 1, d, d).contiguous()
     ks1, kj1 = torch.zeros((1, 1, 1, 1, d, d), device=dev), torch.zeros((1, 1, 1, d, d), device=dev)
-    floor_us = device_ms(lambda: level_factor(col_a1, ks1, kj1), reps=50) * 1e3
-    fwd1 = (kj1, torch.zeros((1, 1, 1, d), device=dev), torch.zeros((1, 1, d), device=dev), col_a1[:, 0])
-    floor_fwd_us = device_ms(lambda: level_fwd_subst(*fwd1), reps=50) * 1e3
+    fact1 = factor_stage(col_a1, ks1, kj1)
+    floor_us = device_ms(lambda: fact1.launch(level_factor), reps=50) * 1e3
+    fwd1 = fwd_stage(kj1, torch.zeros((1, 1, 1, d), device=dev), torch.zeros((1, 1, d), device=dev), col_a1[:, 0])
+    floor_fwd_us = device_ms(lambda: fwd1.launch(level_fwd_subst), reps=50) * 1e3
     print(f"[timing] floor (C, rl, ul, B) = (1, 1, 1, 1): level_factor {floor_us:.2f} us, level_fwd_subst "
           f"{floor_fwd_us:.2f} us per launch (device, queue prefilled) on {card}")
 
@@ -4685,12 +4828,13 @@ def phase_timing(dev, card, twin_ms, max_abs):
     times["tail_update"], dev_times["tail_update"], tail_update_bound = tail_update_timing(dev, card, max_abs)
     # row 4b over the grid's head levels, whose columns have long row lists
     # (the chains' have at most 3 rows)
-    g_bwd = [bw for _, _, bw in level_inputs(g_prob, g_ata, g_l, g_y, g_x, g_bp)]
-    times["level_bwd_subst grid"] = (cuda_ms(lambda: [level_bwd_subst(*bw) for bw in g_bwd]),
-                                     cuda_ms(lambda: [level_bwd_subst_plain(*bw) for bw in g_bwd]))
-    dev_times["level_bwd_subst grid"] = device_ms(lambda: [level_bwd_subst(*bw) for bw in g_bwd])
+    g_lv = level_inputs(g_prob, g_ata, g_l, g_y, g_x, g_bp)
+    g_bwd, sw_g_bwd = [bw for _, _, bw in g_lv], timing_sweeps(g_lv)
+    times["level_bwd_subst grid"] = (cuda_ms(lambda: level_bwd_subst(*sw_g_bwd["bwd"])),
+                                     cuda_ms(lambda: level_bwd_subst_plain(*sw_g_bwd["bwd"])))
+    dev_times["level_bwd_subst grid"] = device_ms(lambda: level_bwd_subst(*sw_g_bwd["bwd"]))
     print(f"[timing] level_bwd_subst grid {GRID[0]}x{GRID[1]}x{GRID[2]} float32, one sweep of the {len(g_bwd)} head "
-          f"levels (rl {[bw[0].shape[1] for bw in g_bwd]}): kernel {times['level_bwd_subst grid'][0]:.4f} ms back "
+          f"levels (rl {[bw.dims[1] for bw in g_bwd]}): kernel {times['level_bwd_subst grid'][0]:.4f} ms back "
           f"to back, {dev_times['level_bwd_subst grid']:.4f} ms device (queue prefilled), plain twin "
           f"{times['level_bwd_subst grid'][1]:.4f} ms (CUDA events) on {card}")
 
@@ -4731,20 +4875,19 @@ def phase_timing(dev, card, twin_ms, max_abs):
     j1, j2, err = between_linearize_plain(v1, v2, meas)
     between = _bound(_nbytes(v1, v2, meas, j1, j2, err), BETWEEN_FLOPS * v1.shape[0] * bsz)
     rops_out = reprojection_linearize_plain(*rops)
-    fac_out = sum(_nbytes(f[0]) for f, _, _ in lv)
     bounds = {
         "between_se3": between,
         "between_se3_aos": between,
         "assemble_blocks": assembly_bound(pattern, padded),
         "assemble_blocks ba": assembly_bound(ba_pattern, ba_padded),
-        "level_factor": _bound(sum(_nbytes(*f) for f, _, _ in lv) + fac_out, factor_flops(sched, bsz, d)),
-        "level_factor 2048x8": _bound(sum(_nbytes(*f) + _nbytes(f[0]) for f, _, _ in lv_deep),
+        "level_factor": _bound(sum(_stage_bytes(f) for f, _, _ in lv), factor_flops(sched, bsz, d)),
+        "level_factor 2048x8": _bound(sum(_stage_bytes(f) for f, _, _ in lv_deep),
                                       factor_flops(deep.builder.sched, WHOLE_SHAPES[1][1], d)),
-        "level_fwd_subst": _bound(sum(_nbytes(*fw) + _nbytes(fw[2]) for _, fw, _ in lv),
+        "level_fwd_subst": _bound(sum(_stage_bytes(fw) for _, fw, _ in lv),
                                   subst_flops(sched, bsz, d, True)),
-        "level_bwd_subst": _bound(sum(_nbytes(*bw) + _nbytes(bw[2]) for _, _, bw in lv),
+        "level_bwd_subst": _bound(sum(_stage_bytes(bw) for _, _, bw in lv),
                                   subst_flops(sched, bsz, d, False)),
-        "level_bwd_subst 2048x8": _bound(sum(_nbytes(*bw) + _nbytes(bw[2]) for _, _, bw in lv_deep),
+        "level_bwd_subst 2048x8": _bound(sum(_stage_bytes(bw) for _, _, bw in lv_deep),
                                          subst_flops(deep.builder.sched, WHOLE_SHAPES[1][1], d, False)),
         "reprojection": _bound(_nbytes(*rops, *rops_out), REPROJECTION_FLOPS * rops[0].shape[0] * rops[0].shape[1]),
         "whole_factor": _bound(_nbytes(w_ata, w_l.blocks), factor_flops(sched, bsz, d)),
@@ -4754,7 +4897,7 @@ def phase_timing(dev, card, twin_ms, max_abs):
         "whole_fwd_subst 2048x8": _bound(_nbytes(dw_l.blocks, dw_atb, dw_y), subst_flops(deep_sched, WHOLE_SHAPES[1][1], d, True)),
         "whole_bwd_subst": _bound(_nbytes(w_l.blocks, w_y, w_y), subst_flops(sched, bsz, d, False)),
         "whole_bwd_subst 2048x8": _bound(_nbytes(dw_l.blocks, dw_y, dw_y), subst_flops(deep_sched, WHOLE_SHAPES[1][1], d, False)),
-        "level_bwd_subst grid": _bound(sum(_nbytes(*bw) + _nbytes(bw[2]) for bw in g_bwd),
+        "level_bwd_subst grid": _bound(sum(_stage_bytes(bw) for bw in g_bwd),
                                        subst_flops(g_sched, GRID[2], d, False)),
         "tail_update": tail_update_bound,
     }
@@ -4926,6 +5069,7 @@ def main() -> int:
     intr_launches, intr = timed("ba_intr", phase_ba_intr, dev, card)
     max_abs.update(intr["max_abs"])
     max_abs, twin_ms = timed("whole_kernels", phase_whole_kernels, dev, max_abs)
+    timed("level_inplace", phase_level_inplace, dev)
     launches = {"ba_intr": intr_launches, "pgo": timed("slice", phase_slice, dev),
                 "ba": timed("ba_slice", phase_ba_slice, dev),
                 "train": timed("train", phase_train, dev), "aos_entry": timed("aos_entry", phase_aos_entry, dev),

@@ -9,10 +9,9 @@ Six kernels (PERF.md kernel table rows 1, 5, 4b, 6, 7 and 8):
 - `level_bwd_subst` (`csrc/level_subst.cu`): the batch tile bt (a block
   has bt d threads), which `bwd_subst_geometry` picks per level; here one
   bt for every level of a sweep (capped at the batch, the rows a chunk
-  `bwd_subst_rows`), bt = 1, 2, ..., 32, on the level operands of the
-  plain-twin factor and solve at PGO 256 x 128, 2048 x 8 and the
-  16 x 16 x 128 grid's head levels, against one sweep of the package's
-  launches;
+  `bwd_subst_rows`), bt = 1, 2, ..., 32, reading the plain-twin factor and
+  y in place at PGO 256 x 128, 2048 x 8 and the 16 x 16 x 128 grid's head
+  levels, against one sweep of the package's launches;
 - `whole_factor` (`csrc/whole_factor.cu`): the constant `WF_THREADS`
   (1024), which also sets the launch bounds and so the registers a thread
   may use (64 at 1024 threads, 128 at 512, 255 at 256);
@@ -211,28 +210,30 @@ def bwd_tiles(dev, card):
                             ("PGO 2048x8", lambda: cs.synthetic_problem(2048, 8, dtype, dev)),
                             ("grid {}x{}x{}".format(*cs.GRID), lambda: cs.grid_prob(dtype, dev))):
             prob = make()
-            bwd = [tuple(t.contiguous() for t in bw) for _, _, bw in cs.level_inputs(prob, *cs.plain_system(prob)[1:])]
-            ref = [level_bwd_subst(*bw) for bw in bwd]
-            isz = ref[0].element_size()
-            picks = [bwd_subst_geometry(*bw[0].shape[:3], bw[0].shape[-1], isz, min_blocks)[0] for bw in bwd]
-            ms = cs.device_ms(lambda: [level_bwd_subst(*bw) for bw in bwd])
+            levels, lflat, x0, y = cs.timing_sweeps(cs.level_inputs(prob, *cs.plain_system(prob)[1:]))["bwd"]
+            ref = x0.clone()
+            level_bwd_subst(levels, lflat, ref, y)
+            B, d, isz = lflat.shape[1], lflat.shape[-1], lflat.element_size()
+            picks = [bwd_subst_geometry(t["dims"][0], t["dims"][1], B, d, isz, min_blocks)[0] for t in levels]
+            work = x0.clone()
+            ms = cs.device_ms(lambda: level_bwd_subst(levels, lflat, work, y))
             print(f"[time] level_bwd_subst {dn} {label} the geometry's tiles {picks}: {ms:.4f} ms device a sweep "
                   f"on {card}")
             for bt in BWD_TILES:
-                outs = [torch.empty_like(r) for r in ref]
+                out = x0.clone()
 
                 def call():
-                    for (lcol, xr, y), out in zip(bwd, outs):
-                        C, rl, B, d, _ = lcol.shape
-                        t = min(bt, B)
-                        rc = fn(lcol.data_ptr(), xr.data_ptr(), y.data_ptr(), C, rl, B, d, t,
-                                bwd_subst_rows(t, rl, d, isz), out.data_ptr(), _cuda.stream_of(lcol))
+                    t_b = min(bt, B)
+                    for t in levels:
+                        C, rl, ul = t["dims"]
+                        rc = fn(lflat.data_ptr(), out.data_ptr(), y.data_ptr(), t["rec"].data_ptr(), C, rl, ul, B,
+                                d, t_b, bwd_subst_rows(t_b, rl, d, isz), _cuda.stream_of(lflat))
                         if rc != 0:
                             raise RuntimeError(f"level_bwd_subst at bt {bt}: CUDA error {rc}")
 
                 call()
                 torch.cuda.synchronize()
-                same.append(all(torch.equal(o, r) for o, r in zip(outs, ref)))
+                same.append(torch.equal(out, ref))
                 ms = cs.device_ms(call)
                 print(f"[time] level_bwd_subst {dn} {label} bt {bt} every level: {ms:.4f} ms device a sweep, "
                       f"bitwise equal to the package's launches: {same[-1]} on {card}")

@@ -13,7 +13,8 @@ here:
   2048 x 8) and grid (16 x 16 x 128) level shapes and its invariants over
   a grid of shapes;
 - a numpy model of that order matches the plain twin
-  `level_bwd_subst_plain` to 1e-12 in float64 at ragged shapes, with the
+  `level_bwd_subst_plain` (the operands laid out behind the zero slot and
+  read in place, `bwd_stage`) to 1e-12 in float64 at ragged shapes, with the
   row chunks forced small;
 - the plain twin matches the JAX package's `bwd_sub_level` (Pallas,
   interpret mode) to 1e-12 in float64 at the grid's row counts.
@@ -28,6 +29,7 @@ from theseus_tpu.sparse.pallas_factorize import bwd_sub_level
 from theseus_tpu_torch.sparse.level_kernels import (
     FWD_SMEM_MAX,
     FWD_THREADS_MAX,
+    bwd_stage,
     bwd_subst_geometry,
     bwd_subst_smem,
     level_bwd_subst_plain,
@@ -152,7 +154,7 @@ def test_order_model_matches_twin(rl, B, d):
     args = _inputs(rng, 3, rl, B, d)
     bt, rc = bwd_subst_geometry(3, rl, B, d, 8, H100_MIN_BLOCKS)
     got = model(*args, bt, rc)
-    want = level_bwd_subst_plain(*(torch.as_tensor(a) for a in args)).numpy()
+    want = bwd_stage(*(torch.as_tensor(a) for a in args)).run(level_bwd_subst_plain).numpy()
     np.testing.assert_allclose(got, want, atol=1e-12 * np.abs(want).max(), rtol=0)
 
 
@@ -166,7 +168,7 @@ def test_chunked_order_model_matches_twin(rl, rc, bt):
     args = _inputs(rng, 2, rl, 33, 6)
     got = model(*args, bt, rc)
     np.testing.assert_array_equal(got, model(*args, bt, rl - 1))
-    want = level_bwd_subst_plain(*(torch.as_tensor(a) for a in args)).numpy()
+    want = bwd_stage(*(torch.as_tensor(a) for a in args)).run(level_bwd_subst_plain).numpy()
     np.testing.assert_allclose(got, want, atol=1e-12 * np.abs(want).max(), rtol=0)
 
 
@@ -175,8 +177,8 @@ def test_twin_matches_jax_interpret_kernel(C, rl, B):
     """The JAX package's `bwd_sub_level` in Pallas interpret mode, on the
     same float64 inputs in its layout ((C, rl, d*d, B), (C, rl, d, B),
     (C, d, B)), against the plain twin in the port's ((C, rl, B, d, d), ...):
-    1e-12 relative to the largest entry. Padded rows are zero, as
-    `bwd_operands` leaves them."""
+    1e-12 relative to the largest entry. Padded rows are zero, as the
+    plain twin's `bwd_operands` gathers them."""
     d = 6
     rng = np.random.default_rng(C * rl + B)
     lcol, xr, y = _inputs(rng, C, rl, B, d)
@@ -186,6 +188,6 @@ def test_twin_matches_jax_interpret_kernel(C, rl, B):
     jx = jnp.asarray(xr.transpose(0, 1, 3, 2))
     jy = jnp.asarray(y.transpose(0, 2, 1))
     want = np.asarray(bwd_sub_level(jl, jx, jy, d, interpret=True)).transpose(0, 2, 1)
-    got = level_bwd_subst_plain(*(torch.as_tensor(a) for a in (lcol, xr, y))).numpy()
+    got = bwd_stage(*(torch.as_tensor(a) for a in (lcol, xr, y))).run(level_bwd_subst_plain).numpy()
     np.testing.assert_allclose(got, want, atol=1e-12 * np.abs(want).max(), rtol=0)
     np.testing.assert_allclose(model(lcol, xr, y, 1, 1), want, atol=1e-12 * np.abs(want).max(), rtol=0)

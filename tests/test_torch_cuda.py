@@ -24,12 +24,16 @@ from theseus_tpu_torch.sparse.assemble import assemble
 from theseus_tpu_torch.sparse.assemble_kernel import assemble_blocks, assemble_blocks_plain
 from theseus_tpu_torch.sparse.cholesky import factorize, solve_with_factor
 from theseus_tpu_torch.sparse.level_kernels import (
+    bwd_stage,
+    factor_stage,
+    fwd_stage,
     level_bwd_subst,
     level_bwd_subst_plain,
     level_factor,
     level_factor_plain,
     level_fwd_subst,
     level_fwd_subst_plain,
+    level_stages,
 )
 from theseus_tpu_torch.ops.reprojection import reprojection_linearize, reprojection_linearize_plain
 from theseus_tpu_torch.optim import LevenbergMarquardt
@@ -156,7 +160,8 @@ def test_level_kernels_match_twins(cuda_device, dtype):
 
 
 def test_level_kernels_ragged_shapes(cuda_device):
-    """Direct calls at shapes no PGO level has: ul, rl > 3, d = 3 and 8."""
+    """Direct calls at shapes no PGO level has: ul, rl > 3, d = 3 and 8, the
+    operands laid out behind the zero slot and read in place."""
     rng = np.random.default_rng(2)
     for d in (3, 8):
         C, ul, rl, B = 5, 7, 6, 33
@@ -166,14 +171,17 @@ def test_level_kernels_ragged_shapes(cuda_device):
         spd = t(C, B, d, d)
         col_a[:, 0] = spd @ spd.transpose(-1, -2) + 50.0 * torch.eye(d, dtype=dt, device=cuda_device)
         ks, kj = 0.1 * t(C, ul, rl, B, d, d), 0.1 * t(C, ul, B, d, d)
-        _close(level_factor(col_a, ks, kj), level_factor_plain(col_a, ks, kj), dt, 10.0)
+        st = factor_stage(col_a, ks, kj)
+        _close(st.run(level_factor), st.run(level_factor_plain), dt, 10.0)
         lower = torch.tril(t(C, B, d, d)) + 5.0 * torch.eye(d, dtype=dt, device=cuda_device)
         ljk, yk, b = t(C, ul, B, d, d), t(C, ul, B, d), t(C, B, d)
-        _close(level_fwd_subst(ljk, yk, b, lower), level_fwd_subst_plain(ljk, yk, b, lower), dt, 10.0)
+        st = fwd_stage(ljk, yk, b, lower)
+        _close(st.run(level_fwd_subst), st.run(level_fwd_subst_plain), dt, 10.0)
         lcol = t(C, rl, B, d, d)
         lcol[:, 0] = lower
         xr = t(C, rl, B, d)
-        _close(level_bwd_subst(lcol, xr, b), level_bwd_subst_plain(lcol, xr, b), dt, 10.0)
+        st = bwd_stage(lcol, xr, b)
+        _close(st.run(level_bwd_subst), st.run(level_bwd_subst_plain), dt, 10.0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -189,11 +197,12 @@ def test_level_fwd_subst_repeatable_and_matches_twin(cuda_device, dtype, C, ul, 
     t = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=dtype, device=cuda_device)  # noqa: E731
     ljk, yk, b = t(C, ul, B, d, d), t(C, ul, B, d), t(C, B, d)
     ldiag = torch.tril(t(C, B, d, d)) + 4.0 * torch.eye(d, dtype=dtype, device=cuda_device)
+    st = fwd_stage(ljk, yk, b, ldiag)
     _cuda.reset_launches()
-    y1 = level_fwd_subst(ljk, yk, b, ldiag)
-    y2 = level_fwd_subst(ljk, yk, b, ldiag)
+    y1 = st.run(level_fwd_subst)
+    y2 = st.run(level_fwd_subst)
     assert _cuda.launches["level_fwd_subst"] == 2
-    want = level_fwd_subst_plain(ljk, yk, b, ldiag)
+    want = st.run(level_fwd_subst_plain)
     torch.cuda.synchronize()
     assert torch.equal(y1, y2)
     _close(y1, want, dtype, float(want.abs().max()))
@@ -204,7 +213,7 @@ def test_level_factor_nonpositive_pivot_is_nan(cuda_device):
     col_a = -torch.eye(d, dtype=torch.float32, device=cuda_device).expand(1, 1, B, d, d).contiguous()
     ks = torch.zeros(1, 1, 1, B, d, d, device=cuda_device)
     kj = torch.zeros(1, 1, B, d, d, device=cuda_device)
-    out = level_factor(col_a, ks, kj)
+    out = factor_stage(col_a, ks, kj).run(level_factor)
     assert torch.isnan(out[0, 0, :, 0, 0]).all()
 
 
@@ -214,9 +223,10 @@ def test_kernels_reject_other_dtypes_and_wide_blocks(cuda_device):
         between_linearize(v, v, v)
     d = 9
     col_a = torch.zeros(1, 1, 2, d, d, device=cuda_device)
+    st = factor_stage(col_a, torch.zeros(1, 1, 1, 2, d, d, device=cuda_device),
+                      torch.zeros(1, 1, 2, d, d, device=cuda_device))
     with pytest.raises(ValueError):
-        level_factor(col_a, torch.zeros(1, 1, 1, 2, d, d, device=cuda_device),
-                     torch.zeros(1, 1, 2, d, d, device=cuda_device))
+        st.run(level_factor)
 
 
 def test_lm_solve_on_card_matches_cpu_twins(cuda_device):
@@ -931,11 +941,11 @@ def test_whole_bwd_subst_pieces_and_device_x(cuda_device, dtype, monkeypatch):
 # the redesigned level backward substitution on the grid's head levels
 # ---------------------------------------------------------------------------
 def _grid_bwd_levels(device, dtype, batch):
-    """The backward operands of every head level of the 16 x 16 grid ((C, rl)
-    from (118, 5) to (2, 15)), gathered by `bwd_operands` from a plain-twin
-    factorization and solve of its LM-damped system."""
+    """The backward stage of every head level of the 16 x 16 grid ((C, rl)
+    from (118, 5) to (2, 15)) on a plain-twin factorization and solve of its
+    LM-damped system."""
     from theseus_tpu_torch.sparse.assemble import apply_block_damping
-    from theseus_tpu_torch.sparse.cholesky import backward_sweep, bwd_operands, forward_sweep
+    from theseus_tpu_torch.sparse.cholesky import backward_sweep, forward_sweep
 
     opt, obj, vals = _grid_layer(device, dtype, rows=16, cols=16, batch=batch)
     co = obj.compile()
@@ -949,7 +959,7 @@ def _grid_bwd_levels(device, dtype, batch):
         perm, _, levels = bld.sched.on(device)
         y = forward_sweep(bld.sched, factor, atb[perm])
         x = backward_sweep(bld.sched, factor, y)
-    return [bwd_operands(t, factor.blocks, x, y) for t in levels]
+    return [level_stages(t, ata, factor.blocks, y, x, atb[perm])[2] for t in levels]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -962,29 +972,105 @@ def test_level_bwd_subst_grid_levels_chunked(cuda_device, dtype, batch, monkeypa
     from theseus_tpu_torch.sparse import level_kernels as lk
 
     levels = _grid_bwd_levels(cuda_device, dtype, batch)
-    assert max(lcol.shape[1] for lcol, _, _ in levels) == 15
+    assert max(st.dims[1] for st in levels) == 15
     whole = []
-    for lcol, xr, y in levels:
+    for st in levels:
         _cuda.reset_launches()
-        x1, x2 = level_bwd_subst(lcol, xr, y), level_bwd_subst(lcol, xr, y)
+        x1, x2 = st.run(level_bwd_subst), st.run(level_bwd_subst)
         assert _cuda.launches["level_bwd_subst"] == 2
-        want = level_bwd_subst_plain(lcol, xr, y)
+        want = st.run(level_bwd_subst_plain)
         torch.cuda.synchronize()
         assert torch.equal(x1, x2)
         _close(x1, want, dtype, max(1.0, float(want.abs().max())))
         whole.append(x1)
     isz = torch.empty((), dtype=dtype).element_size()
     for rows in (1, 2):
-        for (lcol, xr, y), x_all in zip(levels, whole):
-            C, rl, B = lcol.shape[:3]
-            sms = _cuda.sm_count(lcol.device.index)
+        for st, x_all in zip(levels, whole):
+            (C, rl, _), B = st.dims, batch
+            sms = _cuda.sm_count(cuda_device.index or 0)
             bt, _ = lk.bwd_subst_geometry(C, rl, B, 6, isz, lk.FWD_BLOCKS_PER_SM * sms)
             monkeypatch.setattr(lk, "FWD_SMEM_MAX", lk.bwd_subst_smem(bt, rows, 6, isz))
+            lk.bwd_subst_geometry.cache_clear()  # the launches look the geometry up in its cache
             assert lk.bwd_subst_geometry(C, rl, B, 6, isz, lk.FWD_BLOCKS_PER_SM * sms) == (bt, rows)
-            got = level_bwd_subst(lcol, xr, y)
+            got = st.run(level_bwd_subst)
             monkeypatch.undo()
+            lk.bwd_subst_geometry.cache_clear()
             torch.cuda.synchronize()
             assert torch.equal(got, x_all)
+
+
+def _level_system(device, dtype, graph):
+    """(schedule, LM-damped ata, atb), assembled by the plain twins, of the
+    64-pose chain at batch 8 or the 8 x 8 grid (head and dense tail) at 5."""
+    from theseus_tpu_torch.sparse.assemble import apply_block_damping
+
+    if graph == "chain":
+        bld, blocks = _pgo_normal(64, 8, dtype, device)
+    else:
+        opt, obj, vals = _grid_layer(device, dtype, rows=8, cols=8, batch=5)
+        co = obj.compile()
+        values = obj.default_values(vals)
+        state, aux = co.pack(values, 5), co.build_aux(values, 5)
+        bld = opt.normal_builder
+        with config.plain_path():
+            blocks = co.linearize_blocks(state, aux)
+    with config.plain_path():
+        ata, atb = assemble(bld.pattern, blocks)
+        ata = apply_block_damping(bld.pattern, ata, 1e-3, False, 1e-8)
+    return bld.sched, ata, atb
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("graph", ["chain", "grid"])
+def test_level_plan_reads_in_place(cuda_device, dtype, graph):
+    """The level kernels read AtA, the factor, y and x through the level
+    tables and write their columns in place: one launch a head level and
+    stage; slot 0 stays the zero block; two factorizations and solves give
+    the same bits, within tolerance of the twins; a NaN in b's row 0
+    reaches exactly the columns that update from column 0 (the padded
+    updates read zero, not y's row 0), and a NaN in x's row 0 before the
+    backward sweep (a row no column reads) reaches none."""
+    from theseus_tpu_torch.sparse.cholesky import backward_sweep, factorize_levels, forward_sweep
+
+    sched, ata, atb = _level_system(cuda_device, dtype, graph)
+    perm, _, levels = sched.on(cuda_device)
+    b_perm = atb[perm]
+    _cuda.reset_launches()
+    factor = factorize_levels(sched, ata)
+    assert _cuda.launches["level_factor"] == len(levels) == len(sched.sym.levels)
+    y = forward_sweep(sched, factor, b_perm)
+    x = backward_sweep(sched, factor, y)
+    assert _cuda.launches["level_fwd_subst"] == _cuda.launches["level_bwd_subst"] == len(levels)
+    again = factorize_levels(sched, ata)
+    torch.cuda.synchronize()
+    assert torch.equal(factor.blocks, again.blocks)
+    assert not factor.blocks[0].any()
+    with config.plain_path():
+        factor_p = factorize_levels(sched, ata)
+        y_p = forward_sweep(sched, factor_p, b_perm)
+    _close(factor.blocks, factor_p.blocks, dtype, float(factor_p.blocks.abs().max()))
+    _close(y, y_p, dtype, 10.0 * float(y_p.abs().max()))
+
+    nh = sched.n_head
+    dep = np.zeros(nh, dtype=bool)
+    dep[0] = True
+    for j in range(1, nh):
+        dep[j] = any(dep[int(k)] for k in sched.sym.upd_lists[j])
+    dep = torch.as_tensor(dep, device=cuda_device)
+    b_nan = b_perm.clone()
+    b_nan[0] = float("nan")
+    y_nan = torch.zeros_like(b_nan)
+    level_fwd_subst(levels, factor.blocks, y_nan, b_nan)
+    torch.cuda.synchronize()
+    assert 0 < int(dep.sum()) < nh
+    assert torch.equal(torch.isnan(y_nan[:nh]).flatten(1).all(1), dep)
+    assert torch.equal(y_nan[:nh][~dep], y[:nh][~dep])
+    x_nan = torch.zeros_like(y)
+    x_nan[nh:] = x[nh:]
+    x_nan[0] = float("nan")
+    level_bwd_subst(reversed(levels), factor.blocks, x_nan, y)
+    torch.cuda.synchronize()
+    assert torch.equal(x_nan, x)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -1240,8 +1326,7 @@ def test_se2_kernels_match_twins_at_block_size_3(cuda_device, dtype, tmp_path):
     """The assembly and every level's three kernels against their twins at
     the shapes a 500-pose Manhattan graph gives them (d = 3, B = 1)."""
     from theseus_tpu_torch.sparse.assemble import _pad_jac
-    from theseus_tpu_torch.sparse.cholesky import (
-        backward_sweep, bwd_operands, factor_operands, forward_sweep, fwd_operands)
+    from theseus_tpu_torch.sparse.cholesky import backward_sweep, forward_sweep
 
     layer, inputs = _se2_layer(_manhattan_graph(tmp_path, 500, cuda_device), dtype, cuda_device)
     co = layer.objective.compile()
@@ -1263,13 +1348,11 @@ def test_se2_kernels_match_twins_at_block_size_3(cuda_device, dtype, tmp_path):
     for g, want in zip(got, assemble_blocks_plain(bld.pattern, padded)):
         _close(g, want, dtype, float(want.abs().max()))
     for t in levels:
-        fact, fwd, bwd = factor_operands(t, ata, lflat), fwd_operands(t, lflat, y, atb[perm]), bwd_operands(t, lflat, x, y)
-        want = level_factor_plain(*fact)
-        _close(level_factor(*fact), want, dtype, float(want.abs().max()))
-        want = level_fwd_subst_plain(*fwd)
-        _close(level_fwd_subst(*fwd), want, dtype, float(want.abs().max()))
-        want = level_bwd_subst_plain(*bwd)
-        _close(level_bwd_subst(*bwd), want, dtype, float(want.abs().max()))
+        for st, k, pl in zip(level_stages(t, ata, lflat, y, x, atb[perm]),
+                             (level_factor, level_fwd_subst, level_bwd_subst),
+                             (level_factor_plain, level_fwd_subst_plain, level_bwd_subst_plain)):
+            want = st.run(pl)
+            _close(st.run(k), want, dtype, float(want.abs().max()))
     assert _cuda.launches["assemble_blocks"] == 1
     assert _cuda.launches["level_factor"] == _cuda.launches["level_bwd_subst"] == len(levels)
 
@@ -1363,8 +1446,7 @@ def test_planner_kernels_match_twins_at_block_size_2(cuda_device, dtype, batch):
     them (d = 2), and sample_with_factor's backward sweep on the same y
     (_as_accurate_as_twin)."""
     from theseus_tpu_torch.sparse.assemble import _pad_jac
-    from theseus_tpu_torch.sparse.cholesky import (
-        Factor, backward_sweep, bwd_operands, factor_operands, forward_sweep, fwd_operands, sample_with_factor)
+    from theseus_tpu_torch.sparse.cholesky import Factor, backward_sweep, forward_sweep, sample_with_factor
 
     planner = _planner(dtype, cuda_device)
     co = planner.objective.compile()
@@ -1394,11 +1476,14 @@ def test_planner_kernels_match_twins_at_block_size_2(cuda_device, dtype, batch):
     _cuda.reset_launches()
     for g, want in zip(assemble_blocks(bld.pattern, padded), assemble_blocks_plain(bld.pattern, padded)):
         _close(g, want, dtype, float(want.abs().max()))
+    def stage_run(fn, st):
+        return lambda *arrays: st._replace(arrays=arrays).run(fn)
+
     for t in levels:
-        for k, pl, ops in ((level_factor, level_factor_plain, factor_operands(t, ata, lflat)),
-                           (level_fwd_subst, level_fwd_subst_plain, fwd_operands(t, lflat, y, atb[perm])),
-                           (level_bwd_subst, level_bwd_subst_plain, bwd_operands(t, lflat, x, y))):
-            _as_accurate_as_twin(k, pl, ops, dtype)
+        for st, k, pl in zip(level_stages(t, ata, lflat, y, x, atb[perm]),
+                             (level_factor, level_fwd_subst, level_bwd_subst),
+                             (level_factor_plain, level_fwd_subst_plain, level_bwd_subst_plain)):
+            _as_accurate_as_twin(stage_run(k, st), stage_run(pl, st), st.arrays, dtype)
     assert _cuda.launches["assemble_blocks"] == 1
     assert _cuda.launches["level_factor"] == _cuda.launches["level_bwd_subst"] == len(levels)
     _as_accurate_as_twin(lambda l_, y_: sample_with_factor(bld.sched, Factor(l_), y_),

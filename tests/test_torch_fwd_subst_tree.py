@@ -11,7 +11,8 @@ first design's statements. The kernel runs only on the card
 - the geometry `fwd_subst_geometry` at the PGO main-path shapes and its
   invariants over a grid of shapes;
 - a numpy model of that order matches the plain twin
-  `level_fwd_subst_plain` to 1e-12 in float64 at ragged shapes.
+  `level_fwd_subst_plain` to 1e-12 in float64 at ragged shapes, the
+  operands laid out behind the zero slot and read in place (`fwd_stage`).
 """
 
 import numpy as np
@@ -21,6 +22,7 @@ import torch
 from theseus_tpu_torch.sparse.level_kernels import (
     FWD_SMEM_MAX,
     FWD_THREADS_MAX,
+    fwd_stage,
     fwd_subst_geometry,
     level_fwd_subst_plain,
 )
@@ -119,7 +121,7 @@ def test_order_model_matches_twin(ul, B, d):
     args = _inputs(rng, 3, ul, B, d)
     bt, gu, uc = fwd_subst_geometry(3, ul, B, d, 8, H100_MIN_BLOCKS)
     got = model(*args, bt, gu, uc)
-    want = level_fwd_subst_plain(*(torch.as_tensor(a) for a in args)).numpy()
+    want = fwd_stage(*(torch.as_tensor(a) for a in args)).run(level_fwd_subst_plain).numpy()
     np.testing.assert_allclose(got, want, atol=1e-12 * np.abs(want).max(), rtol=0)
 
 
@@ -132,5 +134,5 @@ def test_chunked_order_model_matches_twin(ul, uc):
     args = _inputs(rng, 2, ul, 5, 6)
     got = model(*args, 1, 32, uc)
     np.testing.assert_array_equal(got, model(*args, 1, 32, ul))
-    want = level_fwd_subst_plain(*(torch.as_tensor(a) for a in args)).numpy()
+    want = fwd_stage(*(torch.as_tensor(a) for a in args)).run(level_fwd_subst_plain).numpy()
     np.testing.assert_allclose(got, want, atol=1e-12 * np.abs(want).max(), rtol=0)

@@ -34,7 +34,8 @@ from test_torch_whole_fwd_records import _builder, _system
 from test_torch_whole_records import _pgo
 from theseus_tpu_torch import _cuda
 from theseus_tpu_torch.sparse import whole
-from theseus_tpu_torch.sparse.cholesky import Factor, _bwd_scan, bwd_operands, forward_sweep
+from theseus_tpu_torch.sparse.cholesky import Factor, _bwd_scan, forward_sweep
+from theseus_tpu_torch.sparse.level_kernels import bwd_operands
 from theseus_tpu_torch.sparse.whole import (
     WHOLE_SUBST_RECORD_BUFS,
     bwd_records,

@@ -31,8 +31,8 @@ from test_torch_fwd_subst_tree import model as level_model
 from test_torch_whole_records import _pgo
 from theseus_tpu_torch import _cuda, config
 from theseus_tpu_torch.sparse.assemble import apply_block_damping, assemble
-from theseus_tpu_torch.sparse.cholesky import _fwd_scan, factorize_levels, fwd_operands
-from theseus_tpu_torch.sparse.level_kernels import fwd_subst_geometry, update_lanes
+from theseus_tpu_torch.sparse.cholesky import _fwd_scan, factorize_levels
+from theseus_tpu_torch.sparse.level_kernels import fwd_operands, fwd_subst_geometry, update_lanes
 from theseus_tpu_torch.sparse.whole import (
     WHOLE_SUBST_RECORD_BUFS,
     WHOLE_SUBST_SMEM_MAX,

@@ -147,14 +147,16 @@ _SIGNATURES = {
         ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_I), _I,
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P,
     ],
-    # col_a, ks, kj, C, rl, ul, B, d, out, stream
-    "th_level_factor": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
-    # ljk, yk, b, ldiag, C, ul, B, d, batch tile, lanes per output, u
-    # chunk (sparse/level_kernels.py fwd_subst_geometry), y, stream
-    "th_level_fwd_subst": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
-    # lcol, xr, y, C, rl, B, d, batch tile, rows a chunk
-    # (sparse/level_kernels.py bwd_subst_geometry), x, stream
-    "th_level_bwd_subst": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    # ata, lflat (written in place), the level's record
+    # (sparse/level_kernels.py level_record), C, rl, ul, B, d, stream
+    "th_level_factor": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # lflat, y (written in place), b, record, C, rl, ul, B, d, batch tile,
+    # lanes per output, u chunk (sparse/level_kernels.py
+    # fwd_subst_geometry), stream
+    "th_level_fwd_subst": [_P] * 4 + [_I] * 8 + [_P],
+    # lflat, x (written in place), y, record, C, rl, ul, B, d, batch tile,
+    # rows a chunk (sparse/level_kernels.py bwd_subst_geometry), stream
+    "th_level_bwd_subst": [_P] * 4 + [_I] * 7 + [_P],
     # pose, point, focal, feat, k1, k2, (k, b) strides of the four aux,
     # K, B, threads, shared-memory bytes (ops/reprojection.py
     # reprojection_geometry), jpose, jpt, err, stream

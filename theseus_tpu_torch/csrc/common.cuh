@@ -10,6 +10,29 @@
 
 #define TH_EXPORT extern "C" __attribute__((visibility("default")))
 
+// One elimination-tree level's int32 record (sparse/level_kernels.py
+// `level_record`), read by level_factor.cu and level_subst.cu: per column c
+// of the level's C, its column `cols`, its valid rows `nrow` and updates
+// `nupd` (each a prefix of the level's rl rows and ul updates), the slot of
+// its diagonal block; per (c, row) the AtA slot (negative: read transposed),
+// the factor slot and the row's column; per (c, u) the slot of L[j, k] and
+// the update's column k; per (c, u, row) the slot of L[row, k] (0, the zero
+// block, where the row is not in k's pattern).
+struct LevelRecord {
+  const int *cols, *nrow, *nupd, *diag, *a_src, *col_slots, *row_ids, *jk_slots, *upd_k, *upd_slots;
+  __device__ LevelRecord(const int* r, int C, int rl, int ul)
+      : cols(r),
+        nrow(r + C),
+        nupd(r + 2 * C),
+        diag(r + 3 * C),
+        a_src(r + 4 * C),
+        col_slots(a_src + C * rl),
+        row_ids(col_slots + C * rl),
+        jk_slots(row_ids + C * rl),
+        upd_k(jk_slots + C * ul),
+        upd_slots(upd_k + C * ul) {}
+};
+
 // The tile kernels (between_se3.cu, reprojection.cu; level_subst.cu's
 // backward kernel per row of a column): a block owns a contiguous range of
 // items, stages its input tiles in shared memory and stores its output

@@ -14,9 +14,15 @@
 // i.e. NaN, which is NOT clamped: LM detects a failed solve through
 // non-finite deltas (optim/normal.py:76-77).
 //
-// The gathers that build col_a / ks / kj, the a_tr transpose, the valid mask
-// and the scatter into the factor stay outside, as indexed torch ops, as on
-// the TPU.
+// The kernel reads its operands in place, through the level's int32 record
+// (common.cuh LevelRecord): A_r from AtA's slot a_src (transposed where the
+// slot is negative), ks[u, r] and kj[u] from the factor's slots upd_slots and
+// jk_slots, and writes each valid row's block straight into the factor at
+// col_slots. Only a column's nupd updates and nrow rows are read and
+// formed: a padded update would add 0 * 0 (a no-op on a sum that starts at
+// +0), and a padded row is not written, so slot 0 stays the zero block.
+// Within a level every column reads slots of earlier levels and writes its
+// own, so reads and writes never alias.
 //
 // What bounds it on the H100: memory in principle (at PGO 256 x 128 float32
 // a sweep reads and writes 67 MB: 0.020 ms), latency in practice. A level
@@ -52,8 +58,8 @@
 // within 48 KB). No tensor cores: the d x d blocks are far below a wgmma
 // tile, and TF32 would break the float32 tolerance and the bit equality.
 //
-// Layout: AoS col_a (C, rl, B, d, d), ks (C, ul, rl, B, d, d), kj (C, ul, B,
-// d, d); out (C, rl, B, d, d).
+// Layout: AoS ata (n_slots, B, d, d), lflat (nnz_l + 1, B, d, d): a slot's
+// batch tile is one contiguous run, which the staging copies.
 
 #include <cuda_pipeline.h>
 
@@ -87,12 +93,11 @@ size_t smem_bytes(int tile, int rc, int uc) {
 
 // ROWS: one thread per block row (r, b, i); else one per entry (r, b, i, j)
 template <typename T, int D, bool ROWS>
-__global__ void level_factor_kernel(const T* __restrict__ col_a, const T* __restrict__ ks,
-                                    const T* __restrict__ kj, int C, int rl, int ul, int B,
-                                    int tile, int rc, int uc, bool vec, T* __restrict__ out) {
+__global__ void level_factor_kernel(const T* __restrict__ ata, T* lflat, const int* __restrict__ rec,
+                                    int C, int rl, int ul, int B, int tile, int rc, int uc, bool vec) {
   constexpr int DD = D * D;
-  // 16-byte copies: a (u, r) run of tb d x d blocks starts 16-byte aligned
-  // when d^2 elements are a multiple of 16 bytes and the inputs are aligned
+  // 16-byte copies: a slot's run of tb d x d blocks starts 16-byte aligned
+  // when d^2 elements are a multiple of 16 bytes and the factor is aligned
   constexpr int V = (DD * sizeof(T)) % 16 == 0 ? 16 / static_cast<int>(sizeof(T)) : 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nbt = (B + tile - 1) / tile;
@@ -106,11 +111,15 @@ __global__ void level_factor_kernel(const T* __restrict__ col_a, const T* __rest
   T* stage = cbuf + rc * blk;
   const int stage_sz = uc * per_u;
 
-  const long long rowB = static_cast<long long>(B) * DD;  // stride of r (col_a, ks, out) and u (kj)
-  const T* a_c = col_a + static_cast<long long>(c) * rl * rowB + static_cast<long long>(b0) * DD;
-  const T* ks_c = ks + static_cast<long long>(c) * ul * rl * rowB + static_cast<long long>(b0) * DD;
-  const T* kj_c = kj + static_cast<long long>(c) * ul * rowB + static_cast<long long>(b0) * DD;
-  T* o_c = out + static_cast<long long>(c) * rl * rowB + static_cast<long long>(b0) * DD;
+  const LevelRecord lr(rec, C, rl, ul);
+  const int nrow = lr.nrow[c];
+  const int nupd = lr.nupd[c];
+  const int* a_src = lr.a_src + static_cast<long long>(c) * rl;
+  const int* col_slots = lr.col_slots + static_cast<long long>(c) * rl;
+  const int* jk = lr.jk_slots + static_cast<long long>(c) * ul;
+  const int* upd = lr.upd_slots + static_cast<long long>(c) * ul * rl;
+  const long long rowB = static_cast<long long>(B) * DD;  // stride of a slot
+  const long long boff = static_cast<long long>(b0) * DD;
 
   // phase 1: entries j0 .. j0 + J - 1 of block row (rr, bt, i), i fastest
   constexpr int J = ROWS ? D : 1;
@@ -123,17 +132,17 @@ __global__ void level_factor_kernel(const T* __restrict__ col_a, const T* __rest
   const int a3 = threadIdx.x % D;
   const int bt3 = (threadIdx.x / D) % tile;
   const int r3 = threadIdx.x / (D * tile);
-  const int nq = (ul + uc - 1) / uc;
+  const int nq = (nupd + uc - 1) / uc;
 
-  for (int r0 = 0; r0 < rl; r0 += rc) {
-    const int nr = min(rc, rl - r0);
-    const int run = tb * DD;  // contiguous elements of one (u, r) block of the tile
+  for (int r0 = 0; r0 < nrow; r0 += rc) {
+    const int nr = min(rc, nrow - r0);
+    const int run = tb * DD;  // contiguous elements of one slot's tile
     // cp.async of u chunk q into stage buffer q & 1: nr ks rows and the kj
     // row per u, w elements (16 bytes when aligned, else one) per copy
     const int w = vec ? V : 1;
     auto issue = [&](int q) {
       const int u0 = q * uc;
-      const int nu = min(uc, ul - u0);
+      const int nu = min(uc, nupd - u0);
       T* dst = stage + (q & 1) * stage_sz;
       const int runw = run / w;
       const int n = nu * (nr + 1) * runw;
@@ -142,9 +151,8 @@ __global__ void level_factor_kernel(const T* __restrict__ col_a, const T* __rest
         const int rem = idx % ((nr + 1) * runw);
         const int row = rem / runw;
         const int x = (rem % runw) * w;
-        const T* src = row < nr
-                           ? ks_c + (static_cast<long long>(u0 + uu) * rl + r0 + row) * rowB + x
-                           : kj_c + static_cast<long long>(u0 + uu) * rowB + x;
+        const int slot = row < nr ? upd[(u0 + uu) * rl + r0 + row] : jk[u0 + uu];
+        const T* src = lflat + slot * rowB + boff + x;
         T* to = dst + uu * per_u + (row < nr ? row : rc) * blk + x;
         if (w == V && V > 1)
           __pipeline_memcpy_async(to, src, 16);
@@ -163,8 +171,10 @@ __global__ void level_factor_kernel(const T* __restrict__ col_a, const T* __rest
     if (nq > 0) issue(0);
     // A's loads go out with the staging copies, not after them
     if (mine) {
+      const int sa = a_src[r0 + rr];
+      const T* ap = ata + (sa < 0 ? -sa : sa) * rowB + boff + bt * DD;
 #pragma unroll
-      for (int j = 0; j < J; ++j) av[j] = a_c[(r0 + rr) * rowB + e0 + j];
+      for (int j = 0; j < J; ++j) av[j] = sa < 0 ? ap[(j0 + j) * D + i] : ap[i * D + j0 + j];
     }
     for (int q = 0; q < nq; ++q) {
       if (q + 1 < nq) {
@@ -176,7 +186,7 @@ __global__ void level_factor_kernel(const T* __restrict__ col_a, const T* __rest
       __syncthreads();
       if (mine) {
         const T* buf = stage + (q & 1) * stage_sz;
-        const int nu = min(uc, ul - q * uc);
+        const int nu = min(uc, nupd - q * uc);
         for (int uu = 0; uu < nu; ++uu) {
           const T* kr = buf + uu * per_u + rr * blk + bt * DD + i * D;
           const T* kjb = buf + uu * per_u + rc * blk + bt * DD + j0 * D;
@@ -258,11 +268,11 @@ __global__ void level_factor_kernel(const T* __restrict__ col_a, const T* __rest
     }
     __syncthreads();
 
-    // ---- write-out: entries fastest, batch next ----------------------------
+    // ---- write-out into the factor's slots: entries fastest, batch next --
     for (int t = threadIdx.x; t < nr * tb * DD; t += blockDim.x) {
       const int rw = t / (tb * DD);
       const int x = t % (tb * DD);
-      o_c[(r0 + rw) * rowB + x] = cbuf[rw * blk + x];
+      lflat[col_slots[r0 + rw] * rowB + boff + x] = cbuf[rw * blk + x];
     }
     __syncthreads();  // before the next pass reuses cbuf
   }
@@ -305,9 +315,9 @@ Geometry pick(int C, int rl, int ul, int B, int cap, int unit) {
 }
 
 template <typename T, int D, bool ROWS>
-int launch_m(const void* col_a, const void* ks, const void* kj, int C, int rl, int ul, int B,
-             void* out, cudaStream_t stream) {
-  const bool vec = (reinterpret_cast<size_t>(ks) | reinterpret_cast<size_t>(kj)) % 16 == 0;
+int launch_m(const void* ata, void* lflat, const int* rec, int C, int rl, int ul, int B,
+             cudaStream_t stream) {
+  const bool vec = reinterpret_cast<size_t>(lflat) % 16 == 0;
   const int cap = thread_cap<T, D, ROWS>();
   const int unit = ROWS ? D : D * D;
   if (cap < unit) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -315,27 +325,27 @@ int launch_m(const void* col_a, const void* ks, const void* kj, int C, int rl, i
   const long long blocks = static_cast<long long>(C) * ((B + g.tile - 1) / g.tile);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   level_factor_kernel<T, D, ROWS><<<static_cast<unsigned>(blocks), g.threads, g.smem, stream>>>(
-      static_cast<const T*>(col_a), static_cast<const T*>(ks), static_cast<const T*>(kj), C, rl,
-      ul, B, g.tile, g.rc, g.uc, vec, static_cast<T*>(out));
+      static_cast<const T*>(ata), static_cast<T*>(lflat), rec, C, rl, ul, B, g.tile, g.rc, g.uc, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
-int launch_d(const void* col_a, const void* ks, const void* kj, int C, int rl, int ul, int B,
-             void* out, cudaStream_t stream) {
+int launch_d(const void* ata, void* lflat, const int* rec, int C, int rl, int ul, int B,
+             cudaStream_t stream) {
   if (C <= 0 || rl <= 0 || B <= 0) return 0;
   if (static_cast<long long>(C) * rl * B * D * D > LF_ROW_ENTRIES)
-    return launch_m<T, D, true>(col_a, ks, kj, C, rl, ul, B, out, stream);
-  return launch_m<T, D, false>(col_a, ks, kj, C, rl, ul, B, out, stream);
+    return launch_m<T, D, true>(ata, lflat, rec, C, rl, ul, B, stream);
+  return launch_m<T, D, false>(ata, lflat, rec, C, rl, ul, B, stream);
 }
 
 template <typename T>
-int launch(const void* col_a, const void* ks, const void* kj, int C, int rl, int ul, int B, int d,
-           void* out, void* stream) {
+int launch(const void* ata, void* lflat, const void* rec, int C, int rl, int ul, int B, int d,
+           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* r = static_cast<const int*>(rec);
 #define TH_LF_CASE(DD) \
   case DD:             \
-    return launch_d<T, DD>(col_a, ks, kj, C, rl, ul, B, out, st);
+    return launch_d<T, DD>(ata, lflat, r, C, rl, ul, B, st);
   switch (d) {
     TH_LF_CASE(1)
     TH_LF_CASE(2)
@@ -353,12 +363,15 @@ int launch(const void* col_a, const void* ks, const void* kj, int C, int rl, int
 
 }  // namespace
 
-TH_EXPORT int th_level_factor_f32(const void* col_a, const void* ks, const void* kj, int C, int rl,
-                                  int ul, int B, int d, void* out, void* stream) {
-  return launch<float>(col_a, ks, kj, C, rl, ul, B, d, out, stream);
+// ata (n_slots, B, d, d); lflat (nnz_l + 1, B, d, d), the level's valid
+// rows written in place; rec: the level's record, C columns padded to rl
+// rows and ul updates
+TH_EXPORT int th_level_factor_f32(const void* ata, void* lflat, const void* rec, int C, int rl,
+                                  int ul, int B, int d, void* stream) {
+  return launch<float>(ata, lflat, rec, C, rl, ul, B, d, stream);
 }
 
-TH_EXPORT int th_level_factor_f64(const void* col_a, const void* ks, const void* kj, int C, int rl,
-                                  int ul, int B, int d, void* out, void* stream) {
-  return launch<double>(col_a, ks, kj, C, rl, ul, B, d, out, stream);
+TH_EXPORT int th_level_factor_f64(const void* ata, void* lflat, const void* rec, int C, int rl,
+                                  int ul, int B, int d, void* stream) {
+  return launch<double>(ata, lflat, rec, C, rl, ul, B, d, stream);
 }

@@ -6,15 +6,22 @@
 // every batch element:
 //   forward:  y_j = L_jj^{-1} (b_j - sum_u L_jk[u] y_k[u])
 //   backward: x_j = L_jj^{-T} (y_j - sum_{r>=1} L_rj[r]^T x_r[r])
-// The backward kernel ignores row 0 of its operands (the diagonal block's
-// row) and expects rows that are invalid or above the diagonal to be zeroed
-// by the caller (pallas_factorize.py:204-206, cholesky.py bwd_operands); the
-// forward kernel likewise expects invalid updates zeroed. The iterative
-// refinement step reuses both kernels.
+// Both kernels read their operands in place, through the level's int32
+// record (common.cuh LevelRecord), and write their column's rows in place:
+//   forward:  L_jk from the factor's slots jk_slots, y_k from y's rows upd_k,
+//             L_jj from the slot diag, b_j from b's row cols -> y's row cols;
+//   backward: L_rj from the factor's slots col_slots (row 0 the diagonal),
+//             x_r from x's rows row_ids, y_j from y's row cols -> x's row cols.
+// Only a column's nupd updates (forward) and nrow rows (backward) are read:
+// a padded term is not read at all, so it reads as exact zero whatever y[0]
+// or x[0] hold, and leaves the sums' bits as they were (+0 products add
+// nothing). Within a level every column reads rows of earlier levels (the
+// forward's updates, the backward's rows below the diagonal) and writes its
+// own, so reads and writes never alias. The iterative refinement step
+// reuses both kernels.
 //
-// AoS layout: forward ljk (C, ul, B, d, d), yk (C, ul, B, d), b (C, B, d),
-// ldiag (C, B, d, d) -> y (C, B, d); backward lcol (C, rl, B, d, d),
-// xr (C, rl, B, d), y (C, B, d) -> x (C, B, d).
+// Layout: AoS lflat (nnz_l + 1, B, d, d), b, y, x (n, B, d): a slot's or a
+// row's batch tile is one contiguous run.
 //
 // What bounds it on the H100: memory and launch latency. The kernel reads
 // ul (or rl) d x d blocks for 2 d^2 flops each: about half a flop per byte,
@@ -25,7 +32,7 @@
 // thread paid ul dependent memory latencies, neighbouring lanes read blocks
 // 144 bytes apart, and a wide level (C = 32, ul = 1) filled 16 SMs. Now a
 // block owns (column c, a tile of bt batch elements) and:
-//   1. copies the tile's ul (ljk, yk) runs, its diagonal blocks and b into
+//   1. copies the tile's nupd (ljk, yk) runs, its diagonal blocks and b into
 //      shared memory by cp.async: for a fixed (c, u) the tile's blocks are
 //      contiguous, so neighbouring lanes copy neighbouring elements, and
 //      every load of the level is in flight at once (one memory round trip);
@@ -44,15 +51,15 @@
 // to 5, rl up to 15) a thread paid rl - 1 dependent memory round trips and
 // the launch filled 2 to 5 SMs, with lanes reading blocks 144 bytes apart.
 // Now a block owns (column c, a tile of bt batch elements) and:
-//   1. copies the tile's rows 1 .. rl - 1 of lcol and xr, its diagonal
+//   1. copies the tile's rows 1 .. nrow - 1 of lcol and xr, its diagonal
 //      blocks and y into shared memory by cp.async (16 bytes a copy where
 //      both ends are aligned): for a fixed (c, r) the tile's blocks are
 //      contiguous, and every load of the column is in flight at once;
 //   2. gives d lanes to each batch element, lane jj owning output jj, which
 //      runs the first design's chain: s = y[jj], then s -= L_r[i][jj] x_r[i]
-//      over r = 1, 2, ... in order, i inner, padded rows included (s - L 0
-//      can flip the sign of a zero), so the bits do not change and the whole
-//      backward sweep (whole_subst.cu) still equals this one;
+//      over r = 1, 2, ... in order, i inner (a real row whose x is 0 is
+//      kept: s - L 0 can flip the sign of a zero), so the bits do not change
+//      and the whole backward sweep (whole_subst.cu) still equals this one;
 //   3. one thread per batch element solves L_jj^T x = y - sum with the first
 //      design's statements, and the tile's x leaves through shared memory in
 //      coalesced (16-byte where aligned) stores.
@@ -67,9 +74,9 @@
 namespace {
 
 template <typename T, int D>
-__global__ void fwd_subst_kernel(const T* __restrict__ ljk, const T* __restrict__ yk,
-                                 const T* __restrict__ bvec, const T* __restrict__ ldiag, int C,
-                                 int ul, int B, int bt, int gu, int uc, T* __restrict__ y) {
+__global__ void fwd_subst_kernel(const T* __restrict__ lflat, T* y, const T* __restrict__ bvec,
+                                 const int* __restrict__ rec, int C, int rl, int ul, int B, int bt,
+                                 int gu, int uc) {
   constexpr int DD = D * D;
   extern __shared__ __align__(16) unsigned char fs_smem[];
   const int nbt = (B + bt - 1) / bt;
@@ -82,12 +89,15 @@ __global__ void fwd_subst_kernel(const T* __restrict__ ljk, const T* __restrict_
   T* acc = lds + bt * DD;                 // [bt d] b, then b - sum
   const long long rowL = static_cast<long long>(B) * DD;
   const long long rowY = static_cast<long long>(B) * D;
-  const long long cb = static_cast<long long>(c) * B + b0;
-  const T* l_c = ljk + static_cast<long long>(c) * ul * rowL + static_cast<long long>(b0) * DD;
-  const T* y_c = yk + static_cast<long long>(c) * ul * rowY + static_cast<long long>(b0) * D;
+  const LevelRecord lr(rec, C, rl, ul);
+  const int nupd = lr.nupd[c];
+  const int* jk = lr.jk_slots + static_cast<long long>(c) * ul;
+  const int* uk = lr.upd_k + static_cast<long long>(c) * ul;
+  const long long cb = static_cast<long long>(lr.cols[c]) * B + b0;  // (row, batch) of the output
+  const T* ld_c = lflat + lr.diag[c] * rowL + static_cast<long long>(b0) * DD;
 
   for (int x = threadIdx.x; x < tb * DD; x += blockDim.x)
-    __pipeline_memcpy_async(lds + x, ldiag + cb * DD + x, sizeof(T));
+    __pipeline_memcpy_async(lds + x, ld_c + x, sizeof(T));
   for (int x = threadIdx.x; x < tb * D; x += blockDim.x)
     __pipeline_memcpy_async(acc + x, bvec + cb * D + x, sizeof(T));
 
@@ -97,17 +107,17 @@ __global__ void fwd_subst_kernel(const T* __restrict__ ljk, const T* __restrict_
   const int i = o % D;
   const bool mine = bl < tb;
   T part = T(0);
-  for (int u0 = 0; u0 < ul; u0 += uc) {
-    const int nu = min(uc, ul - u0);
+  for (int u0 = 0; u0 < nupd; u0 += uc) {
+    const int nu = min(uc, nupd - u0);
     for (int x = threadIdx.x; x < nu * tb * DD; x += blockDim.x) {
       const int uu = x / (tb * DD);
       const int r = x % (tb * DD);
-      __pipeline_memcpy_async(ls + uu * bt * DD + r, l_c + (u0 + uu) * rowL + r, sizeof(T));
+      __pipeline_memcpy_async(ls + uu * bt * DD + r, lflat + jk[u0 + uu] * rowL + b0 * DD + r, sizeof(T));
     }
     for (int x = threadIdx.x; x < nu * tb * D; x += blockDim.x) {
       const int uu = x / (tb * D);
       const int r = x % (tb * D);
-      __pipeline_memcpy_async(ys + uu * bt * D + r, y_c + (u0 + uu) * rowY + r, sizeof(T));
+      __pipeline_memcpy_async(ys + uu * bt * D + r, y + uk[u0 + uu] * rowY + b0 * D + r, sizeof(T));
     }
     __pipeline_commit();
     __pipeline_wait_prior(0);
@@ -122,7 +132,7 @@ __global__ void fwd_subst_kernel(const T* __restrict__ ljk, const T* __restrict_
     }
     __syncthreads();  // before the next chunk overwrites the buffers
   }
-  if (ul <= 0) {
+  if (nupd <= 0) {
     __pipeline_commit();
     __pipeline_wait_prior(0);
     __syncthreads();
@@ -170,9 +180,9 @@ __device__ __forceinline__ bool aligned16(const T* p) {
 }
 
 template <typename T, int D>
-__global__ void bwd_subst_kernel(const T* __restrict__ lcol, const T* __restrict__ xr,
-                                 const T* __restrict__ yvec, int C, int rl, int B, int bt, int rc,
-                                 T* __restrict__ x) {
+__global__ void bwd_subst_kernel(const T* __restrict__ lflat, T* x, const T* __restrict__ yvec,
+                                 const int* __restrict__ rec, int C, int rl, int ul, int B, int bt,
+                                 int rc) {
   constexpr int DD = D * D;
   extern __shared__ __align__(16) unsigned char bs_smem[];
   const int nbt = (B + bt - 1) / bt;
@@ -187,25 +197,29 @@ __global__ void bwd_subst_kernel(const T* __restrict__ lcol, const T* __restrict
   T* vs = l0s + sl;                       // [sx] y, then y - sum, then x
   const long long rowL = static_cast<long long>(B) * DD;
   const long long rowX = static_cast<long long>(B) * D;
-  const long long cb = static_cast<long long>(c) * B + b0;
-  const T* l_c = lcol + static_cast<long long>(c) * rl * rowL + static_cast<long long>(b0) * DD;
-  const T* x_c = xr + static_cast<long long>(c) * rl * rowX + static_cast<long long>(b0) * D;
+  const LevelRecord lr(rec, C, rl, ul);
+  const int* cs = lr.col_slots + static_cast<long long>(c) * rl;
+  const int* rid = lr.row_ids + static_cast<long long>(c) * rl;
+  const long long cb = static_cast<long long>(lr.cols[c]) * B + b0;  // (row, batch) of the output
+  const long long lb = static_cast<long long>(b0) * DD;
+  const long long xb = static_cast<long long>(b0) * D;
 
-  th_stage_tile(l0s, l_c, tb * DD, aligned16(l_c));
+  const T* l0 = lflat + cs[0] * rowL + lb;
+  th_stage_tile(l0s, l0, tb * DD, aligned16(l0));
   th_stage_tile(vs, yvec + cb * D, tb * D, aligned16(yvec + cb * D));
 
   const int bl = threadIdx.x / D;  // lane threadIdx.x owns output jj of batch element bl
   const int jj = threadIdx.x - bl * D;
   const bool mine = bl < tb;
-  const int rows = rl - 1;
+  const int rows = lr.nrow[c] - 1;
   const int chunks = rows > 0 ? (rows + rc - 1) / rc : 1;
   T s = T(0);
   for (int k = 0; k < chunks; ++k) {
     const int r0 = 1 + k * rc;
     const int nr = min(rc, rows - k * rc);
     for (int rr = 0; rr < nr; ++rr) {
-      const T* lsrc = l_c + (r0 + rr) * rowL;
-      const T* xsrc = x_c + (r0 + rr) * rowX;
+      const T* lsrc = lflat + cs[r0 + rr] * rowL + lb;
+      const T* xsrc = x + rid[r0 + rr] * rowX + xb;
       th_stage_tile(ls + rr * sl, lsrc, tb * DD, aligned16(lsrc));
       th_stage_tile(xs + rr * sx, xsrc, tb * D, aligned16(xsrc));
     }
@@ -259,8 +273,8 @@ __global__ void bwd_subst_kernel(const T* __restrict__ lcol, const T* __restrict
   }
 
 template <typename T, int D>
-int fwd_d(const void* ljk, const void* yk, const void* b, const void* ldiag, int C, int ul, int B,
-          int bt, int gu, int uc, void* y, cudaStream_t st) {
+int fwd_d(const void* lflat, void* y, const void* b, const int* rec, int C, int rl, int ul, int B,
+          int bt, int gu, int uc, cudaStream_t st) {
   if (C <= 0 || B <= 0) return 0;
   const int threads = (bt * D * gu + 31) / 32 * 32;
   if (bt < 1 || gu < 1 || gu > 32 || (gu & (gu - 1)) || uc < 1 || (uc < ul && uc % gu) ||
@@ -271,14 +285,14 @@ int fwd_d(const void* ljk, const void* yk, const void* b, const void* ldiag, int
   const long long blocks = static_cast<long long>(C) * ((B + bt - 1) / bt);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   fwd_subst_kernel<T, D><<<static_cast<unsigned>(blocks), threads, smem, st>>>(
-      static_cast<const T*>(ljk), static_cast<const T*>(yk), static_cast<const T*>(b),
-      static_cast<const T*>(ldiag), C, ul, B, bt, gu, uc, static_cast<T*>(y));
+      static_cast<const T*>(lflat), static_cast<T*>(y), static_cast<const T*>(b), rec, C, rl, ul, B,
+      bt, gu, uc);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
-int bwd_d(const void* lcol, const void* xr, const void* y, int C, int rl, int B, int bt, int rc,
-          void* x, cudaStream_t st) {
+int bwd_d(const void* lflat, void* x, const void* y, const int* rec, int C, int rl, int ul, int B,
+          int bt, int rc, cudaStream_t st) {
   if (C <= 0 || B <= 0) return 0;
   const int threads = bt * D;
   if (rl < 1 || bt < 1 || rc < 1 || threads > 1024 || bwd_smem_bytes<T, D>(bt, rc) > 48 * 1024)
@@ -286,49 +300,58 @@ int bwd_d(const void* lcol, const void* xr, const void* y, int C, int rl, int B,
   const long long blocks = static_cast<long long>(C) * ((B + bt - 1) / bt);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   bwd_subst_kernel<T, D><<<static_cast<unsigned>(blocks), threads, bwd_smem_bytes<T, D>(bt, rc), st>>>(
-      static_cast<const T*>(lcol), static_cast<const T*>(xr), static_cast<const T*>(y), C, rl, B, bt, rc,
-      static_cast<T*>(x));
+      static_cast<const T*>(lflat), static_cast<T*>(x), static_cast<const T*>(y), rec, C, rl, ul, B,
+      bt, rc);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int fwd(const void* ljk, const void* yk, const void* b, const void* ldiag, int C, int ul, int B,
-        int d, int bt, int gu, int uc, void* y, void* stream) {
+int fwd(const void* lflat, void* y, const void* b, const void* rec, int C, int rl, int ul, int B,
+        int d, int bt, int gu, int uc, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define TH_FWD(DD) fwd_d<T, DD>(ljk, yk, b, ldiag, C, ul, B, bt, gu, uc, y, st)
+  const int* r = static_cast<const int*>(rec);
+#define TH_FWD(DD) fwd_d<T, DD>(lflat, y, b, r, C, rl, ul, B, bt, gu, uc, st)
   TH_SUB_SWITCH(TH_FWD)
 #undef TH_FWD
 }
 
 template <typename T>
-int bwd(const void* lcol, const void* xr, const void* y, int C, int rl, int B, int d, int bt, int rc,
-        void* x, void* stream) {
+int bwd(const void* lflat, void* x, const void* y, const void* rec, int C, int rl, int ul, int B,
+        int d, int bt, int rc, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define TH_BWD(DD) bwd_d<T, DD>(lcol, xr, y, C, rl, B, bt, rc, x, st)
+  const int* r = static_cast<const int*>(rec);
+#define TH_BWD(DD) bwd_d<T, DD>(lflat, x, y, r, C, rl, ul, B, bt, rc, st)
   TH_SUB_SWITCH(TH_BWD)
 #undef TH_BWD
 }
 
 }  // namespace
 
-TH_EXPORT int th_level_fwd_subst_f32(const void* ljk, const void* yk, const void* b,
-                                     const void* ldiag, int C, int ul, int B, int d, int bt,
-                                     int gu, int uc, void* y, void* stream) {
-  return fwd<float>(ljk, yk, b, ldiag, C, ul, B, d, bt, gu, uc, y, stream);
+// lflat (nnz_l + 1, B, d, d); y (n, B, d), the level's rows written in
+// place; b (n, B, d); rec: the level's record, C columns padded to rl rows
+// and ul updates
+TH_EXPORT int th_level_fwd_subst_f32(const void* lflat, void* y, const void* b, const void* rec,
+                                     int C, int rl, int ul, int B, int d, int bt, int gu, int uc,
+                                     void* stream) {
+  return fwd<float>(lflat, y, b, rec, C, rl, ul, B, d, bt, gu, uc, stream);
 }
 
-TH_EXPORT int th_level_fwd_subst_f64(const void* ljk, const void* yk, const void* b,
-                                     const void* ldiag, int C, int ul, int B, int d, int bt,
-                                     int gu, int uc, void* y, void* stream) {
-  return fwd<double>(ljk, yk, b, ldiag, C, ul, B, d, bt, gu, uc, y, stream);
+TH_EXPORT int th_level_fwd_subst_f64(const void* lflat, void* y, const void* b, const void* rec,
+                                     int C, int rl, int ul, int B, int d, int bt, int gu, int uc,
+                                     void* stream) {
+  return fwd<double>(lflat, y, b, rec, C, rl, ul, B, d, bt, gu, uc, stream);
 }
 
-TH_EXPORT int th_level_bwd_subst_f32(const void* lcol, const void* xr, const void* y, int C,
-                                     int rl, int B, int d, int bt, int rc, void* x, void* stream) {
-  return bwd<float>(lcol, xr, y, C, rl, B, d, bt, rc, x, stream);
+// lflat (nnz_l + 1, B, d, d); x (n, B, d), the level's rows written in
+// place; y (n, B, d)
+TH_EXPORT int th_level_bwd_subst_f32(const void* lflat, void* x, const void* y, const void* rec,
+                                     int C, int rl, int ul, int B, int d, int bt, int rc,
+                                     void* stream) {
+  return bwd<float>(lflat, x, y, rec, C, rl, ul, B, d, bt, rc, stream);
 }
 
-TH_EXPORT int th_level_bwd_subst_f64(const void* lcol, const void* xr, const void* y, int C,
-                                     int rl, int B, int d, int bt, int rc, void* x, void* stream) {
-  return bwd<double>(lcol, xr, y, C, rl, B, d, bt, rc, x, stream);
+TH_EXPORT int th_level_bwd_subst_f64(const void* lflat, void* x, const void* y, const void* rec,
+                                     int C, int rl, int ul, int B, int d, int bt, int rc,
+                                     void* stream) {
+  return bwd<double>(lflat, x, y, rec, C, rl, ul, B, d, bt, rc, stream);
 }

@@ -4,10 +4,12 @@ Two numeric plans give one factor value, `Factor`: the head's blocks in
 the AoS (nnz_l+1, B, d, d) with slot 0 zero, and the dense tail's matrix:
 
 - the level plan (the default): every elimination-tree level is eliminated
-  by one gather, one `level_factor` launch and one scatter, and both
-  substitutions sweep the levels with one `level_fwd_subst` /
-  `level_bwd_subst` launch per level (the JAX package's
-  `_factorize_levels_pallas` / `_solve_levels_pallas`);
+  by one `level_factor` launch, and both substitutions sweep the levels
+  with one `level_fwd_subst` / `level_bwd_subst` launch per level (the JAX
+  package's `_factorize_levels_pallas` / `_solve_levels_pallas`); each
+  launch reads AtA, the factor and the vectors in place through the
+  level's int32 record and writes its columns in place, so no gather,
+  mask or scatter runs around it;
 - the whole-sweep plan (`config.set_whole_sweep(True)`, the JAX package's
   `PALLAS_WHOLE`): one launch per factorization and per substitution sweep
   (sparse/whole.py). Its plain twin is the per-column left-looking plan
@@ -35,7 +37,7 @@ factorization.
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -44,7 +46,7 @@ from .. import config
 from ..ops.batched_linalg import chol_small, rt_solve_lower, solve_lower_vec, solve_upper_vec
 from ..tracing import span
 from .assemble import BlockPattern
-from .level_kernels import level_bwd_subst, level_factor, level_fwd_subst, tail_update
+from .level_kernels import level_bwd_subst, level_factor, level_fwd_subst, level_on, tail_update
 from .refine import block_matvec, hp_dtype, refine, refine_active, solve_vjp
 from .structure import SymbolicFactor
 from .whole import solve_whole, whole_factor
@@ -261,67 +263,38 @@ class NumericSchedule:
         return self._device[key]
 
     def on(self, device: torch.device):
-        """(perm, iperm, per-level tables) as index tensors on `device`,
-        built once per device. Bool tables become masks; the backward
-        sweep's `below` mask (valid rows under the diagonal) is added."""
+        """(perm, iperm, per-level tables) on `device`, built once per
+        device: perm and iperm as long indices, each level's tables as
+        `level_kernels.level_on` puts them (int32 indices, bool masks, the
+        kernels' record)."""
         key = str(device)
         if key not in self._device:
-            levels: List[dict] = []
-            for t in self.level_tables:
-                lt = {k: _index_tensor(v, device) for k, v in t.items()}
-                rl = t["row_valid"].shape[1]
-                lt["below"] = _index_tensor(t["row_valid"] & (np.arange(rl)[None, :] > 0), device)
-                levels.append(lt)
+            levels = [level_on(t, device) for t in self.level_tables]
             self._device[key] = (_index_tensor(self.perm, device), _index_tensor(self.iperm, device), levels)
         return self._device[key]
 
 
-# Per-level operands of the three level kernels. The gathers, the a_tr
-# transpose and the masks are indexed torch ops around the kernels, as they
-# were XLA ops around the Pallas kernels.
-def factor_operands(t, ata_flat, lflat):
-    """(col_a (C, rl, B, d, d), ks (C, ul, rl, B, d, d), kj (C, ul, B, d, d))."""
-    col_a = ata_flat[t["a_src"]]
-    col_a = torch.where(t["a_tr"][:, :, None, None, None], col_a.transpose(-1, -2), col_a)
-    return col_a, lflat[t["upd_slots"]], lflat[t["jk_slots"]]
-
-
-def fwd_operands(t, lflat, y, b_perm):
-    """(ljk, yk with invalid updates zeroed, b, ldiag) of one forward level."""
-    yk = torch.where(t["upd_valid"][:, :, None, None], y[t["upd_k"]], 0.0)
-    return lflat[t["jk_slots"]], yk, b_perm[t["cols"]], lflat[t["diag_slots"]]
-
-
-def bwd_operands(t, lflat, x, y):
-    """(lcol, xr with row 0 and invalid rows zeroed, y) of one backward level."""
-    xr = torch.where(t["below"][:, :, None, None], x[t["row_ids"]], 0.0)
-    return lflat[t["col_slots"]], xr, y[t["cols"]]
-
-
 def factorize_levels(sched: NumericSchedule, ata_flat: torch.Tensor) -> Factor:
     """Level plan: ata_flat (n_slots, B, d, d) -> the Factor: the head level
-    by level into its blocks, then the dense tail."""
+    by level into its blocks, in place, then the dense tail."""
     _, _, levels = sched.on(ata_flat.device)
+    ata_flat = ata_flat.contiguous()
     bsz, d = ata_flat.shape[1], ata_flat.shape[-1]
     lflat = torch.zeros(
         (sched.sym.nnz_l + 1, bsz, d, d), dtype=ata_flat.dtype, device=ata_flat.device
     )
-    for t in levels:
-        newcol = level_factor(*factor_operands(t, ata_flat, lflat))
-        newcol = torch.where(t["valid"][:, :, None, None, None], newcol, 0.0)
-        # invalid rows all write zeros into the slot-0 sentinel
-        lflat[t["col_slots"]] = newcol
+    level_factor(levels, ata_flat, lflat)
     tail = _tail_dense_eliminate(sched, ata_flat, lflat) if sched.tail_k else None
     return Factor(lflat, tail)
 
 
 def forward_sweep(sched: NumericSchedule, factor: Factor, b_perm):
-    """L y = b_perm in elimination order: the head level by level, then the
-    dense tail."""
+    """L y = b_perm in elimination order: the head level by level, in
+    place, then the dense tail."""
     _, _, levels = sched.on(b_perm.device)
+    b_perm = b_perm.contiguous()
     y = torch.zeros_like(b_perm)
-    for t in levels:
-        y[t["cols"]] = level_fwd_subst(*fwd_operands(t, factor.blocks, y, b_perm))
+    level_fwd_subst(levels, factor.blocks, y, b_perm)
     if sched.tail_k:
         y[sched.n_head:] = _tail_fwd_solve(sched, factor, y, b_perm)
     return y
@@ -329,13 +302,13 @@ def forward_sweep(sched: NumericSchedule, factor: Factor, b_perm):
 
 def backward_sweep(sched: NumericSchedule, factor: Factor, y):
     """L^T x = y in elimination order: the dense tail first (the head's
-    columns read its x), then the head levels in reverse."""
+    columns read its x), then the head levels in reverse, in place."""
     _, _, levels = sched.on(y.device)
+    y = y.contiguous()
     x = torch.zeros_like(y)
     if sched.tail_k:
         x[sched.n_head:] = _tail_bwd_solve(sched, factor, y)
-    for t in reversed(levels):
-        x[t["cols"]] = level_bwd_subst(*bwd_operands(t, factor.blocks, x, y))
+    level_bwd_subst(reversed(levels), factor.blocks, x, y)
     return x
 
 
